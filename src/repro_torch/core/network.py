@@ -1,0 +1,273 @@
+"""Multi-layer TNN: a stack of TNNLayers over a stream of volleys.
+
+Each layer's post-WTA output spikes — at most one line hot per column,
+carrying the winner's fire time — form the input volley of the next layer.
+Flattened, layer l emits ``n_columns * n_neurons`` lines, which must equal
+layer l+1's ``n_inputs`` (checked at construction). Weights are a tuple of
+(C, Q, rf_total) float tensors.
+
+A recurrent layer (``TNNLayer.recurrent``) also sees its own previous-cycle
+output volley, so :func:`forward` threads an explicit per-layer ``carry``
+(previous outputs in, this cycle's outputs out).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, NamedTuple, Optional, Sequence, Tuple, Union
+
+import torch
+
+from repro_torch.core import coding
+from repro_torch.core import layer as layer_mod
+from repro_torch.kernels.common import resolve_device
+
+
+@dataclasses.dataclass(frozen=True)
+class TNNNetwork:
+    layers: Tuple[layer_mod.TNNLayer, ...]
+
+    def __post_init__(self):
+        if not self.layers:
+            raise ValueError("network needs at least one layer")
+        for i in range(1, len(self.layers)):
+            prev, cur = self.layers[i - 1], self.layers[i]
+            if prev.n_outputs != cur.n_inputs:
+                raise ValueError(
+                    f"layer {i - 1} emits {prev.n_outputs} lines but layer "
+                    f"{i} consumes {cur.n_inputs}")
+
+    @property
+    def n_inputs(self) -> int:
+        return self.layers[0].n_inputs
+
+    @property
+    def n_outputs(self) -> int:
+        return self.layers[-1].n_outputs
+
+    @property
+    def column_counts(self) -> Tuple[int, ...]:
+        """Per-layer column counts."""
+        return tuple(lc.n_columns for lc in self.layers)
+
+
+def make_network(layers: Sequence[layer_mod.TNNLayer]) -> TNNNetwork:
+    return TNNNetwork(layers=tuple(layers))
+
+
+def init_network(generator: torch.Generator, cfg: TNNNetwork,
+                 device: Union[str, torch.device, None] = None
+                 ) -> Tuple[torch.Tensor, ...]:
+    """Random per-layer weights from ``generator``, on ``device``
+    (``None`` = ``cuda``; raises when CUDA is absent)."""
+    dev = resolve_device(device)
+    return tuple(layer_mod.init_layer(generator, lc, dev)
+                 for lc in cfg.layers)
+
+
+class ForwardResult(NamedTuple):
+    """Everything one gamma cycle produces (:func:`forward`).
+
+    ``out``: (B, C_last, Q_last) int32 post-WTA spike times of the last
+    layer. ``winners``: per-layer (B, C_l) winner indices. ``carry``:
+    per-layer next-cycle carry — layer l's flattened output volley
+    (B, n_outputs_l) for recurrent layers, ``None`` for feedforward ones.
+    ``densities``: per-layer measured input densities when requested, else
+    ``None``. A 1-D single volley drops the batch dim from every tensor.
+    """
+
+    out: torch.Tensor
+    winners: Tuple[torch.Tensor, ...]
+    carry: Tuple[Optional[torch.Tensor], ...]
+    densities: Optional[List[float]]
+
+
+def init_carry(cfg: TNNNetwork, batch: int,
+               device: Union[str, torch.device] = "cpu"
+               ) -> Tuple[Optional[torch.Tensor], ...]:
+    """Per-layer all-silent carry for the first gamma cycle of a stream:
+    (batch, n_outputs_l) all-``NO_SPIKE`` for recurrent layers, ``None``
+    for feedforward ones."""
+    return tuple(layer_mod.carry_init(lc, batch, device) if lc.recurrent
+                 else None for lc in cfg.layers)
+
+
+# repro-lint: unplaced (single-device stack; multi-GPU columns come later)
+def forward(params: Sequence[torch.Tensor], volleys: torch.Tensor,
+            cfg: TNNNetwork, *, microbatches: int = 1,
+            with_densities: bool = False,
+            carry: Optional[Sequence[Optional[torch.Tensor]]] = None
+            ) -> ForwardResult:
+    """One gamma cycle through the whole stack.
+
+    ``microbatches > 1`` runs the software-pipelined schedule (bit-exact vs
+    the barriered one for every backend and any M); ``with_densities=True``
+    records each layer's measured input density (barriered only); ``carry``
+    threads recurrent state, ``None`` entries (or ``carry=None``) meaning
+    the all-silent first cycle of a stream.
+
+    Args:
+      params:  per-layer weights, layer l shaped (C_l, Q_l, rf_total_l).
+      volleys: (B, n_inputs) int32 input spike volleys — or (n_inputs,).
+      microbatches: pipeline micro-batches M (clamped to [1, B]).
+      with_densities: also report per-layer measured input densities
+        (requires ``microbatches == 1``).
+      carry: per-layer carry-in, layer l (B, n_outputs_l) int32 for
+        recurrent layers, ``None`` for feedforward ones.
+
+    Returns:
+      :class:`ForwardResult` — ``result.carry`` is the carry-in for the
+      stream's next gamma cycle.
+    """
+    n_layers = len(cfg.layers)
+    if carry is None:
+        carry_in: Tuple[Optional[torch.Tensor], ...] = (None,) * n_layers
+    else:
+        if len(carry) != n_layers:
+            raise ValueError(f"carry has {len(carry)} entries for "
+                             f"{n_layers} layers")
+        carry_in = tuple(carry)
+    single = volleys.dim() == 1
+    x = (volleys[None, :] if single else volleys).to(torch.int32)
+    if single:
+        carry_in = tuple(c[None, :] if c is not None and c.dim() == 1 else c
+                         for c in carry_in)
+    m, rows = microbatch_split(x.shape[0], microbatches)
+    if with_densities and m > 1:
+        raise ValueError("with_densities requires microbatches == 1 "
+                         "(density measurement is a whole-batch "
+                         "diagnostic)")
+    if m > 1:
+        res = _forward_pipelined(params, x, cfg, carry_in, m, rows)
+    else:
+        res = _forward_barriered(params, x, cfg, carry_in, with_densities)
+    if single:
+        res = ForwardResult(
+            out=res.out[0],
+            winners=tuple(w[0] for w in res.winners),
+            carry=tuple(c if c is None else c[0] for c in res.carry),
+            densities=res.densities)
+    return res
+
+
+def _forward_barriered(params, x, cfg, carry_in, with_densities
+                       ) -> ForwardResult:
+    """Whole-batch barrier at every layer (the M=1 schedule)."""
+    winners_all, carry_out = [], []
+    densities: Optional[list] = [] if with_densities else None
+    out = None
+    for w, lc, c in zip(params, cfg.layers, carry_in):
+        if densities is not None:
+            densities.append(layer_mod.layer_input_density(x, lc, c))
+        out, winners = layer_mod.layer_forward(w, x, lc, c)
+        winners_all.append(winners)
+        x = out.reshape(out.shape[0], lc.n_outputs)
+        carry_out.append(x if lc.recurrent else None)
+    return ForwardResult(out, tuple(winners_all), tuple(carry_out),
+                         densities)
+
+
+def microbatch_split(batch: int, microbatches: int) -> Tuple[int, int]:
+    """(effective M, rows per micro-batch) for a pipelined split.
+
+    Clamps ``microbatches`` to [1, batch], ceil-splits the rows, then
+    recomputes the effective count (a ragged batch can need fewer
+    micro-batches than requested). The serve engine's per-stage stats use
+    the same split.
+    """
+    if batch <= 0:
+        return 0, 0
+    m = max(1, min(int(microbatches), batch))
+    rows = -(-batch // m)
+    return -(-batch // rows), rows
+
+
+def _pad_rows(x: torch.Tensor, rows: int) -> torch.Tensor:
+    """Append all-``NO_SPIKE`` rows (inert) up to ``rows``."""
+    if x.shape[0] >= rows:
+        return x
+    pad = torch.full((rows - x.shape[0],) + tuple(x.shape[1:]),
+                     coding.NO_SPIKE, dtype=x.dtype, device=x.device)
+    return torch.cat([x, pad])
+
+
+def _forward_pipelined(params, x, cfg, carry_in, m, rows) -> ForwardResult:
+    """One gamma cycle through the stack, software-pipelined.
+
+    The batch splits into M micro-batches; at pipeline tick t, layer l
+    computes micro-batch t - l, so the L layers work on distinct
+    micro-batches. Warmup/drain ticks feed all-``NO_SPIKE`` stage buffers,
+    which fire nothing, so the padding is inert; a ragged batch is padded
+    the same way. A recurrent layer's carry rows ride the same schedule:
+    tick l + j feeds micro-batch j's carry rows to layer l.
+    """
+    b = x.shape[0]
+    n_layers = len(cfg.layers)
+    dev = x.device
+    xs = _pad_rows(x, m * rows).reshape(m, rows, x.shape[-1])
+    carries = []
+    for lc, c in zip(cfg.layers, carry_in):
+        if not lc.recurrent:
+            carries.append(None)
+            continue
+        c_full = c if c is not None else layer_mod.carry_init(lc, b, dev)
+        carries.append(_pad_rows(c_full, m * rows).reshape(
+            m, rows, lc.n_outputs))
+    stage = [layer_mod.stage_init(lc, rows, dev) for lc in cfg.layers[1:]]
+    outs: List[torch.Tensor] = []
+    wins: List[List[torch.Tensor]] = [[] for _ in cfg.layers]
+    couts: List[List[torch.Tensor]] = [[] for _ in cfg.layers]
+    for tick in range(m + n_layers - 1):
+        new_stage = []
+        for i, (w, lc) in enumerate(zip(params, cfg.layers)):
+            j = tick - i                      # this layer's micro-batch
+            if i == 0:
+                inp = xs[j] if j < m else layer_mod.stage_init(lc, rows, dev)
+            else:
+                inp = stage[i - 1]
+            c_t = None
+            if lc.recurrent:
+                c_t = (carries[i][j] if 0 <= j < m
+                       else layer_mod.carry_init(lc, rows, dev))
+            out, win = layer_mod.layer_forward(w, inp, lc, c_t)
+            flat = out.reshape(rows, lc.n_outputs)
+            if 0 <= j < m:
+                wins[i].append(win)
+                if lc.recurrent:
+                    couts[i].append(flat)
+                if i == n_layers - 1:
+                    outs.append(out)
+            if i + 1 < n_layers:
+                new_stage.append(flat)
+        stage = new_stage
+    out = torch.cat(outs)[:b]
+    winners = tuple(torch.cat(ws)[:b] for ws in wins)
+    carry_out = tuple(torch.cat(cs)[:b] if lc.recurrent else None
+                      for cs, lc in zip(couts, cfg.layers))
+    return ForwardResult(out, winners, carry_out, None)
+
+
+def measured_densities(params: Sequence[torch.Tensor],
+                       volleys: torch.Tensor, cfg: TNNNetwork):
+    """Per-layer measured input densities for one batch, recorded on the
+    activations of one forward pass."""
+    return forward(params, volleys, cfg, with_densities=True).densities
+
+
+def sparse_widths(cfg: TNNNetwork, first: int) -> Tuple[int, ...]:
+    """Per-layer compaction widths for a sparse stack.
+
+    Layer 0 gets ``first`` — the caller's measured-and-bucketed active-line
+    bound for its feedforward receptive-field gather. Deeper layers need no
+    measurement: layer l consumes layer l-1's post-WTA lines, at most one
+    active per block of ``Q_prev``, so an ``rf``-wide window covers at most
+    ``(rf - 2) // Q_prev + 2`` blocks. A recurrent layer's Q carry lines are
+    a post-WTA volley of its own column — at most one active — so its width
+    grows by exactly 1.
+    """
+    widths = [max(int(first), 1) + (1 if cfg.layers[0].recurrent else 0)]
+    for prev, cur in zip(cfg.layers, cfg.layers[1:]):
+        q, rf = prev.n_neurons, cur.rf_size
+        bound = 1 if rf <= 1 else min(rf, (rf - 2) // q + 2, prev.n_columns)
+        widths.append(max(bound, 1) + (1 if cur.recurrent else 0))
+    return tuple(widths)

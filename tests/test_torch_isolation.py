@@ -1,0 +1,62 @@
+"""The port stands alone: no file of ``src/repro_torch/`` and not
+``chip_smoke.py`` imports ``jax`` or the reference package, and importing
+every port module leaves ``jax`` out of ``sys.modules``."""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+pytest.importorskip("torch")
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+FORBIDDEN = {"jax", "jaxlib", "repro"}
+
+
+def _port_files():
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0], node.lineno
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0], node.lineno
+
+
+def _modules():
+    return sorted(
+        ".".join(p.relative_to(PORT.parent).with_suffix("").parts)
+        .removesuffix(".__init__")
+        for p in PORT.rglob("*.py"))
+
+
+def test_no_port_file_imports_jax_or_the_reference():
+    files = _port_files()
+    assert len(files) > 10
+    bad = [f"{p.relative_to(ROOT)}:{line}: {root}"
+           for p in files for root, line in _imported_roots(p)
+           if root in FORBIDDEN]
+    assert not bad, bad
+
+
+def test_importing_every_port_module_leaves_jax_out(monkeypatch):
+    modules = _modules()
+    assert "repro_torch.serve.tnn_engine" in modules
+    code = ("import importlib, sys\n"
+            f"for m in {modules!r}:\n"
+            "    importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules\n"
+            "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+            "print(bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    monkeypatch.setenv("PYTHONPATH", str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
