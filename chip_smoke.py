@@ -1,13 +1,19 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, holds
-every kernel variant bit-exact against its plain PyTorch version on the
-card, then serves GRF-encoded client streams through ``TNNEngine`` at the
-full width of the largest TNN network the repository defines and checks
-every request's outputs against the CPU reference. Phases print one JSON
-line each; the last line is ``{"ok": true, "device": {...}}``. Any failure
-raises and exits non-zero; without CUDA it exits non-zero at once.
+Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` and
+drives the main path — ``TNNEngine`` serving GRF-encoded client streams at
+the full width of the largest TNN network the repository defines, three
+ways, and the single-bank entry point ``fire_times_bank``. A first pass
+records every distinct call each path makes to the RNL kernel wrappers,
+with its operands; every such call, and the repository's benchmark shapes
+and edge cases, is then held bit-exact against its plain PyTorch version
+on the card, timed and given its bound. The measured pass runs each path
+with the launch counts set to 0 just before it and read just after, and
+checks every request's outputs against the CPU reference. Phases print
+one JSON line each; the last line is ``{"ok": true, "device": {...}}``.
+Any failure raises and exits non-zero; without CUDA it exits non-zero at
+once.
 
 Run from the repository root:  python3 chip_smoke.py
 """
@@ -21,6 +27,7 @@ import statistics
 import subprocess
 import sys
 import time
+from typing import Any, Callable, Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -81,44 +88,52 @@ def time_ms(fn, reps: int = 30, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def kernel_ms(fn, reps: int = 50):
+def kernel_ms(fn, reps: int = 50, tries: int = 3):
     """Device time of the RNL kernel per ``fn()`` call in milliseconds, from
-    the profiler's CUDA activity (CUPTI). Returns None — the caller then
-    keeps the CUDA-event time — unless the profiler recorded exactly one
-    RNL kernel per call."""
+    the profiler's CUDA activity (CUPTI). A profile counts only when it
+    recorded exactly one RNL kernel per call; after ``tries`` profiles
+    without such a count it returns None, and the caller keeps the
+    CUDA-event time and says so in ``ms_source``."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    hits = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and "rnl_" in e.key]
-    if sum(e.count for e in hits) != reps:
-        return None
-    return sum(e.self_device_time_total for e in hits) / 1e3 / reps
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        hits = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and "rnl_" in e.key]
+        if sum(e.count for e in hits) == reps:
+            return sum(e.self_device_time_total for e in hits) / 1e3 / reps
+    return None
 
 
 def bound_ms(times, weights, fire, clip, t_steps, threshold):
     """Least time the card could take: the larger of the bytes the call must
     move over the memory rate and the int32 operations these inputs need
     over the int32 ALU rate; returns ``(ms, "bytes" | "operations")``.
-    Ticks are counted per pair up to its own last breakpoint, and up to its
-    first crossing when no clip is wanted (the kernel stops there)."""
+
+    Operations per (volley, neuron) pair: one check of each line for the
+    pair's sweep bound, then 3 per live line per tick (a live line has
+    ``times < t_steps`` and ``w > 0``; the others never add a ramp bit and
+    need no work), over the ticks up to the last live line's breakpoint —
+    up to the first crossing when no clip is wanted (the kernel stops
+    there) and at least one when ``threshold <= 0``."""
     tt = times[..., :, None, :].to(torch.int64)
-    ww = weights.clamp(min=0).to(torch.int64)
-    if weights.dim() == times.dim():
+    ww = weights.to(torch.int64)
+    if weights.dim() == times.dim():         # one weight row per neuron
         ww = ww[..., None, :, :]
-    t_hi = torch.where(tt < t_steps, tt + ww, 0).amax(dim=-1)
-    t_hi = t_hi.clamp(max=t_steps)
+    live = (tt < t_steps) & (ww > 0)         # (..., B, Q, n)
+    t_hi = torch.where(live, tt + ww, 0).amax(dim=-1).clamp(max=t_steps)
     if threshold <= 0:
         t_hi = t_hi.clamp(min=min(1, t_steps))
     if clip is None:
         fired = fire < coding.NO_SPIKE
         t_hi = torch.where(fired, torch.minimum(t_hi, fire + 1), t_hi)
-    ops = OPS_PER_LINE_TICK * times.shape[-1] * int(t_hi.sum())
+    ops = (OPS_PER_LINE_TICK * int((live.sum(dim=-1) * t_hi).sum())
+           + times.shape[-1] * fire.numel())
     nbytes = 4 * (times.numel() + weights.numel() + fire.numel()
                   + (clip.numel() if clip is not None else 0))
     by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
@@ -158,23 +173,143 @@ def bank_inputs(dev):
     return torch.from_numpy(x).to(dev), torch.from_numpy(w).to(dev)
 
 
-def kernel_cases(dev, params, streams):
-    """(variant, label, wrapper, plain, times, weights, kwargs) at the
-    repository's shapes, all on ``dev``."""
 
-    net = serve_network()
-    l1, l2 = net.layers
-    batch = torch.from_numpy(np.stack([s[0] for s in streams[:N_SLOTS]]))
-    batch = batch.to(dev)
-    w1 = torch.round(params[0]).to(torch.int32)
-    w2 = torch.round(params[1]).to(torch.int32)
-    x1 = layer._gather_rf(batch, l1).contiguous()             # (32, 64, 16)
-    out1 = network.forward(params[:1], batch,
-                           network.make_network([l1])).out
-    x2 = layer._gather_rf(out1.reshape(N_SLOTS, -1), l2).contiguous()
-    serve1 = dict(t_steps=T_STEPS, threshold=10, k=K)
-    serve2 = dict(t_steps=T_STEPS, threshold=8, k=K)
 
+#: the TPU kernel each wrapper replaces
+REPLACES = {"rnl_fire_times_layer": "src/repro/kernels/rnl_neuron.py:218",
+            "rnl_fire_times": "src/repro/kernels/rnl_neuron.py:157",
+            "rnl_fire_times_compact": "src/repro/kernels/rnl_neuron.py:276"}
+
+
+@dataclasses.dataclass
+class Path:
+    """One path of the main path: ``run()`` drives it once through the
+    entry points a user calls and returns ``(outputs, stats)``;
+    ``check(outputs, stats)`` raises unless they are right and returns the
+    fields to print; ``kernel`` is the wrapper the path must launch."""
+
+    name: str
+    kernel: str
+    run: Callable[[], Tuple[Any, Any]]
+    check: Callable[[Any, Any], Dict[str, Any]]
+
+
+def main_paths(dev, streams, ff, p_ff) -> List[Path]:
+    """Three ``TNNEngine`` serve runs at full width — ``auto`` (resolves to
+    ``fused`` on CUDA), ``fused_compact``, and L1 recurrent with 4 pipeline
+    micro-batches — and the single-bank entry point ``fire_times_bank`` at
+    bench_sparsity's full size. Outputs are held against the CPU
+    closed-form reference."""
+    rec = serve_network(recurrent=True)
+    p_rec = network.init_network(torch.Generator().manual_seed(1), rec,
+                                 device=dev)
+    refs: Dict[int, list] = {}
+
+    def cpu_reference(params, net):
+        if id(net) not in refs:
+            ref_net = network.make_network([
+                dataclasses.replace(lc, backend="closed_form")
+                for lc in net.layers])
+            cpu = tuple(p.cpu() for p in params)
+            refs[id(net)] = [tnn_engine.reference_outputs(cpu, ref_net, s)
+                             for s in streams]
+        return refs[id(net)]
+
+    def serve_path(name, backend, net, params, micro):
+        def run():
+            eng = tnn_engine.TNNEngine(
+                params, net,
+                tnn_engine.TNNServeConfig(n_slots=N_SLOTS, backend=backend,
+                                          pipeline_microbatches=micro),
+                device=dev)
+            return eng.serve(streams), eng.stats()
+
+        def check(results, st):
+            engines = {k[6:]: int(v) for k, v in st.items()
+                       if k.startswith("steps_")
+                       and not k.startswith("steps_predicted_")}
+            want_engine = "fused" if backend == "auto" else backend
+            if engines != {want_engine: int(st["n_steps"])}:
+                raise AssertionError(f"{name}: engines {engines}, expected "
+                                     f"every step on {want_engine}")
+            for i, (got, want) in enumerate(zip(results,
+                                                cpu_reference(params, net))):
+                if got.shape != (streams[i].shape[0], 24, 8) \
+                        or not np.array_equal(got, want):
+                    raise AssertionError(f"{name}: request {i} differs from "
+                                         f"the CPU closed-form reference")
+            return dict(requests=len(streams), volleys=int(st["n_volleys"]),
+                        steps=int(st["n_steps"]),
+                        volleys_per_s=st.get("volleys_per_s"),
+                        engine_steps=engines,
+                        latency_ms_p50=st.get("latency_ms_p50"),
+                        bit_exact=True)
+
+        kernel = ("rnl_fire_times_compact" if backend == "fused_compact"
+                  else "rnl_fire_times_layer")
+        return Path(name, kernel, run, check)
+
+    bank_x, bank_w = bank_inputs(dev)
+    bank_cfg = neuron.NeuronConfig(n_inputs=64, threshold=9, t_steps=64,
+                                   dendrite="catwalk", k=2)
+
+    def bank_run():
+        return neuron.fire_times_bank(bank_x, bank_w, bank_cfg,
+                                      backend="auto"), None
+
+    def bank_check(fire, _):
+        want = neuron.fire_times_bank(bank_x.cpu(), bank_w.cpu(), bank_cfg,
+                                      backend="closed_form")
+        if fire.dtype != torch.int32 or not torch.equal(fire.cpu(), want):
+            raise AssertionError("single_bank: fire times differ from the "
+                                 "CPU closed form")
+        return dict(volleys=int(bank_x.shape[0]), bit_exact=True)
+
+    return [serve_path("auto", "auto", ff, p_ff, 1),
+            serve_path("fused_compact", "fused_compact", ff, p_ff, 1),
+            serve_path("auto_recurrent_pipelined", "auto", rec, p_rec, 4),
+            Path("single_bank", "rnl_fire_times", bank_run, bank_check)]
+
+
+def capture(run) -> List[Dict[str, Any]]:
+    """Drives ``run()`` with the three RNL wrappers spied on. Returns, for
+    each distinct call (wrapper, operand shapes, options) in first-call
+    order, its number of calls and a copy of the operands of its busiest
+    call — the one with the most in-cycle spikes, so that a pipeline's
+    all-silent fill and drain ticks do not stand for the path."""
+    cases: Dict[tuple, Dict[str, Any]] = {}
+    originals = {name: getattr(rn, name) for name in REPLACES}
+
+    def spy(name, fn):
+        def call(times, weights, **kw):
+            key = (name, tuple(times.shape), tuple(weights.shape),
+                   tuple(sorted(kw.items())))
+            case = cases.setdefault(key, dict(wrapper=name, kw=dict(kw),
+                                              calls=0, spikes=-1))
+            case["calls"] += 1
+            spikes = int((times < kw["t_steps"]).sum())
+            if spikes > case["spikes"]:
+                case.update(times=times.clone(), weights=weights.clone(),
+                            spikes=spikes)
+            return fn(times, weights, **kw)
+        return call
+
+    for name, fn in originals.items():
+        setattr(rn, name, spy(name, fn))
+    try:
+        run()
+    finally:
+        for name, fn in originals.items():
+            setattr(rn, name, fn)
+    return list(cases.values())
+
+
+def synthetic_cases(dev):
+    """(variant, label, times, weights, kwargs) at the repository's
+    benchmark shapes and edge cases, all on ``dev``: bench_shard's full
+    size (C=64, B=32, rf=16, Q=16, T=64), bench_sparsity's (B=Q=n=T=64,
+    compact at density 0.1), ragged B and Q with negative weights and
+    spikes at or past the cycle end, threshold <= 0, k set and None."""
     gen = torch.Generator().manual_seed(0)
     rng = np.random.default_rng(0)
 
@@ -188,174 +323,137 @@ def kernel_cases(dev, params, streams):
         return torch.randint(lo, hi, shape, generator=gen,
                              dtype=torch.int32).to(dev)
 
-    # bench_shard full size: C=64, B=32, rf=16, Q=16, T=64, threshold 9, k 2
     shard_x, shard_w = volleys((64, 32, 16), 64, 0.25), weights((64, 16, 16))
     shard = dict(t_steps=64, threshold=9, k=2)
-    # bench_sparsity full size: B=Q=n=T=64, threshold 9, k 2
     sp_x, sp_w = bank_inputs(dev)
     sparse = dict(t_steps=64, threshold=9, k=2)
-    sp10 = volleys((64, 64), 64, 0.1)
-    comp = compaction.compact_volleys(sp10, 64)
+    comp = compaction.compact_volleys(volleys((64, 64), 64, 0.1), 64)
     sp10_c = comp.times.contiguous()
     sp10_w = compaction.gather_weights(sp_w, comp.line_index).contiguous()
-    # serving layer 1 compacted: columns folded into the batch
-    c1 = compaction.compact_volleys(x1, T_STEPS)
-    c1_t = c1.times.reshape(-1, c1.width).contiguous()
-    c1_w = compaction.gather_weights(w1, c1.line_index).reshape(
-        -1, w1.shape[1], c1.width).contiguous()
-    # ragged B and Q, negative weights, spikes at/past the cycle end
     rg_x = volleys((3, 13, 20), 24, 0.6)
     rg_w = weights((3, 11, 20), -2, 8)
     ragged = dict(t_steps=20, threshold=7, k=2)
     thr0 = dict(t_steps=20, threshold=0, k=None)
-    rg_c = compaction.compact_volleys(rg_x[0], 20)
-    rg_cw = compaction.gather_weights(rg_w[0], rg_c.line_index).contiguous()
-
-    L, Lp = rn.rnl_fire_times_layer, rn.rnl_fire_times_layer_plain
-    Bk, Bp = rn.rnl_fire_times, rn.rnl_fire_times_plain
-    Cp, Cpp = rn.rnl_fire_times_compact, rn.rnl_fire_times_compact_plain
+    rg_comp = compaction.compact_volleys(rg_x[0], 20)
+    rg_c = rg_comp.times.contiguous()
+    rg_cw = compaction.gather_weights(rg_w[0], rg_comp.line_index)
+    rg_cw = rg_cw.contiguous()
     clip = dict(with_clip=True)
     return [
-        ("layer", "serve_l1", L, Lp, x1, w1, serve1),
-        ("layer", "serve_l2", L, Lp, x2, w2, serve2),
-        ("layer", "shard", L, Lp, shard_x, shard_w, shard),
-        ("layer", "shard_k_none", L, Lp, shard_x, shard_w,
+        ("layer", "bench_shard", shard_x, shard_w, shard),
+        ("layer", "bench_shard_k_none", shard_x, shard_w,
          {**shard, "k": None}),
-        ("layer", "ragged", L, Lp, rg_x, rg_w, ragged),
-        ("layer", "ragged_threshold_0", L, Lp, rg_x, rg_w, thr0),
-        ("layer+clip", "serve_l1", L, Lp, x1, w1, {**serve1, **clip}),
-        ("layer+clip", "shard", L, Lp, shard_x, shard_w, {**shard, **clip}),
-        ("layer+clip", "ragged", L, Lp, rg_x, rg_w, {**ragged, **clip}),
-        ("bank", "sparsity", Bk, Bp, sp_x, sp_w, sparse),
-        ("bank", "sparsity_k_none", Bk, Bp, sp_x, sp_w,
-         {**sparse, "k": None}),
-        ("bank", "ragged", Bk, Bp, rg_x[0], rg_w[0], ragged),
-        ("bank", "ragged_threshold_neg", Bk, Bp, rg_x[0], rg_w[0],
+        ("layer", "ragged", rg_x, rg_w, ragged),
+        ("layer", "ragged_threshold_0", rg_x, rg_w, thr0),
+        ("layer+clip", "bench_shard", shard_x, shard_w, {**shard, **clip}),
+        ("layer+clip", "ragged", rg_x, rg_w, {**ragged, **clip}),
+        ("bank", "bench_sparsity_k_none", sp_x, sp_w, {**sparse, "k": None}),
+        ("bank", "ragged", rg_x[0], rg_w[0], ragged),
+        ("bank", "ragged_threshold_neg", rg_x[0], rg_w[0],
          {**thr0, "threshold": -3}),
-        ("bank+clip", "sparsity", Bk, Bp, sp_x, sp_w, {**sparse, **clip}),
-        ("bank+clip", "ragged", Bk, Bp, rg_x[0], rg_w[0],
-         {**ragged, **clip}),
-        ("compact", "sparsity_d0.1", Cp, Cpp, sp10_c, sp10_w, sparse),
-        ("compact", "serve_l1", Cp, Cpp, c1_t, c1_w, serve1),
-        ("compact", "ragged", Cp, Cpp, rg_c.times.contiguous(), rg_cw,
-         ragged),
-        ("compact", "ragged_threshold_0", Cp, Cpp, rg_c.times.contiguous(),
-         rg_cw, thr0),
+        ("bank+clip", "ragged", rg_x[0], rg_w[0], {**ragged, **clip}),
+        ("compact", "bench_sparsity_d0.1", sp10_c, sp10_w, sparse),
+        ("compact", "ragged", rg_c, rg_cw, ragged),
+        ("compact", "ragged_threshold_0", rg_c, rg_cw, thr0),
     ]
 
 
-def phase_kernels(dev, params, streams):
-    """Every launch variant against its plain version on the card."""
-    rows = {}
-    for variant, label, fn, plain, x, w, kw in kernel_cases(dev, params,
-                                                           streams):
-        got = fn(x, w, **kw)
-        want = plain(x, w, **kw)
+VARIANT = {"rnl_fire_times_layer": "layer", "rnl_fire_times": "bank",
+           "rnl_fire_times_compact": "compact"}
+WRAPPER = {"layer": "rnl_fire_times_layer", "bank": "rnl_fire_times",
+           "compact": "rnl_fire_times_compact"}
+
+
+def check_and_time(variant, label, x, w, kw, **extra) -> Dict[str, Any]:
+    """One launch variant against its plain version on the same inputs on
+    the card (bit-exact, or raise), then its times and bound."""
+    name = WRAPPER[variant.split("+")[0]]
+    fn, plain = getattr(rn, name), getattr(rn, name + "_plain")
+    got = fn(x, w, **kw)
+    want = plain(x, w, **kw)
+    torch.cuda.synchronize()
+    got_t = got if isinstance(got, tuple) else (got,)
+    want_t = want if isinstance(want, tuple) else (want,)
+    err = max(int((g.to(torch.int64) - r.to(torch.int64)).abs().max())
+              if g.numel() else 0 for g, r in zip(got_t, want_t))
+    if err != 0 or any(g.shape != r.shape or g.dtype != torch.int32
+                       for g, r in zip(got_t, want_t)):
+        raise AssertionError(f"{variant}/{label}: kernel disagrees with its "
+                             f"plain version (max |err| {err})")
+    call_ms = time_ms(lambda: fn(x, w, **kw))
+    ms = kernel_ms(lambda: fn(x, w, **kw))
+    plain_ms = time_ms(lambda: plain(x, w, **kw), reps=5, warmup=1)
+    bound, bound_by = bound_ms(x, w, got_t[0],
+                               got_t[1] if len(got_t) > 1 else None,
+                               kw["t_steps"], kw["threshold"])
+    row = dict(variant=variant, shape=label, **extra, times=list(x.shape),
+               weights=list(w.shape),
+               options={k: v for k, v in kw.items() if k != "with_clip"},
+               max_abs_err=err, ms=call_ms if ms is None else ms,
+               ms_source="cuda_events" if ms is None else "profiler",
+               call_ms=call_ms, plain_ms=plain_ms, bound_ms=bound,
+               bound_by=bound_by)
+    emit("kernels", **row)
+    return row
+
+
+def phase_kernels(dev, captured) -> Dict[str, Dict[str, Any]]:
+    """Every launch variant against its plain version on the card: each
+    distinct call the main path made (its own operands), the clip variants
+    on the main path's layer and bank operands, then the synthetic cases.
+    Returns, per wrapper, the row of the call its first path made most."""
+    main_rows: Dict[str, Dict[str, Any]] = {}
+    for path, cases in captured.items():
+        for i, case in enumerate(cases):
+            variant = VARIANT[case["wrapper"]]
+            x, w, kw = case["times"], case["weights"], case["kw"]
+            row = check_and_time(variant, f"{path}#{i}", x, w, kw,
+                                 path=path, calls=case["calls"])
+            best = main_rows.get(case["wrapper"])
+            if best is None or (best["path"] == path
+                                and row["calls"] > best["calls"]):
+                main_rows[case["wrapper"]] = row
+            if variant in ("layer", "bank"):
+                check_and_time(variant + "+clip", f"{path}#{i}", x, w,
+                               {**kw, "with_clip": True}, path=path)
+    for variant, label, x, w, kw in synthetic_cases(dev):
+        check_and_time(variant, label, x, w, kw)
+    return main_rows
+
+
+def phase_serve(paths, captured) -> Dict[str, Dict[str, int]]:
+    """The main path, path by path: every launch count set to 0 just before
+    the path runs and read just after. Each path must launch its kernel,
+    launch no other, and make exactly the calls the capture pass saw."""
+    launches: Dict[str, Dict[str, int]] = {}
+    for path in paths:
         torch.cuda.synchronize()
-        got_t = got if isinstance(got, tuple) else (got,)
-        want_t = want if isinstance(want, tuple) else (want,)
-        err = max(int((g.to(torch.int64) - r.to(torch.int64)).abs().max())
-                  if g.numel() else 0 for g, r in zip(got_t, want_t))
-        if err != 0 or any(g.shape != r.shape
-                           for g, r in zip(got_t, want_t)):
-            raise AssertionError(f"{variant}/{label}: kernel disagrees with "
-                                 f"its plain version (max |err| {err})")
-        call_ms = time_ms(lambda: fn(x, w, **kw))
-        ms = kernel_ms(lambda: fn(x, w, **kw))
-        plain_ms = time_ms(lambda: plain(x, w, **kw), reps=5, warmup=1)
-        clip = got_t[1] if len(got_t) > 1 else None
-        bound, bound_by = bound_ms(x, w, got_t[0], clip, kw["t_steps"],
-                                   kw["threshold"])
-        row = dict(variant=variant, shape=label, times=list(x.shape),
-                   weights=list(w.shape), max_abs_err=err,
-                   ms=call_ms if ms is None else ms,
-                   ms_source="cuda_events" if ms is None else "profiler",
-                   call_ms=call_ms, plain_ms=plain_ms, bound_ms=bound,
-                   bound_by=bound_by)
-        emit("kernels", **row)
-        rows[(variant, label)] = row
-    return rows
-
-
-def phase_serve(dev, streams, p_ff):
-    """The main path: TNNEngine on the card at full width, three ways, and
-    the single-bank entry point; outputs against the CPU reference; launch
-    counts of exactly this run."""
-
-
-    def cpu_reference(params, net):
-        ref_net = network.make_network([
-            dataclasses.replace(lc, backend="closed_form")
-            for lc in net.layers])
-        cpu = tuple(p.cpu() for p in params)
-        return [tnn_engine.reference_outputs(cpu, ref_net, s)
-                for s in streams]
-
-    ff, rec = serve_network(), serve_network(recurrent=True)
-    p_rec = network.init_network(torch.Generator().manual_seed(1), rec,
-                                 device=dev)
-    runs = [("auto", "auto", ff, p_ff, 1),
-            ("fused_compact", "fused_compact", ff, p_ff, 1),
-            ("auto_recurrent_pipelined", "auto", rec, p_rec, 4)]
-    bank_x, bank_w = bank_inputs(dev)
-    bank_cfg = neuron.NeuronConfig(n_inputs=64, threshold=9, t_steps=64,
-                                   dendrite="catwalk", k=2)
-    torch.cuda.synchronize()
-
-    rn.reset_launches()                      # the main path's run begins
-    results, stats = {}, {}
-    for name, backend, net, params, micro in runs:
-        eng = tnn_engine.TNNEngine(
-            params, net,
-            tnn_engine.TNNServeConfig(n_slots=N_SLOTS, backend=backend,
-                                      pipeline_microbatches=micro),
-            device=dev)
-        results[name] = eng.serve(streams)
-        stats[name] = eng.stats()
-    bank_fire = neuron.fire_times_bank(bank_x, bank_w, bank_cfg,
-                                       backend="auto")
-    torch.cuda.synchronize()
-    launches = dict(rn.LAUNCHES)             # the main path's run ends
-
-    bank_ref = neuron.fire_times_bank(bank_x.cpu(), bank_w.cpu(), bank_cfg,
-                                      backend="closed_form")
-    if not torch.equal(bank_fire.cpu(), bank_ref):
-        raise AssertionError("single-bank fire times differ from the CPU "
-                             "closed form")
-    refs = {id(ff): cpu_reference(p_ff, ff), id(rec): cpu_reference(p_rec,
-                                                                     rec)}
-    for name, backend, net, _, _ in runs:
-        st = stats[name]
-        engines = {k[6:]: int(v) for k, v in st.items()
-                   if k.startswith("steps_")
-                   and not k.startswith("steps_predicted_")}
-        want_engine = "fused" if backend == "auto" else backend
-        if engines != {want_engine: int(st["n_steps"])}:
-            raise AssertionError(f"{name}: engines {engines}, expected "
-                                 f"every step on {want_engine}")
-        for i, (got, want) in enumerate(zip(results[name], refs[id(net)])):
-            if got.shape != (streams[i].shape[0], 24, 8) \
-                    or not np.array_equal(got, want):
-                raise AssertionError(f"{name}: request {i} differs from the "
-                                     f"CPU closed-form reference")
-        emit("serve", run=name, requests=len(streams),
-             volleys=int(st["n_volleys"]), steps=int(st["n_steps"]),
-             volleys_per_s=st.get("volleys_per_s"), engine_steps=engines,
-             latency_ms_p50=st.get("latency_ms_p50"), bit_exact=True)
-    emit("serve", launches=launches)
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"{name} was not launched on the main path")
+        rn.reset_launches()
+        out, st = path.run()
+        torch.cuda.synchronize()
+        counts = dict(rn.LAUNCHES)
+        launches[path.name] = counts
+        fields = path.check(out, st)
+        emit("serve", run=path.name, **fields, launches=counts)
+        seen = {name: 0 for name in REPLACES}
+        for case in captured[path.name]:
+            seen[case["wrapper"]] += case["calls"]
+        if counts[path.kernel] <= 0:
+            raise AssertionError(f"{path.name}: {path.kernel} was not "
+                                 f"launched")
+        if counts != seen or any(n for name, n in counts.items()
+                                 if name != path.kernel):
+            raise AssertionError(f"{path.name}: launches {counts}, calls "
+                                 f"{seen}, expected only {path.kernel}")
     return launches
 
 
-def phase_profile(dev, streams, p_ff):
+def phase_profile(dev, streams, ff, p_ff):
     """Where a serve step's time goes: the ``auto`` run under the profiler.
     Device busy time is the sum of the CUDA activity (kernels and copies);
     the idle share is 1 - busy / wall. The profiler's own host cost makes
     the wall, and so the idle share, an upper estimate."""
-
-    eng = tnn_engine.TNNEngine(p_ff, serve_network(),
+    eng = tnn_engine.TNNEngine(p_ff, ff,
                                tnn_engine.TNNServeConfig(n_slots=N_SLOTS),
                                device=dev)
     eng.serve(streams[:N_SLOTS])             # warm the path
@@ -400,27 +498,29 @@ def main() -> int:
          kernel_build_s=build_s, ptxas=ptxas)
 
     streams = synth_clients(N_CLIENTS)
-    p_ff = network.init_network(torch.Generator().manual_seed(0),
-                                serve_network(), device=dev)
-    rows = phase_kernels(dev, p_ff, streams)
-    launches = phase_serve(dev, streams, p_ff)
-    phase_profile(dev, streams, p_ff)
+    ff = serve_network()
+    p_ff = network.init_network(torch.Generator().manual_seed(0), ff,
+                                device=dev)
+    paths = main_paths(dev, streams, ff, p_ff)
+    # capture pass (also the warm-up): each path's calls and operands
+    captured = {path.name: capture(path.run) for path in paths}
+    main_rows = phase_kernels(dev, captured)
+    launches = phase_serve(paths, captured)
+    phase_profile(dev, streams, ff, p_ff)
 
-    main_path = [("rnl_fire_times_layer", ("layer", "serve_l1"),
-                  "rnl_neuron.py:218"),
-                 ("rnl_fire_times", ("bank", "sparsity"), "rnl_neuron.py:157"),
-                 ("rnl_fire_times_compact", ("compact", "serve_l1"),
-                  "rnl_neuron.py:276")]
     kernels = []
-    for name, key, line in main_path:
-        row = rows[key]
+    for name, row in main_rows.items():
+        by_run = {path.name: launches[path.name][name] for path in paths
+                  if path.kernel == name}
         kernels.append(dict(
             name=name, route="cuda",
             source="src/repro_torch/kernels/csrc/rnl_neuron.cu",
-            replaces=f"src/repro/kernels/{line}", launches=launches[name],
+            replaces=REPLACES[name], launches=sum(by_run.values()),
+            launches_by_run=by_run, shape=row["shape"],
             max_abs_err=row["max_abs_err"], ms=row["ms"],
-            plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
-            bound_by=row["bound_by"], library_ms=None))
+            ms_source=row["ms_source"], plain_ms=row["plain_ms"],
+            bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+            library_ms=None))
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

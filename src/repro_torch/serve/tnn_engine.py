@@ -319,10 +319,15 @@ class TNNEngine:
             for i, (lo, hi) in enumerate(self._stage_rows):
                 self._stage_density_sums[i] += float(
                     np.mean(batch[lo:hi] < self._t_steps))
+        # the active-line count only matters where the policy weighs it or
+        # a sparse engine sizes its compaction width from it
+        needs_active = (self.scfg.backend in SPARSE_ENGINES
+                        or self._policy.wants_density(self.scfg.backend,
+                                                      self.device))
         res = self._policy.resolve(
             self.scfg.backend, density=density,
-            max_active=self._layer0_active(batch), shape=self._bank_shape,
-            device=self.device)
+            max_active=self._layer0_active(batch) if needs_active else None,
+            shape=self._bank_shape, device=self.device)
         engine = res.engine
         self._density_sum += density
         self._backend_steps[engine] = self._backend_steps.get(engine, 0) + 1

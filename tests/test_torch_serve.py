@@ -181,3 +181,29 @@ def test_engine_defaults_to_cuda():
     _, tn, _, pt, _ = _setup()
     with pytest.raises(RuntimeError, match="CUDA"):
         tnn_engine.TNNEngine(pt, tn)
+
+
+@pytest.mark.parametrize("backend,counted",
+                         [("auto", True), ("event", True),
+                          ("fused_compact", True), ("closed_form", False),
+                          ("fused", False)])
+def test_active_count_only_where_used(feedforward, monkeypatch, backend,
+                                      counted):
+    """The engine counts layer 0's active lines only where the policy
+    weighs them (``auto`` off CUDA) or a sparse engine sizes its width
+    from them; the outputs stay the reference's either way."""
+    _, tn, _, pt, streams, refs = feedforward
+    calls = []
+    real = tnn_engine.TNNEngine._layer0_active
+
+    def spy(self, batch):
+        calls.append(batch.shape)
+        return real(self, batch)
+
+    monkeypatch.setattr(tnn_engine.TNNEngine, "_layer0_active", spy)
+    eng = tnn_engine.TNNEngine(
+        pt, tn, tnn_engine.TNNServeConfig(n_slots=4, backend=backend),
+        device="cpu")
+    for got, want in zip(eng.serve(streams), refs):
+        np.testing.assert_array_equal(got, want)
+    assert bool(calls) == counted
