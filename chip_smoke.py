@@ -1,19 +1,23 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` and
-drives the main path — ``TNNEngine`` serving GRF-encoded client streams at
-the full width of the largest TNN network the repository defines, three
-ways, and the single-bank entry point ``fire_times_bank``. A first pass
-records every distinct call each path makes to the RNL kernel wrappers,
-with its operands; every such call, and the repository's benchmark shapes
-and edge cases, is then held bit-exact against its plain PyTorch version
-on the card, timed and given its bound. The measured pass runs each path
-with the launch counts set to 0 just before it and read just after, and
-checks every request's outputs against the CPU reference. Phases print
-one JSON line each; the last line is ``{"ok": true, "device": {...}}``.
-Any failure raises and exits non-zero; without CUDA it exits non-zero at
-once.
+Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
+``nvcc`` per source, all started together) and drives the main path —
+``TNNEngine`` serving GRF-encoded client streams at the full width of the
+largest TNN network the repository defines, three ways, the single-bank
+entry point ``fire_times_bank``, and the gate-level neuron: that network's
+L1 column stack through ``fire_times_bank(..., backend="scan")`` with
+``gate_level=True``, for the Catwalk and the sorting-PC dendrite. A first
+pass records every distinct call each path makes to the kernel wrappers (RNL
+and unary top-k), with its operands; every such call, and the repository's
+benchmark shapes and edge cases, is then held bit-exact against its plain
+PyTorch version on the card, timed and given its bound. The measured pass
+runs each path with the launch counts set to 0 just before it and read just
+after, and checks every request's outputs against the CPU reference (the
+gate-level paths against the ``fused`` engine on the card and the CPU closed
+form). Phases print one JSON line each; the last line is ``{"ok": true,
+"device": {...}}``. Any failure raises and exits non-zero; without CUDA it
+exits non-zero at once.
 
 Run from the repository root:  python3 chip_smoke.py
 """
@@ -37,8 +41,10 @@ ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.core import coding, compaction, layer, network, neuron  # noqa: E402
+from repro_torch.core import topk_prune  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import rnl_neuron as rn  # noqa: E402
+from repro_torch.kernels import unary_topk as ut  # noqa: E402
 from repro_torch.serve import tnn_engine  # noqa: E402
 
 #: H100 SXM device-memory rate, bytes/s (NVIDIA data sheet).
@@ -88,12 +94,12 @@ def time_ms(fn, reps: int = 30, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def kernel_ms(fn, reps: int = 50, tries: int = 3):
-    """Device time of the RNL kernel per ``fn()`` call in milliseconds, from
-    the profiler's CUDA activity (CUPTI). A profile counts only when it
-    recorded exactly one RNL kernel per call; after ``tries`` profiles
-    without such a count it returns None, and the caller keeps the
-    CUDA-event time and says so in ``ms_source``."""
+def kernel_ms(fn, reps: int = 50, tries: int = 3, key: str = "rnl_"):
+    """Device time of the kernel named ``key`` per ``fn()`` call in
+    milliseconds, from the profiler's CUDA activity (CUPTI). A profile
+    counts only when it recorded exactly one such kernel per call; after
+    ``tries`` profiles without such a count it returns None, and the caller
+    keeps the CUDA-event time and says so in ``ms_source``."""
     fn()
     torch.cuda.synchronize()
     for _ in range(tries):
@@ -104,7 +110,7 @@ def kernel_ms(fn, reps: int = 50, tries: int = 3):
             torch.cuda.synchronize()
         hits = [e for e in prof.key_averages()
                 if e.device_type == torch.autograd.DeviceType.CUDA
-                and "rnl_" in e.key]
+                and key in e.key]
         if sum(e.count for e in hits) == reps:
             return sum(e.self_device_time_total for e in hits) / 1e3 / reps
     return None
@@ -178,7 +184,22 @@ def bank_inputs(dev):
 #: the TPU kernel each wrapper replaces
 REPLACES = {"rnl_fire_times_layer": "src/repro/kernels/rnl_neuron.py:218",
             "rnl_fire_times": "src/repro/kernels/rnl_neuron.py:157",
-            "rnl_fire_times_compact": "src/repro/kernels/rnl_neuron.py:276"}
+            "rnl_fire_times_compact": "src/repro/kernels/rnl_neuron.py:276",
+            "unary_topk_count": "src/repro/kernels/unary_topk.py:116",
+            "unary_topk_relocate": "src/repro/kernels/unary_topk.py:79"}
+RNL_WRAPPERS = ("rnl_fire_times_layer", "rnl_fire_times",
+                "rnl_fire_times_compact")
+SOURCES = {"rnl_neuron": "src/repro_torch/kernels/csrc/rnl_neuron.cu",
+           "unary_topk": "src/repro_torch/kernels/csrc/unary_topk.cu"}
+
+
+def reset_launches() -> None:
+    rn.reset_launches()
+    ut.reset_launches()
+
+
+def launch_counts() -> Dict[str, int]:
+    return {**rn.LAUNCHES, **ut.LAUNCHES}
 
 
 @dataclasses.dataclass
@@ -197,8 +218,9 @@ class Path:
 def main_paths(dev, streams, ff, p_ff) -> List[Path]:
     """Three ``TNNEngine`` serve runs at full width — ``auto`` (resolves to
     ``fused`` on CUDA), ``fused_compact``, and L1 recurrent with 4 pipeline
-    micro-batches — and the single-bank entry point ``fire_times_bank`` at
-    bench_sparsity's full size. Outputs are held against the CPU
+    micro-batches — the single-bank entry point ``fire_times_bank`` at
+    bench_sparsity's full size, and the two gate-level paths
+    (:func:`gate_level_paths`). Outputs are held against the CPU
     closed-form reference."""
     rec = serve_network(recurrent=True)
     p_rec = network.init_network(torch.Generator().manual_seed(1), rec,
@@ -268,17 +290,82 @@ def main_paths(dev, streams, ff, p_ff) -> List[Path]:
     return [serve_path("auto", "auto", ff, p_ff, 1),
             serve_path("fused_compact", "fused_compact", ff, p_ff, 1),
             serve_path("auto_recurrent_pipelined", "auto", rec, p_rec, 4),
-            Path("single_bank", "rnl_fire_times", bank_run, bank_check)]
+            Path("single_bank", "rnl_fire_times", bank_run, bank_check),
+            *gate_level_paths(dev, streams, ff, p_ff)]
+
+
+def gate_level_paths(dev, streams, ff, p_ff) -> List[Path]:
+    """The gate-level neuron on the served network's L1 column stack at
+    full width (C=32 columns, rf n=16 lines, Q=12 neurons with the served
+    L1 weights, T=32, k=3) through ``fire_times_bank(..., backend="scan")``
+    with ``gate_level=True``: Catwalk's pruned top-k network (sorter
+    'optimal', 31 CAS units) and the sorting-PC dendrite's full bitonic
+    sorter (80 units). Two calls each, one unary top-k launch over
+    32 x 64 x 12 x 32 = 786,432 rows per call: B=64 served volleys (the
+    first of each of the first 64 clients; sparse enough that no tick
+    clips) and B=64 random volleys at density 0.5 (bench_sparsity's),
+    which do clip. Held bit for bit against the ``fused`` engine on the
+    card and the CPU closed form."""
+    l1 = ff.layers[0]
+    served = torch.from_numpy(np.stack([s[0] for s in streams[:N_SLOTS]]))
+    rng = np.random.default_rng(3)
+    shape = (l1.n_columns, N_SLOTS, l1.rf_total)
+    dense = np.where(rng.random(shape) < 0.5,
+                     rng.integers(0, T_STEPS, shape), coding.NO_SPIKE)
+    inputs = {"served": layer._gather_rf(served.to(dev), l1).contiguous(),
+              "dense": torch.from_numpy(dense.astype(np.int32)).to(dev)}
+    w = torch.round(p_ff[0]).to(torch.int32)                  # (C, Q, n)
+
+    def gate_path(dendrite):
+        cfg = dataclasses.replace(l1.neuron_config(), dendrite=dendrite,
+                                  gate_level=True)
+        fast = dataclasses.replace(cfg, gate_level=False)
+
+        def run():
+            return {name: neuron.fire_times_bank(x, w, cfg, backend="scan")
+                    for name, x in inputs.items()}, None
+
+        def check(fires, _):
+            stats = {}
+            for name, x in inputs.items():
+                fire = fires[name]
+                fused = neuron.fire_times_bank(x, w, fast, backend="fused")
+                closed = neuron.fire_times_bank(x.cpu(), w.cpu(), fast,
+                                                backend="closed_form")
+                want = (x.shape[0], x.shape[1], w.shape[1])
+                if fire.dtype != torch.int32 or tuple(fire.shape) != want \
+                        or not torch.equal(fire, fused) \
+                        or not torch.equal(fire.cpu(), closed):
+                    raise AssertionError(
+                        f"gate_level_{dendrite}/{name}: fire times differ "
+                        f"from fused / closed form")
+                bq = want + (x.shape[-1],)
+                raw = coding.rnl_response_bits(
+                    torch.broadcast_to(x[:, :, None, :], bq),
+                    torch.broadcast_to(w[:, None, :, :], bq),
+                    cfg.t_steps).sum(dim=-1)
+                stats[name] = dict(rows=int(raw.numel()),
+                                   rows_clipped=int((raw > cfg.k).sum()),
+                                   fired=int((fire < coding.NO_SPIKE).sum()))
+            return dict(columns=int(w.shape[0]), volleys=N_SLOTS,
+                        neurons=int(w.shape[1]), inputs=stats,
+                        bit_exact=True)
+
+        return Path(f"gate_level_{dendrite}", "unary_topk_count", run, check)
+
+    return [gate_path("catwalk"), gate_path("sorting_pc")]
 
 
 def capture(run) -> List[Dict[str, Any]]:
-    """Drives ``run()`` with the three RNL wrappers spied on. Returns, for
-    each distinct call (wrapper, operand shapes, options) in first-call
-    order, its number of calls and a copy of the operands of its busiest
-    call — the one with the most in-cycle spikes, so that a pipeline's
+    """Drives ``run()`` with the three RNL wrappers and the unary top-k
+    entry spied on. Returns, for each distinct call (wrapper, operand
+    shapes, options or network) in first-call order, its number of calls
+    and a copy of the operands of its busiest call — the one with the most
+    in-cycle spikes (hot bits for unary top-k), so that a pipeline's
     all-silent fill and drain ticks do not stand for the path."""
     cases: Dict[tuple, Dict[str, Any]] = {}
-    originals = {name: getattr(rn, name) for name in REPLACES}
+    originals = {name: getattr(rn, name) for name in RNL_WRAPPERS}
+    topk = ut._unary_topk
 
     def spy(name, fn):
         def call(times, weights, **kw):
@@ -294,13 +381,27 @@ def capture(run) -> List[Dict[str, Any]]:
             return fn(times, weights, **kw)
         return call
 
+    def spy_topk(bits, units, n, k, *, count):
+        name = "unary_topk_count" if count else "unary_topk_relocate"
+        units = tuple(tuple(u) for u in units)
+        key = (name, tuple(bits.shape), units, n, k)
+        case = cases.setdefault(key, dict(wrapper=name, units=units, n=n,
+                                          k=k, calls=0, spikes=-1))
+        case["calls"] += 1
+        spikes = int((bits != 0).sum())
+        if spikes > case["spikes"]:
+            case.update(bits=bits.clone(), spikes=spikes)
+        return topk(bits, units, n, k, count=count)
+
     for name, fn in originals.items():
         setattr(rn, name, spy(name, fn))
+    ut._unary_topk = spy_topk
     try:
         run()
     finally:
         for name, fn in originals.items():
             setattr(rn, name, fn)
+        ut._unary_topk = topk
     return list(cases.values())
 
 
@@ -397,14 +498,111 @@ def check_and_time(variant, label, x, w, kw, **extra) -> Dict[str, Any]:
     return row
 
 
+def topk_bound_ms(rows, n, n_units, out_bytes):
+    """Least time the card could take for one unary top-k call: the larger
+    of the bytes it must move (each input byte — one per wire — and the
+    network table read once, the output written once) over the memory
+    rate, and 2 logic operations (AND, OR) per CAS unit for each 32-row
+    word over the int32 ALU rate; returns ``(ms, "bytes" | "operations")``.
+    """
+    nbytes = rows * n + 4 * n_units + out_bytes
+    ops = 2 * n_units * -(-rows // 32)
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
+    return 1e3 * max(by_bytes, by_ops), \
+        ("bytes" if by_bytes > by_ops else "operations")
+
+
+def check_topk(label, bits, units, n, k, *, count, timed=True,
+               **extra) -> Dict[str, Any]:
+    """One unary top-k call against its plain version on the same inputs on
+    the card (bit-exact, or raise); when ``timed``, its times, its bound
+    and the time of the algebraic shortcut
+    ``bits.sum(-1, dtype=int32).clamp_(max=k)`` (the library yardstick:
+    it equals the network's count only because the network is a valid
+    top-k selector; for the relocate output it computes the count, not the
+    k bits)."""
+    def fn():
+        return ut._unary_topk(bits, units, n, k, count=count)
+
+    def plain():
+        return ut._unary_topk_plain(bits, units, n, k, count=count)
+
+    got, want = fn(), plain()
+    torch.cuda.synchronize()
+    err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max()) \
+        if got.numel() else 0
+    if err != 0 or got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"unary_topk/{label}: kernel disagrees with its "
+                             f"plain version (max |err| {err})")
+    variant = "count" if count else "relocate"
+    row = dict(variant=f"unary_topk_{variant}", shape=label, **extra,
+               bits=list(bits.shape), dtype=str(bits.dtype).split(".")[-1],
+               n=n, k=k, units=len(units), max_abs_err=err)
+    if timed:
+        call_ms = time_ms(fn)
+        ms = kernel_ms(fn, key="unary_topk")
+        rows = bits.numel() // n
+        bound, bound_by = topk_bound_ms(rows, n, len(units),
+                                        got.numel() * got.element_size())
+        row.update(ms=call_ms if ms is None else ms,
+                   ms_source="cuda_events" if ms is None else "profiler",
+                   call_ms=call_ms,
+                   plain_ms=time_ms(plain, reps=5, warmup=1),
+                   bound_ms=bound, bound_by=bound_by,
+                   library_ms=time_ms(lambda: bits.sum(
+                       -1, dtype=torch.int32).clamp_(max=k)))
+    emit("kernels", **row)
+    return row
+
+
+def synthetic_topk_cases(dev):
+    """(label, bits, network, timed) for the unary top-k kernel: the bench
+    shape of benchmarks/bench_kernels.py (``topk_network("auto", 64, 2)``,
+    selection, 512 rows, density 0.05), timed, then edge cases checked
+    only: each load width (16-, 4- and 1-byte, a misaligned view), int8
+    input, ragged and empty row counts, the widest row the kernel holds."""
+    rng = np.random.default_rng(2)
+
+    def bits(shape, density):
+        return torch.from_numpy(rng.random(shape) < density).to(dev)
+
+    auto64 = topk_prune.topk_network("auto", 64, 2)
+    bench = bits((512, 64), 0.05)
+    misaligned = torch.zeros(1001 * 20 + 1, dtype=torch.bool,
+                             device=dev)[1:].view(1001, 20)
+    misaligned.copy_(bits((1001, 20), 0.4))
+    # odd-even transposition sort: a sorting network for any n
+    transposition = [(i, i + 1) for r in range(20)
+                     for i in range(r % 2, 19, 2)]
+    n20 = topk_prune.prune_topk(transposition, 20, 3)
+    l1 = topk_prune.topk_network("optimal", 16, 3)
+    return [
+        ("bench_kernels_auto64_k2", bench, auto64, True),
+        ("ragged_int8", bits((3, 333, 16), 0.3).to(torch.int8), l1, False),
+        ("vec4_n20", bits((777, 20), 0.4), n20, False),
+        ("vec1_misaligned_n20", misaligned, n20, False),
+        ("n256_bitonic_k3", bits((1500, 256), 0.3),
+         topk_prune.topk_network("bitonic", 256, 3), False),
+        ("rows_0", bits((0, 16), 0.5), l1, False),
+    ]
+
+
 def phase_kernels(dev, captured) -> Dict[str, Dict[str, Any]]:
     """Every launch variant against its plain version on the card: each
     distinct call the main path made (its own operands), the clip variants
     on the main path's layer and bank operands, then the synthetic cases.
-    Returns, per wrapper, the row of the call its first path made most."""
+    Returns, per wrapper, the row of the call its first path made most (for
+    unary top-k, the first path's first call)."""
     main_rows: Dict[str, Dict[str, Any]] = {}
     for path, cases in captured.items():
         for i, case in enumerate(cases):
+            if case["wrapper"].startswith("unary_topk"):
+                row = check_topk(f"{path}#{i}", case["bits"], case["units"],
+                                 case["n"], case["k"],
+                                 count=case["wrapper"] == "unary_topk_count",
+                                 path=path, calls=case["calls"])
+                main_rows.setdefault(case["wrapper"], row)
+                continue
             variant = VARIANT[case["wrapper"]]
             x, w, kw = case["times"], case["weights"], case["kw"]
             row = check_and_time(variant, f"{path}#{i}", x, w, kw,
@@ -418,23 +616,31 @@ def phase_kernels(dev, captured) -> Dict[str, Dict[str, Any]]:
                                {**kw, "with_clip": True}, path=path)
     for variant, label, x, w, kw in synthetic_cases(dev):
         check_and_time(variant, label, x, w, kw)
+    for label, bits, net, timed in synthetic_topk_cases(dev):
+        for count in (True, False):
+            check_topk(label, bits, net.units, net.n, net.k, count=count,
+                       timed=timed)
     return main_rows
 
 
 def phase_serve(paths, captured) -> Dict[str, Dict[str, int]]:
     """The main path, path by path: every launch count set to 0 just before
     the path runs and read just after. Each path must launch its kernel,
-    launch no other, and make exactly the calls the capture pass saw."""
+    launch no other, and make exactly the calls the capture pass saw.
+    ``run_ms`` is the host clock around the run, ended by a synchronise."""
     launches: Dict[str, Dict[str, int]] = {}
     for path in paths:
         torch.cuda.synchronize()
-        rn.reset_launches()
+        reset_launches()
+        t0 = time.perf_counter()
         out, st = path.run()
         torch.cuda.synchronize()
-        counts = dict(rn.LAUNCHES)
+        run_ms = 1e3 * (time.perf_counter() - t0)
+        counts = launch_counts()
         launches[path.name] = counts
         fields = path.check(out, st)
-        emit("serve", run=path.name, **fields, launches=counts)
+        emit("serve", run=path.name, **fields, run_ms=run_ms,
+             launches=counts)
         seen = {name: 0 for name in REPLACES}
         for case in captured[path.name]:
             seen[case["wrapper"]] += case["calls"]
@@ -446,6 +652,34 @@ def phase_serve(paths, captured) -> Dict[str, Dict[str, int]]:
             raise AssertionError(f"{path.name}: launches {counts}, calls "
                                  f"{seen}, expected only {path.kernel}")
     return launches
+
+
+def device_share(prof, wall_ms):
+    """Device busy time (the sum of the CUDA activity: kernels and copies),
+    the idle share 1 - busy / wall, and the top device ops."""
+    dev_events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in dev_events) / 1e3
+    top = sorted(dev_events, key=lambda e: -e.self_device_time_total)[:8]
+    return dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
+                idle_share=1.0 - busy_ms / wall_ms,
+                device_ops=sum(e.count for e in dev_events),
+                top=[dict(name=e.key[:80], count=e.count,
+                          ms=e.self_device_time_total / 1e3) for e in top])
+
+
+def phase_profile_path(path):
+    """Where one main-path run's time goes: ``path.run()`` (already warm)
+    under the profiler; the profiler's host cost makes the idle share an
+    upper estimate."""
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        path.run()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    emit("profile", run=path.name, **device_share(prof, wall_ms))
 
 
 def phase_profile(dev, streams, ff, p_ff):
@@ -469,15 +703,7 @@ def phase_profile(dev, streams, ff, p_ff):
             steps += 1
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    dev_events = [e for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in dev_events) / 1e3
-    top = sorted(dev_events, key=lambda e: -e.self_device_time_total)[:8]
-    emit("profile", run="auto", steps=steps, wall_ms=wall_ms,
-         device_busy_ms=busy_ms, idle_share=1.0 - busy_ms / wall_ms,
-         device_ops=sum(e.count for e in dev_events),
-         top=[dict(name=e.key[:80], count=e.count,
-                   ms=e.self_device_time_total / 1e3) for e in top])
+    emit("profile", run="auto", steps=steps, **device_share(prof, wall_ms))
 
 
 def main() -> int:
@@ -488,11 +714,16 @@ def main() -> int:
     dev = torch.device("cuda")
     smi = smi_line()
     t0 = time.perf_counter()
+    build.build_all(list(SOURCES))
     rn._library()
+    ut._library()
     build_s = time.perf_counter() - t0
-    log = build.library_path("rnl_neuron").parent / "nvcc.log"
-    ptxas = [ln.strip() for ln in log.read_text().splitlines()
-             if "registers" in ln or "spill" in ln] if log.exists() else []
+    ptxas = {}
+    for name in SOURCES:
+        log = build.library_path(name).parent / "nvcc.log"
+        ptxas[name] = [ln.strip() for ln in log.read_text().splitlines()
+                       if "registers" in ln or "spill" in ln] \
+            if log.exists() else []
     emit("env", torch=torch.__version__, cuda=torch.version.cuda,
          device=torch.cuda.get_device_name(0), nvidia_smi=smi,
          kernel_build_s=build_s, ptxas=ptxas)
@@ -507,20 +738,24 @@ def main() -> int:
     main_rows = phase_kernels(dev, captured)
     launches = phase_serve(paths, captured)
     phase_profile(dev, streams, ff, p_ff)
+    for path in paths:
+        if path.name.startswith("gate_level"):
+            phase_profile_path(path)
 
     kernels = []
     for name, row in main_rows.items():
         by_run = {path.name: launches[path.name][name] for path in paths
                   if path.kernel == name}
+        source = SOURCES["unary_topk" if name.startswith("unary_topk")
+                         else "rnl_neuron"]
         kernels.append(dict(
-            name=name, route="cuda",
-            source="src/repro_torch/kernels/csrc/rnl_neuron.cu",
+            name=name, route="cuda", source=source,
             replaces=REPLACES[name], launches=sum(by_run.values()),
             launches_by_run=by_run, shape=row["shape"],
             max_abs_err=row["max_abs_err"], ms=row["ms"],
             ms_source=row["ms_source"], plain_ms=row["plain_ms"],
             bound_ms=row["bound_ms"], bound_by=row["bound_by"],
-            library_ms=None))
+            library_ms=row.get("library_ms")))
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

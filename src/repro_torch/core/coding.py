@@ -109,3 +109,28 @@ def rnl_response_bits(times: torch.Tensor, weights: torch.Tensor,
     start = times[..., None, :]
     end = start + torch.broadcast_to(weights, times.shape)[..., None, :]
     return (t >= start) & (t < end)
+
+
+def times_to_monotone_wave(times: torch.Tensor,
+                           t_steps: int) -> torch.Tensor:
+    """Leading-0 rising-edge unary wave: ``wave[..., t, i] = (t >= times[i])``.
+
+    The signal form unary CAS networks consume (Fig. 3): the rising edge's
+    timing carries the value; OR = earlier edge = larger value.
+
+    Returns:
+      ``times.shape[:-1] + (t_steps, n)`` bool.
+    """
+    t = torch.arange(t_steps, dtype=torch.int32, device=times.device)
+    return t[:, None] >= times[..., None, :]
+
+
+def popcount_thermometer(bits: torch.Tensor) -> torch.Tensor:
+    """The sorted form of a Boolean vector: the bottom ``popcount`` wires
+    hot, ``thermo[..., m] = m >= n - popcount(bits)``. A correct unary
+    sorting network applied bitwise produces exactly this (0-1 principle).
+    """
+    n = bits.shape[-1]
+    pc = bits.sum(dim=-1, keepdim=True, dtype=torch.int32)
+    idx = torch.arange(n, dtype=torch.int32, device=bits.device)
+    return idx >= (n - pc)

@@ -18,7 +18,8 @@ import shutil
 import subprocess
 import tempfile
 import threading
-from typing import Dict
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, Sequence
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -71,6 +72,14 @@ def build(name: str) -> pathlib.Path:
         raise RuntimeError(f"nvcc failed on {name}.cu:\n{proc.stderr}")
     os.replace(tmp, lib)
     return lib
+
+
+def build_all(names: Sequence[str]) -> Dict[str, pathlib.Path]:
+    """Compile several sources at once: one ``nvcc`` per source, all
+    started together. Raises the first build's error."""
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        futures = {name: pool.submit(build, name) for name in names}
+        return {name: fut.result() for name, fut in futures.items()}
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -207,6 +207,30 @@ def test_edge_cases_every_engine(case):
         _eq(want, got)
 
 
+@pytest.mark.parametrize("case", sorted(EDGE_CASES))
+@pytest.mark.parametrize("dendrite", ["catwalk", "sorting_pc"])
+def test_gate_level_edge_cases_every_engine(case, dendrite):
+    """The edge cases above with the CAS network: each volley padded with
+    silent lines to 8 wires (a width every sorter kind covers), every port
+    engine with ``gate_level=True`` against the reference's gate-level
+    tick scan."""
+    n, threshold, t_steps, _, times, w = EDGE_CASES[case]
+    times = np.asarray(times, np.int32)
+    w = np.asarray(w, np.int32)
+    times = np.pad(times, ((0, 0), (0, 8 - n)), constant_values=NO_SPIKE)
+    w = np.pad(w, ((0, 0), (0, 8 - n)))
+    kw = dict(n_inputs=8, threshold=threshold, t_steps=t_steps,
+              dendrite=dendrite, k=2, gate_level=True)
+    want = jneuron.fire_times_bank(jnp.asarray(times), jnp.asarray(w),
+                                   jneuron.NeuronConfig(**kw), backend="scan")
+    for engine in ENGINES:
+        got = neuron.fire_times_bank(torch.from_numpy(times),
+                                     torch.from_numpy(w),
+                                     neuron.NeuronConfig(**kw),
+                                     backend=engine)
+        _eq(want, got)
+
+
 def test_forced_width_that_drops_lines_raises():
     times = torch.zeros((2, 6), dtype=torch.int32)
     w = torch.ones((3, 6), dtype=torch.int32)
@@ -217,13 +241,26 @@ def test_forced_width_that_drops_lines_raises():
                                    n_active_max=4)
 
 
-def test_gate_level_is_not_ported():
-    cfg = neuron.NeuronConfig(n_inputs=4, threshold=2, t_steps=8,
-                              gate_level=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        neuron.fire_times_bank(torch.zeros((2, 4), dtype=torch.int32),
-                               torch.ones((3, 4), dtype=torch.int32), cfg,
-                               backend="scan")
+@pytest.mark.parametrize("dendrite", DENDRITES)
+def test_gate_level_every_engine_matches_reference(dendrite):
+    """``gate_level=True`` is accepted by every engine, as in the reference:
+    ``scan`` runs the CAS network, the others ignore the flag; all equal
+    the reference's gate-level tick scan, 2-D and 3-D."""
+    rng = np.random.default_rng(9)
+    kw = dict(n_inputs=8, threshold=6, t_steps=16, dendrite=dendrite, k=2,
+              gate_level=True)
+    for shape_t, shape_w in (((5, 8), (3, 8)), ((2, 4, 8), (2, 3, 8))):
+        times = _volleys(rng, shape_t, 16, 0.3)
+        w = rng.integers(0, 8, shape_w).astype(np.int32)
+        want = jneuron.fire_times_bank(jnp.asarray(times), jnp.asarray(w),
+                                       jneuron.NeuronConfig(**kw),
+                                       backend="scan")
+        for engine in ENGINES:
+            got = neuron.fire_times_bank(torch.from_numpy(times),
+                                         torch.from_numpy(w),
+                                         neuron.NeuronConfig(**kw),
+                                         backend=engine)
+            _eq(want, got)
 
 
 def test_clip_k():
