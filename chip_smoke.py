@@ -5,19 +5,27 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
 ``nvcc`` per source, all started together) and drives the main path —
 ``TNNEngine`` serving GRF-encoded client streams at the full width of the
 largest TNN network the repository defines, three ways, the single-bank
-entry point ``fire_times_bank``, and the gate-level neuron: that network's
-L1 column stack through ``fire_times_bank(..., backend="scan")`` with
-``gate_level=True``, for the Catwalk and the sorting-PC dendrite. A first
-pass records every distinct call each path makes to the kernel wrappers (RNL
-and unary top-k), with its operands; every such call, and the repository's
-benchmark shapes and edge cases, is then held bit-exact against its plain
-PyTorch version on the card, timed and given its bound. The measured pass
-runs each path with the launch counts set to 0 just before it and read just
-after, and checks every request's outputs against the CPU reference (the
-gate-level paths against the ``fused`` engine on the card and the CPU closed
-form). Phases print one JSON line each; the last line is ``{"ok": true,
-"device": {...}}``. Any failure raises and exits non-zero; without CUDA it
-exits non-zero at once.
+entry point ``fire_times_bank``, the gate-level neuron (that network's L1
+column stack through ``fire_times_bank(..., backend="scan")`` with
+``gate_level=True``, for the Catwalk and the sorting-PC dendrite), and
+mamba2-780m inference at full width and depth with random weights: the
+prefill forward (``forward(..., logits_mode="last")``, the SSD scan kernel
+once per layer) and ``Engine.generate`` (decode is the one-token
+recurrence: no kernel). A first pass records every call each path makes
+to the kernel wrappers (RNL, unary top-k, SSD scan), with its operands;
+those calls, and the repository's benchmark shapes and edge cases, are then
+held against their plain PyTorch versions on the card (bit-exact for the
+integer kernels; the SSD scan to a stated tolerance against float64),
+timed and given their bounds. The measured pass runs each path with the
+launch counts set to 0 just before it and read just after, and checks its
+outputs (TNN requests against the CPU reference, the gate-level paths
+against the ``fused`` engine and the CPU closed form). The LM phase then
+holds each layer's Mamba2 block (the kernel) against token-by-token decode
+(the recurrence), greedy generation against the forward's argmax, and the
+card's forward against the CPU's. Phases
+print one JSON line each; the last line is ``{"ok": true, "device":
+{...}}``. Any failure raises and exits non-zero; without CUDA it exits
+non-zero at once.
 
 Run from the repository root:  python3 chip_smoke.py
 """
@@ -31,7 +39,7 @@ import statistics
 import subprocess
 import sys
 import time
-from typing import Any, Callable, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -42,10 +50,15 @@ sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.core import coding, compaction, layer, network, neuron  # noqa: E402
 from repro_torch.core import topk_prune  # noqa: E402
+from repro_torch.configs import registry as lm_registry  # noqa: E402
+from repro_torch.data import tokenizer  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import rnl_neuron as rn  # noqa: E402
+from repro_torch.kernels import ssd_scan as ss  # noqa: E402
 from repro_torch.kernels import unary_topk as ut  # noqa: E402
+from repro_torch.models import transformer as lm  # noqa: E402
 from repro_torch.serve import tnn_engine  # noqa: E402
+from repro_torch.serve.engine import Engine, ServeConfig  # noqa: E402
 
 #: H100 SXM device-memory rate, bytes/s (NVIDIA data sheet).
 HBM_BYTES_PER_S = 3.35e12
@@ -54,6 +67,9 @@ HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 #: int32 operations per line-tick of the sweep: subtract, compare, add.
 OPS_PER_LINE_TICK = 3
+#: H100 SXM float32 rate outside the tensor cores, FLOP/s (NVIDIA data
+#: sheet): the SSD scan computes in float32.
+F32_FLOPS_PER_S = 67e12
 
 #: the largest TNN network the repository defines
 #: (benchmarks/bench_serve_learn.py, full size): 32 features x 16 GRF
@@ -61,6 +77,13 @@ OPS_PER_LINE_TICK = 3
 #: L2 24 columns x rf 16 x 8 neurons, threshold 8; T = 32, catwalk, k = 3.
 N_FEATURES, N_FIELDS, T_STEPS, K = 32, 16, 32, 3
 N_SLOTS, N_CLIENTS = 64, 256
+
+#: the LM path: the repository's only attention-free model
+#: (configs/mamba2_780m.py) at full width and depth, bf16; prefill of B
+#: sequences of L tokens; generation for N_PROMPTS prompts of 16-128 tokens.
+LM_ARCH = "mamba2-780m"
+PREFILL_B, PREFILL_L = 4, 2048
+N_PROMPTS, NEW_TOKENS = 8, 32
 
 
 def emit(phase: str, **fields) -> None:
@@ -186,20 +209,27 @@ REPLACES = {"rnl_fire_times_layer": "src/repro/kernels/rnl_neuron.py:218",
             "rnl_fire_times": "src/repro/kernels/rnl_neuron.py:157",
             "rnl_fire_times_compact": "src/repro/kernels/rnl_neuron.py:276",
             "unary_topk_count": "src/repro/kernels/unary_topk.py:116",
-            "unary_topk_relocate": "src/repro/kernels/unary_topk.py:79"}
+            "unary_topk_relocate": "src/repro/kernels/unary_topk.py:79",
+            "ssd_scan": "src/repro/kernels/ssd_scan.py:68"}
 RNL_WRAPPERS = ("rnl_fire_times_layer", "rnl_fire_times",
                 "rnl_fire_times_compact")
 SOURCES = {"rnl_neuron": "src/repro_torch/kernels/csrc/rnl_neuron.cu",
-           "unary_topk": "src/repro_torch/kernels/csrc/unary_topk.cu"}
+           "unary_topk": "src/repro_torch/kernels/csrc/unary_topk.cu",
+           "ssd_scan": "src/repro_torch/kernels/csrc/ssd_scan.cu"}
+#: the source each wrapper launches
+SOURCE_OF = {**{name: "rnl_neuron" for name in RNL_WRAPPERS},
+             "unary_topk_count": "unary_topk",
+             "unary_topk_relocate": "unary_topk", "ssd_scan": "ssd_scan"}
 
 
 def reset_launches() -> None:
     rn.reset_launches()
     ut.reset_launches()
+    ss.reset_launches()
 
 
 def launch_counts() -> Dict[str, int]:
-    return {**rn.LAUNCHES, **ut.LAUNCHES}
+    return {**rn.LAUNCHES, **ut.LAUNCHES, **ss.LAUNCHES}
 
 
 @dataclasses.dataclass
@@ -207,12 +237,14 @@ class Path:
     """One path of the main path: ``run()`` drives it once through the
     entry points a user calls and returns ``(outputs, stats)``;
     ``check(outputs, stats)`` raises unless they are right and returns the
-    fields to print; ``kernel`` is the wrapper the path must launch."""
+    fields to print; ``kernel`` is the wrapper the path must launch (None:
+    it must launch none), ``launches`` how often, where that is fixed."""
 
     name: str
-    kernel: str
+    kernel: Optional[str]
     run: Callable[[], Tuple[Any, Any]]
     check: Callable[[Any, Any], Dict[str, Any]]
+    launches: Optional[int] = None
 
 
 def main_paths(dev, streams, ff, p_ff) -> List[Path]:
@@ -356,16 +388,73 @@ def gate_level_paths(dev, streams, ff, p_ff) -> List[Path]:
     return [gate_path("catwalk"), gate_path("sorting_pc")]
 
 
+def lm_prompts() -> List[np.ndarray]:
+    """N_PROMPTS prompts of 16-128 tokens from ``tokenizer.encode`` (BOS
+    plus 15-127 bytes of lowercase text)."""
+    rng = np.random.default_rng(6)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz     "))
+    return [tokenizer.encode("".join(rng.choice(letters,
+                                                int(rng.integers(15, 128)))))
+            for _ in range(N_PROMPTS)]
+
+
+def lm_paths(dev, cfg, params, tokens, prompts) -> List[Path]:
+    """mamba2-780m inference at full width and depth: the prefill forward
+    on ``tokens`` (B sequences of L tokens, ``logits_mode="last"``), one
+    SSD scan launch per layer, and ``Engine.generate`` on ``prompts``
+    (greedy), whose decode is the one-token recurrence and launches no
+    kernel."""
+    def prefill_run():
+        logits, _ = lm.forward(params, cfg, tokens, logits_mode="last")
+        return logits, None
+
+    def prefill_check(logits, _):
+        want = (tokens.shape[0], 1, cfg.vocab_size)
+        if tuple(logits.shape) != want or logits.dtype != torch.bfloat16 \
+                or not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"lm_prefill: logits {tuple(logits.shape)} "
+                                 f"{logits.dtype}, expected finite {want}")
+        return dict(arch=cfg.name, layers=cfg.n_layers, dtype=cfg.dtype,
+                    batch=int(tokens.shape[0]), seq=int(tokens.shape[1]),
+                    finite=True)
+
+    def generate_run():
+        eng = Engine(params, cfg, ServeConfig(), device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = eng.generate(prompts, max_new_tokens=NEW_TOKENS)
+        wall_s = time.perf_counter() - t0
+        return outs, dict(steps=eng.n_steps, wall_s=wall_s)
+
+    def generate_check(outs, st):
+        new = sum(len(o) for o in outs)
+        if len(outs) != len(prompts) or any(
+                not 1 <= len(o) <= NEW_TOKENS or o.min() < 0
+                or o.max() >= cfg.vocab_size for o in outs):
+            raise AssertionError("lm_generate: outputs out of range")
+        return dict(requests=len(prompts),
+                    prompt_tokens=[len(p) for p in prompts],
+                    new_tokens=new, steps=st["steps"],
+                    tokens_per_s=new / st["wall_s"],
+                    steps_per_s=st["steps"] / st["wall_s"])
+
+    return [Path("lm_prefill", "ssd_scan", prefill_run, prefill_check,
+                 launches=cfg.n_layers),
+            Path("lm_generate", None, generate_run, generate_check)]
+
+
 def capture(run) -> List[Dict[str, Any]]:
-    """Drives ``run()`` with the three RNL wrappers and the unary top-k
-    entry spied on. Returns, for each distinct call (wrapper, operand
-    shapes, options or network) in first-call order, its number of calls
-    and a copy of the operands of its busiest call — the one with the most
-    in-cycle spikes (hot bits for unary top-k), so that a pipeline's
-    all-silent fill and drain ticks do not stand for the path."""
+    """Drives ``run()`` with the three RNL wrappers, the unary top-k entry
+    and the SSD scan entry spied on. Returns, for each distinct call
+    (wrapper, operand shapes, options or network) in first-call order, its
+    number of calls and a copy of the operands of its busiest call — the
+    one with the most in-cycle spikes (hot bits for unary top-k), so that a
+    pipeline's all-silent fill and drain ticks do not stand for the path;
+    for the SSD scan, a copy of the operands of every call."""
     cases: Dict[tuple, Dict[str, Any]] = {}
     originals = {name: getattr(rn, name) for name in RNL_WRAPPERS}
     topk = ut._unary_topk
+    ssd = ss._ssd_scan
 
     def spy(name, fn):
         def call(times, weights, **kw):
@@ -393,15 +482,27 @@ def capture(run) -> List[Dict[str, Any]]:
             case.update(bits=bits.clone(), spikes=spikes)
         return topk(bits, units, n, k, count=count)
 
+    def spy_ssd(u, log_decay, b, c, chunk, heads):
+        key = ("ssd_scan", tuple(u.shape), tuple(b.shape), str(u.dtype),
+               chunk, heads)
+        case = cases.setdefault(key, dict(wrapper="ssd_scan", chunk=chunk,
+                                          heads=heads, calls=0, operands=[]))
+        case["calls"] += 1
+        case["operands"].append(tuple(t.clone()
+                                      for t in (u, log_decay, b, c)))
+        return ssd(u, log_decay, b, c, chunk, heads)
+
     for name, fn in originals.items():
         setattr(rn, name, spy(name, fn))
     ut._unary_topk = spy_topk
+    ss._ssd_scan = spy_ssd
     try:
         run()
     finally:
         for name, fn in originals.items():
             setattr(rn, name, fn)
         ut._unary_topk = topk
+        ss._ssd_scan = ssd
     return list(cases.values())
 
 
@@ -587,15 +688,130 @@ def synthetic_topk_cases(dev):
     ]
 
 
+def ssd_bound_ms(u, log_decay, b, y, chunk, heads):
+    """Least time the card could take for one SSD scan call: the larger of
+    the bytes it must move (u, log_decay, the shared b and c read once, y
+    written once) over the memory rate, and the float32 operations these
+    inputs need over the float32 rate: per batch row and chunk C B^T for
+    s <= t (shared by the heads); per row and chunk the causal
+    ((C B^T) o D) U, C S_in (not for the first chunk: S_in = 0) and the
+    state update (not after the last chunk), 2 per multiply-add. Returns
+    ``(ms, "bytes" | "operations")``."""
+    rows, L, p = u.shape
+    n = b.shape[-1]
+    lens = [min(chunk, L - t0) for t0 in range(0, L, chunk)]
+    tri = sum(lc * (lc + 1) // 2 for lc in lens)
+    macs = (rows // heads) * tri * n + rows * tri * p \
+        + rows * (L - lens[0]) * n * p + rows * (L - lens[-1]) * n * p
+    nbytes = sum(t.numel() * t.element_size() for t in (u, log_decay, y)) \
+        + 2 * b.numel() * b.element_size()
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, 2 * macs / F32_FLOPS_PER_S
+    return 1e3 * max(by_bytes, by_ops), \
+        ("bytes" if by_bytes > by_ops else "operations")
+
+
+def check_ssd(label, u, log_decay, b, c, chunk, heads, *, timed=True,
+              **extra) -> Dict[str, Any]:
+    """One SSD scan call against its plain version computed in float64
+    from the same inputs on the card, or raise. Tolerance, elementwise,
+    with s = max |reference|: float32 output |y - ref| <= 5e-4 s; bfloat16
+    output |y - ref| <= 2^-8 |ref| + 1e-4 s (one bf16 rounding of an f32
+    result). When ``timed``: its device time, call time, the plain
+    version's time (float32, as the CPU path runs it) and its bound."""
+    def fn():
+        return ss._ssd_scan(u, log_decay, b, c, chunk, heads)
+
+    def plain():
+        return ss._ssd_scan_plain(u, log_decay, b, c, chunk, heads)
+
+    got = fn()
+    want = ss._ssd_scan_plain(u.double(), log_decay.double(), b.double(),
+                              c.double(), chunk, heads)
+    torch.cuda.synchronize()
+    err = (got.double() - want).abs()
+    scale = float(want.abs().max())
+    if u.dtype == torch.float32:
+        ok = err <= 5e-4 * scale
+    else:
+        ok = err <= 2.0 ** -8 * want.abs() + 1e-4 * scale
+    max_err = float(err.max())
+    if got.shape != u.shape or got.dtype != u.dtype or not bool(ok.all()):
+        raise AssertionError(f"ssd_scan/{label}: kernel disagrees with its "
+                             f"plain version (max |err| {max_err}, scale "
+                             f"{scale})")
+    row = dict(variant="ssd_scan", shape=label, **extra, u=list(u.shape),
+               dtype=str(u.dtype).split(".")[-1], n=int(b.shape[-1]),
+               chunk=chunk, heads=heads, max_abs_err=max_err,
+               max_err_over_scale=max_err / scale)
+    if timed:
+        call_ms = time_ms(fn)
+        ms = kernel_ms(fn, reps=20, key="ssd_scan")
+        bound, bound_by = ssd_bound_ms(u, log_decay, b, got, chunk, heads)
+        row.update(ms=call_ms if ms is None else ms,
+                   ms_source="cuda_events" if ms is None else "profiler",
+                   call_ms=call_ms, plain_ms=time_ms(plain, reps=5, warmup=1),
+                   bound_ms=bound, bound_by=bound_by, library_ms=None)
+    emit("kernels", **row)
+    return row
+
+
+def synthetic_ssd_cases(dev, operands, chunk, heads):
+    """(label, u, log_decay, b, c, chunk, heads, timed) for the SSD scan:
+    one prefill call's ``operands`` in float32 (timed); the smoke shape (chunk
+    32, P = N = 16); ragged L = 1, 127, 129, 2047 at the model's shapes;
+    log_decay -30 (the state resets every step); the long carry with an
+    impulse (tests/test_kernels.py)."""
+    rng = np.random.default_rng(7)
+
+    def make(rows, heads, L, p, n, dtype=torch.bfloat16):
+        u = torch.from_numpy(rng.standard_normal((rows, L, p),
+                                                 dtype=np.float32))
+        ld = -torch.from_numpy(np.logaddexp(
+            rng.standard_normal((rows, L)), 0.0).astype(np.float32))
+        b, c = (torch.from_numpy(0.3 * rng.standard_normal(
+            (rows // heads, L, n), dtype=np.float32)) for _ in range(2))
+        return [u.to(dev, dtype), ld.to(dev), b.to(dev, dtype),
+                c.to(dev, dtype)]
+
+    u, ld, b, c = operands
+    cases = [("prefill_call_float32", u.float(), ld, b.float(), c.float(),
+              chunk, heads, True),
+             ("smoke_chunk32_p16_n16", *make(16, 8, 70, 16, 16), 32, 8,
+              False)]
+    for L in (1, 127, 129, 2047):
+        cases.append((f"ragged_L{L}", *make(48, 48, L, 64, 128), 128, 48,
+                      False))
+    reset = make(4, 2, 300, 64, 128, torch.float32)
+    reset[1] = torch.full_like(reset[1], -30.0)
+    cases.append(("log_decay_-30", *reset, 128, 2, False))
+    impulse = torch.zeros((1, 200, 2), device=dev)
+    impulse[0, 0] = 1.0
+    ones = torch.ones((1, 200, 2), device=dev)
+    cases.append(("long_carry_impulse", impulse,
+                  torch.full((1, 200), float(np.log(0.9)), device=dev),
+                  ones, ones.clone(), 64, 1, False))
+    return cases
+
+
 def phase_kernels(dev, captured) -> Dict[str, Dict[str, Any]]:
     """Every launch variant against its plain version on the card: each
     distinct call the main path made (its own operands), the clip variants
     on the main path's layer and bank operands, then the synthetic cases.
     Returns, per wrapper, the row of the call its first path made most (for
-    unary top-k, the first path's first call)."""
+    unary top-k and the SSD scan, the first path's first call)."""
     main_rows: Dict[str, Dict[str, Any]] = {}
+    ssd_call = None
     for path, cases in captured.items():
         for i, case in enumerate(cases):
+            if case["wrapper"] == "ssd_scan":
+                for k, ops in enumerate(case["operands"]):
+                    row = check_ssd(f"{path}#{i}/call{k}", *ops,
+                                    case["chunk"], case["heads"],
+                                    timed=k == 0, path=path,
+                                    calls=case["calls"])
+                    main_rows.setdefault("ssd_scan", row)
+                ssd_call = (case["operands"][0], case["chunk"], case["heads"])
+                continue
             if case["wrapper"].startswith("unary_topk"):
                 row = check_topk(f"{path}#{i}", case["bits"], case["units"],
                                  case["n"], case["k"],
@@ -620,6 +836,10 @@ def phase_kernels(dev, captured) -> Dict[str, Dict[str, Any]]:
         for count in (True, False):
             check_topk(label, bits, net.units, net.n, net.k, count=count,
                        timed=timed)
+    if ssd_call is not None:
+        for label, *ops, chunk, heads, timed in synthetic_ssd_cases(
+                dev, *ssd_call):
+            check_ssd(label, *ops, chunk, heads, timed=timed)
     return main_rows
 
 
@@ -644,9 +864,14 @@ def phase_serve(paths, captured) -> Dict[str, Dict[str, int]]:
         seen = {name: 0 for name in REPLACES}
         for case in captured[path.name]:
             seen[case["wrapper"]] += case["calls"]
-        if counts[path.kernel] <= 0:
+        if path.kernel is not None and counts[path.kernel] <= 0:
             raise AssertionError(f"{path.name}: {path.kernel} was not "
                                  f"launched")
+        if path.launches is not None \
+                and counts[path.kernel] != path.launches:
+            raise AssertionError(f"{path.name}: {counts[path.kernel]} "
+                                 f"launches of {path.kernel}, expected "
+                                 f"{path.launches}")
         if counts != seen or any(n for name, n in counts.items()
                                  if name != path.kernel):
             raise AssertionError(f"{path.name}: launches {counts}, calls "
@@ -660,7 +885,7 @@ def device_share(prof, wall_ms):
     dev_events = [e for e in prof.key_averages()
                   if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in dev_events) / 1e3
-    top = sorted(dev_events, key=lambda e: -e.self_device_time_total)[:8]
+    top = sorted(dev_events, key=lambda e: -e.self_device_time_total)[:12]
     return dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
                 idle_share=1.0 - busy_ms / wall_ms,
                 device_ops=sum(e.count for e in dev_events),
@@ -706,17 +931,199 @@ def phase_profile(dev, streams, ff, p_ff):
     emit("profile", run="auto", steps=steps, **device_share(prof, wall_ms))
 
 
+def phase_lm_prefill(cfg, params, tokens):
+    """Host clock around whole prefill forwards, each ended by a
+    synchronise: ms per forward (median of 3) and prefill tokens/s."""
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lm.forward(params, cfg, tokens, logits_mode="last")
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    ms = statistics.median(times)
+    emit("lm_prefill_time", batch=int(tokens.shape[0]),
+         seq=int(tokens.shape[1]), forward_ms=ms, forward_ms_all=times,
+         tokens_per_s=tokens.numel() / (ms / 1e3))
+
+
+def phase_profile_decode(cfg, params, prompts):
+    """Where a generation step's time goes: 4 warm ``decode_step`` calls
+    for the prompts' batch under the profiler (busy, idle share, top
+    device ops)."""
+    steps = 4
+    state = lm.init_serve_state(params, cfg, len(prompts), 256)
+    first = np.array([[p[0]] for p in prompts], np.int32)
+    _, state = lm.decode_step(params, cfg, state, first)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            logits, state = lm.decode_step(params, cfg, state, first)
+        logits.float().cpu()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    emit("profile", run="lm_decode_step", steps=steps, batch=len(prompts),
+         **device_share(prof, wall_ms))
+
+
+def _map(tree, fn):
+    """The parameter tree with ``fn`` applied to every leaf."""
+    return {k: _map(v, fn) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}
+
+
+def _over_scale(got, want):
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max())
+
+
+def _forward_vs_decode(cfg, params, tokens):
+    """``forward`` against ``decode_step`` fed ``tokens`` (1, S) token by
+    token. Returns max |logit difference| over max |forward logit|, and per
+    layer the same for the Mamba2 block alone: the block's full-sequence
+    form (the SSD kernel) applied to the inputs the decode fed that layer,
+    against the decode's outputs (the recurrence), so that no layer sees
+    another's difference."""
+    fwd, _ = lm.forward(params, cfg, tokens)
+    calls = []
+    apply = lm.S.ssm_apply
+
+    def spy(p, u, c, *, cache=None):
+        out = apply(p, u, c, cache=cache)
+        calls.append((u, out[0]))
+        return out
+
+    state = lm.init_serve_state(params, cfg, tokens.shape[0], tokens.shape[1])
+    dec = []
+    lm.S.ssm_apply = spy
+    try:
+        for i in range(tokens.shape[1]):
+            logits, state = lm.decode_step(params, cfg, state,
+                                           tokens[:, i:i + 1])
+            dec.append(logits)
+    finally:
+        lm.S.ssm_apply = apply
+    per_layer = []
+    n = cfg.n_layers
+    for layer in range(n):
+        ins, outs = (torch.cat([calls[t * n + layer][j]
+                                for t in range(tokens.shape[1])], dim=1)
+                     for j in (0, 1))
+        full, _ = apply(lm._layer(params["layers"], layer)["ssm"], ins, cfg)
+        per_layer.append(_over_scale(full, outs))
+    return _over_scale(torch.stack(dec, dim=1), fwd), per_layer
+
+
+def phase_lm_checks(dev, cfg, params, tokens, prompts):
+    """Cross-checks of the LM path at full width and depth, with TF32 off.
+
+    (1) The SSD kernel against the recurrence: in a float32 copy of the
+    model (the bf16 weights, upcast), the forward over the first 128
+    positions of one sequence against ``decode_step`` fed token by token.
+    Each layer's block, given the same inputs, must agree within 1e-3 of
+    its output's scale. The logits are reported beside it, in float32 and
+    bf16, and held only within 1e-2: a random 48-layer model carries each
+    layer's rounding difference into the next and amplifies it with depth.
+    (2) The float32 engine's greedy tokens against the argmax of the
+    float32 forward over prompt + output (teacher forcing); a mismatch is
+    allowed only where the forward's logit of the engine's token lies
+    within 1e-2 of the logits' scale of its maximum (the end-to-end
+    tolerance of (1)), and is counted. (3) The card's float32 prefill
+    against the CPU's plain forward at full width with depth cut to 2
+    layers, L = 256, ``logits_mode="last"``, within 1e-4 of the scale; the
+    CPU's result counts once the host has repeated it bit for bit."""
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = _map(params, lambda t: t.float())
+    head = tokens[:1, :128]
+    logits32, layers32 = _forward_vs_decode(cfg32, p32, head)
+    logits16, layers16 = _forward_vs_decode(cfg, params, head)
+    if not (max(layers32) <= 1e-3 and logits32 <= 1e-2):
+        raise AssertionError(f"lm: f32 forward vs decode: logits {logits32}"
+                             f", worst layer {max(layers32)}")
+
+    eng = Engine(p32, cfg32, ServeConfig(), device=dev)
+    outs = eng.generate(prompts, max_new_tokens=NEW_TOKENS)
+    width = max(len(p) for p in prompts)
+    seq = np.full((len(prompts), width + NEW_TOKENS - 1), eng._fill,
+                  np.int32)
+    for r, (p, o) in enumerate(zip(prompts, outs)):
+        seq[r, :len(p)] = p
+        seq[r, width:width + len(o) - 1] = o[:-1]
+    logits, _ = lm.forward(p32, cfg32, torch.from_numpy(seq).to(dev))
+    logits = logits[:, width - 1:].float().cpu()
+    checked, near_ties = 0, 0
+    for r, o in enumerate(outs):
+        for i, t in enumerate(o):
+            row = logits[r, i]
+            top = int(row.argmax())
+            checked += 1
+            if top != int(t):
+                gap = float(row[top] - row[int(t)])
+                if gap > 1e-2 * float(row.abs().max()):
+                    raise AssertionError(
+                        f"lm: greedy token {i} of request {r} is {int(t)}, "
+                        f"the f32 forward's argmax {top} (gap {gap})")
+                near_ties += 1
+
+    cfg2 = dataclasses.replace(cfg32, n_layers=2)
+    p2 = {**p32, "layers": _map(p32["layers"], lambda t: t[:2])}
+    toks2 = tokens[:2, :256]
+    card, _ = lm.forward(p2, cfg2, toks2, logits_mode="last")
+    cpu, host_runs = _host_reference(lambda: lm.forward(
+        _map(p2, lambda t: t.cpu()), cfg2, toks2.cpu(),
+        logits_mode="last")[0])
+    card_cpu = float((card.cpu() - cpu).abs().max() / cpu.abs().max())
+    if not card_cpu <= 1e-4:
+        raise AssertionError(f"lm: card vs CPU forward {card_cpu}")
+    emit("lm_checks", tf32_matmul=torch.backends.cuda.matmul.allow_tf32,
+         tf32_cudnn=torch.backends.cudnn.allow_tf32,
+         positions=int(head.shape[1]),
+         forward_vs_decode=dict(
+             float32=dict(logits=logits32, worst_layer=max(layers32),
+                          layers=layers32),
+             bfloat16=dict(logits=logits16, worst_layer=max(layers16),
+                           layers=layers16),
+             layer_tol=1e-3, logits_tol=1e-2),
+         greedy_vs_forward=dict(tokens=checked, near_ties=near_ties,
+                                equal=checked - near_ties),
+         card_vs_cpu=dict(layers=2, batch=int(toks2.shape[0]),
+                          seq=int(toks2.shape[1]), logits_mode="last",
+                          dtype="float32", max_err_over_scale=card_cpu,
+                          tol=1e-4, host_runs=host_runs))
+
+
+def _host_reference(fn):
+    """``fn()`` on the host, repeated until two results agree bit for bit;
+    returns that result and the number of runs it took. A host whose
+    float32 arithmetic does not always reproduce itself would otherwise
+    fail the card's check on the host's account, so a reference is kept
+    only once the host repeats it. Raises after 4 runs without a repeat."""
+    tries = 4
+    results = [fn()]
+    while len(results) < tries:
+        results.append(fn())
+        if any(torch.equal(r, results[-1]) for r in results[:-1]):
+            return results[-1], len(results)
+    raise AssertionError(f"the host's reference does not reproduce itself "
+                         f"in {tries} runs")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
 
     dev = torch.device("cuda")
+    # full float32 products for the float32 cross-checks
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     smi = smi_line()
     t0 = time.perf_counter()
     build.build_all(list(SOURCES))
     rn._library()
     ut._library()
+    ss._library()
     build_s = time.perf_counter() - t0
     ptxas = {}
     for name in SOURCES:
@@ -726,28 +1133,41 @@ def main() -> int:
             if log.exists() else []
     emit("env", torch=torch.__version__, cuda=torch.version.cuda,
          device=torch.cuda.get_device_name(0), nvidia_smi=smi,
-         kernel_build_s=build_s, ptxas=ptxas)
+         kernel_build_s=build_s, ptxas=ptxas,
+         tf32_matmul=torch.backends.cuda.matmul.allow_tf32,
+         tf32_cudnn=torch.backends.cudnn.allow_tf32)
 
     streams = synth_clients(N_CLIENTS)
     ff = serve_network()
     p_ff = network.init_network(torch.Generator().manual_seed(0), ff,
                                 device=dev)
-    paths = main_paths(dev, streams, ff, p_ff)
+    lm_cfg = lm_registry.get_config(LM_ARCH)
+    lm_params = lm.init_params(torch.Generator(device=dev).manual_seed(0),
+                               lm_cfg, device=dev)
+    lm_tokens = torch.from_numpy(np.random.default_rng(5).integers(
+        0, lm_cfg.vocab_size, (PREFILL_B, PREFILL_L))).to(dev)
+    prompts = lm_prompts()
+    paths = main_paths(dev, streams, ff, p_ff) + lm_paths(
+        dev, lm_cfg, lm_params, lm_tokens, prompts)
     # capture pass (also the warm-up): each path's calls and operands
-    captured = {path.name: capture(path.run) for path in paths}
+    # (the generation path launches no kernel: its measured run shows it)
+    captured = {path.name: capture(path.run) if path.kernel else []
+                for path in paths}
     main_rows = phase_kernels(dev, captured)
     launches = phase_serve(paths, captured)
     phase_profile(dev, streams, ff, p_ff)
     for path in paths:
-        if path.name.startswith("gate_level"):
+        if path.name.startswith("gate_level") or path.name == "lm_prefill":
             phase_profile_path(path)
+    phase_lm_prefill(lm_cfg, lm_params, lm_tokens)
+    phase_profile_decode(lm_cfg, lm_params, prompts)
+    phase_lm_checks(dev, lm_cfg, lm_params, lm_tokens, prompts)
 
     kernels = []
     for name, row in main_rows.items():
         by_run = {path.name: launches[path.name][name] for path in paths
                   if path.kernel == name}
-        source = SOURCES["unary_topk" if name.startswith("unary_topk")
-                         else "rnl_neuron"]
+        source = SOURCES[SOURCE_OF[name]]
         kernels.append(dict(
             name=name, route="cuda", source=source,
             replaces=REPLACES[name], launches=sum(by_run.values()),

@@ -6,11 +6,12 @@ PyTorch cannot reproduce; weights cross as numpy arrays instead.
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple, Union
+from typing import Any, Dict, Mapping, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.common import resolve_device
 
 
@@ -29,3 +30,32 @@ def params_from_numpy(params: Sequence[np.ndarray],
                              f"got shape {arr.shape}")
         out.append(torch.from_numpy(arr.copy()).to(dev))
     return tuple(out)
+
+
+#: LM leaves the reference keeps in float32 whatever the model dtype (norm
+#: scales, the SSD time-step bias and decay rate)
+F32_LEAVES = frozenset({"final_norm", "norm", "norm1", "dt_bias", "a_log"})
+
+
+def lm_params_from_numpy(tree: Mapping[str, Any], cfg: ModelConfig,
+                         device: Union[str, torch.device, None] = None
+                         ) -> Dict[str, Any]:
+    """The reference's LM parameter pytree, as numpy arrays (bfloat16
+    leaves with the ``ml_dtypes`` dtype), -> the port's tree of tensors on
+    ``device`` (``None`` = ``cuda``; raises when CUDA is absent), in the
+    config's dtype except the :data:`F32_LEAVES`, which stay float32.
+
+    ``torch.from_numpy`` refuses the ``ml_dtypes`` bfloat16 dtype, so every
+    leaf goes through float32, which holds a bfloat16 value exactly.
+    """
+    dev = resolve_device(device)
+    model = {"bfloat16": torch.bfloat16, "float32": torch.float32}[cfg.dtype]
+
+    def convert(node, name):
+        if isinstance(node, Mapping):
+            return {k: convert(v, k) for k, v in node.items()}
+        arr = np.array(node, dtype=np.float32)
+        dtype = torch.float32 if name in F32_LEAVES else model
+        return torch.from_numpy(arr).to(device=dev, dtype=dtype)
+
+    return convert(tree, "")

@@ -1,0 +1,262 @@
+"""Mamba2 SSD (state-space duality) chunked scan: a hand-written CUDA
+kernel and its plain PyTorch versions.
+
+Recurrence per row (one (batch, head) pair), in f32:
+
+    S_t = a_t * S_{t-1} + B_t (x) u_t          (N x P state)
+    y_t = C_t . S_t
+
+Chunked form (``chunk`` positions, g = cumsum(log a) inside a chunk):
+
+    y     = ((C B^T) o D) U + exp(g) * (C S_in)        D_ts = exp(g_t - g_s), s <= t
+    S_out = exp(g_L) S_in + B^T diag(exp(g_L - g_s)) U
+
+The kernel (``csrc/ssd_scan.cu``, built for ``sm_90a`` at first use by
+:mod:`repro_torch.kernels.build`) runs the chunk loop inside one block per
+(row, tile of P) and keeps the state in shared memory. Rows may share B
+and C: with ``heads`` rows per batch row the kernel reads B and C at row
+``// heads``, so the multi-head form (:func:`repro_torch.kernels.ops.ssd_scan_mh`)
+never repeats them.
+
+Plain versions, beside the kernel: the token-by-token recurrence
+(:func:`ssd_scan_oracle`), the chunked form (:func:`ssd_scan_chunked`) and
+the multi-head chunked form with shared B/C (:func:`ssd_scan_chunked_mh`).
+They compute in float32, or in float64 when given float64.
+
+A wrapper given CPU tensors runs the plain chunked form; given CUDA
+tensors it launches the kernel on the current stream or raises: it never
+falls back. Each launch adds one to ``LAUNCHES["ssd_scan"]``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+from typing import Dict, Optional
+
+import torch
+
+from repro_torch.kernels import build
+
+#: the reference's default chunk length
+CHUNK = 128
+#: the kernel holds chunks of at most this many positions ...
+MAX_CHUNK = 128
+#: ... and states of at most this many rows (N); P is split into tiles of
+#: 64 columns across blocks and has no cap. Larger inputs raise on CUDA
+#: (``csrc/ssd_scan.cu``: one block's operands in 227 KB of shared memory).
+MAX_STATE = 128
+
+#: kernel launches since the last :func:`reset_launches`
+LAUNCHES: Dict[str, int] = {"ssd_scan": 0}
+
+_lib_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+
+
+def reset_launches() -> None:
+    """Set the launch count to 0."""
+    LAUNCHES["ssd_scan"] = 0
+
+
+def _library() -> ctypes.CDLL:
+    """Build/load ``csrc/ssd_scan.cu`` and declare its C interface."""
+    global _lib
+    with _lib_lock:
+        if _lib is None:
+            lib = build.load("ssd_scan")
+            p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+            lib.ssd_scan_launch.argtypes = [p, p, p, p, p, ll, ll, i, i, i,
+                                            i, i, p]
+            lib.ssd_scan_launch.restype = ctypes.c_int
+            lib.ssd_scan_error_string.argtypes = [ctypes.c_int]
+            lib.ssd_scan_error_string.restype = ctypes.c_char_p
+            _lib = lib
+        return _lib
+
+
+# ------------------------------------------------------------ plain versions
+
+def _compute_dtype(u: torch.Tensor) -> torch.dtype:
+    return torch.promote_types(u.dtype, torch.float32)
+
+
+def ssd_scan_oracle(u: torch.Tensor, log_decay: torch.Tensor,
+                    b: torch.Tensor, c: torch.Tensor,
+                    chunk: int = 0) -> torch.Tensor:
+    """The exact token-by-token recurrence. Shapes as :func:`ssd_scan`;
+    ``chunk`` is ignored."""
+    del chunk
+    f = _compute_dtype(u)
+    bh, L, p = u.shape
+    n = b.shape[-1]
+    uf, la, bf, cf = u.to(f), log_decay.to(f), b.to(f), c.to(f)
+    state = torch.zeros((bh, n, p), dtype=f, device=u.device)
+    ys = []
+    for t in range(L):
+        state = torch.exp(la[:, t])[:, None, None] * state \
+            + bf[:, t, :, None] * uf[:, t, None, :]
+        ys.append(torch.einsum("zn,znp->zp", cf[:, t], state))
+    y = torch.stack(ys, dim=1) if ys else uf.new_zeros((bh, 0, p))
+    return y.to(u.dtype)
+
+
+def ssd_scan_chunked_mh(u: torch.Tensor, log_decay: torch.Tensor,
+                        b: torch.Tensor, c: torch.Tensor,
+                        chunk: int = CHUNK) -> torch.Tensor:
+    """The chunked form with B/C shared across heads (Mamba2's single B/C
+    group): the head axis stays inside the products, so B and C are never
+    repeated per head.
+
+    Shapes: u (B, H, L, P); log_decay (B, H, L); b, c (B, L, N).
+    Returns y (B, H, L, P) in u's dtype.
+    """
+    bsz, h, L, p = u.shape
+    n = b.shape[-1]
+    f = _compute_dtype(u)
+    pad = (-L) % chunk
+    nc = (L + pad) // chunk
+    uf = torch.nn.functional.pad(u.to(f), (0, 0, 0, pad))
+    la = torch.nn.functional.pad(log_decay.to(f), (0, pad))
+    bf = torch.nn.functional.pad(b.to(f), (0, 0, 0, pad))
+    cf = torch.nn.functional.pad(c.to(f), (0, 0, 0, pad))
+    uf = uf.reshape(bsz, h, nc, chunk, p)
+    la = la.reshape(bsz, h, nc, chunk)
+    bf = bf.reshape(bsz, nc, chunk, n)
+    cf = cf.reshape(bsz, nc, chunk, n)
+
+    g = torch.cumsum(la, dim=-1)                         # (B,H,NC,Lc)
+    causal = torch.ones((chunk, chunk), dtype=torch.bool,
+                        device=u.device).tril()
+    seg = (g[..., :, None] - g[..., None, :]).masked_fill(~causal,
+                                                          float("-inf"))
+    dmat = torch.exp(seg)                                # 0 above the diagonal
+    cb = torch.einsum("zctn,zcsn->zcts", cf, bf)         # shared across heads
+    y_intra = torch.einsum("zhcts,zhcsp->zhctp", cb[:, None] * dmat, uf)
+
+    carry_w = torch.exp(g[..., -1:] - g)                 # (B,H,NC,Lc)
+    s_local = torch.einsum("zcsn,zhcsp->zhcnp", bf,
+                           carry_w[..., None] * uf)
+    a_chunk = torch.exp(g[..., -1])                      # (B,H,NC)
+    state = torch.zeros((bsz, h, n, p), dtype=f, device=u.device)
+    s_in = []
+    for ci in range(nc):
+        s_in.append(state)                               # INCOMING state
+        state = a_chunk[..., ci, None, None] * state + s_local[:, :, ci]
+    if s_in:
+        y_inter = torch.exp(g)[..., None] * torch.einsum(
+            "zctn,zhcnp->zhctp", cf, torch.stack(s_in, dim=2))
+        y_intra = y_intra + y_inter
+    y = y_intra.reshape(bsz, h, nc * chunk, p)
+    return y[:, :, :L].to(u.dtype)
+
+
+def ssd_scan_chunked(u: torch.Tensor, log_decay: torch.Tensor,
+                     b: torch.Tensor, c: torch.Tensor,
+                     chunk: int = CHUNK) -> torch.Tensor:
+    """The chunked form on (BH, ·) operands (:func:`ssd_scan`'s shapes):
+    the multi-head form with one head per row."""
+    return ssd_scan_chunked_mh(u[:, None], log_decay[:, None], b, c,
+                               chunk)[:, 0]
+
+
+def _ssd_scan_plain(u, log_decay, b, c, chunk, heads):
+    """Plain version of :func:`_ssd_scan`."""
+    bh, L, p = u.shape
+    y = ssd_scan_chunked_mh(u.reshape(bh // heads, heads, L, p),
+                            log_decay.reshape(bh // heads, heads, L), b, c,
+                            chunk)
+    return y.reshape(bh, L, p)
+
+
+# ------------------------------------------------------------------ wrappers
+
+def _check(u, log_decay, b, c, chunk, heads) -> None:
+    """Shapes and devices, whatever the device."""
+    if u.dim() != 3:
+        raise ValueError(f"u must be (rows, L, P), got {tuple(u.shape)}")
+    bh, L, _ = u.shape
+    if heads < 1 or bh % heads:
+        raise ValueError(f"{bh} rows do not split into heads of {heads}")
+    if tuple(log_decay.shape) != (bh, L):
+        raise ValueError(f"log_decay of shape {tuple(log_decay.shape)}, "
+                         f"expected {(bh, L)}")
+    if b.dim() != 3 or tuple(b.shape[:2]) != (bh // heads, L) \
+            or b.shape != c.shape:
+        raise ValueError(f"b {tuple(b.shape)} and c {tuple(c.shape)} must "
+                         f"both be ({bh // heads}, {L}, N)")
+    if chunk < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
+    devices = {t.device for t in (u, log_decay, b, c)}
+    if len(devices) != 1:
+        raise ValueError(f"operands on several devices: {sorted(map(str, devices))}")
+    if u.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no SSD scan for device {u.device}")
+
+
+def _check_kernel(u, log_decay, b, c, chunk) -> None:
+    """What the CUDA kernel takes: raises ``ValueError`` on anything else."""
+    if u.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"the kernel takes bfloat16 or float32 u, got "
+                         f"{u.dtype}")
+    if b.dtype != u.dtype or c.dtype != u.dtype:
+        raise ValueError(f"b ({b.dtype}) and c ({c.dtype}) must have u's "
+                         f"dtype ({u.dtype})")
+    if log_decay.dtype != torch.float32:
+        raise ValueError(f"log_decay must be float32, got {log_decay.dtype}")
+    if not all(t.is_contiguous() for t in (u, log_decay, b, c)):
+        raise ValueError("the kernel takes contiguous operands")
+    if chunk > MAX_CHUNK:
+        raise ValueError(f"chunk {chunk}: the CUDA kernel holds at most "
+                         f"{MAX_CHUNK}")
+    if b.shape[-1] > MAX_STATE:
+        raise ValueError(f"state size N={b.shape[-1]}: the CUDA kernel "
+                         f"holds at most {MAX_STATE}")
+
+
+def _ssd_scan(u: torch.Tensor, log_decay: torch.Tensor, b: torch.Tensor,
+              c: torch.Tensor, chunk: int, heads: int) -> torch.Tensor:
+    """The SSD scan of rows ``u`` (R, L, P), ``log_decay`` (R, L) with B and
+    C (R / heads, L, N) shared by each run of ``heads`` consecutive rows.
+    Returns y (R, L, P) in u's dtype."""
+    _check(u, log_decay, b, c, chunk, heads)
+    if u.device.type == "cpu":
+        return _ssd_scan_plain(u, log_decay, b, c, chunk, heads)
+    _check_kernel(u, log_decay, b, c, chunk)
+    rows, L, p = u.shape
+    y = torch.empty_like(u)
+    if rows == 0 or L == 0 or p == 0:
+        return y
+    dev = u.device
+    with torch.cuda.device(dev):
+        lib = _library()
+        code = lib.ssd_scan_launch(
+            ctypes.c_void_p(u.data_ptr()),
+            ctypes.c_void_p(log_decay.data_ptr()),
+            ctypes.c_void_p(b.data_ptr()), ctypes.c_void_p(c.data_ptr()),
+            ctypes.c_void_p(y.data_ptr()), rows, L, p, b.shape[-1], chunk,
+            heads, int(u.dtype == torch.bfloat16),
+            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    if code != 0:
+        msg = lib.ssd_scan_error_string(code).decode()
+        raise RuntimeError(f"ssd_scan launch failed: {msg} "
+                           f"(cuda error {code})")
+    LAUNCHES["ssd_scan"] += 1
+    return y
+
+
+def ssd_scan(u: torch.Tensor, log_decay: torch.Tensor, b: torch.Tensor,
+             c: torch.Tensor, chunk: int = CHUNK) -> torch.Tensor:
+    """Chunked SSD scan.
+
+    Args:
+      u:         (BH, L, P) dt-scaled inputs (bfloat16 or float32 on CUDA).
+      log_decay: (BH, L) log a_t <= 0 (float32 on CUDA).
+      b:         (BH, L, N) input projections (u's dtype on CUDA).
+      c:         (BH, L, N) output projections (u's dtype on CUDA).
+      chunk:     chunk length.
+
+    Returns:
+      y: (BH, L, P), same dtype as u.
+    """
+    return _ssd_scan(u, log_decay, b, c, chunk, heads=1)

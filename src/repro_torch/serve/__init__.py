@@ -1,1 +1,19 @@
-"""Slot-based serving: the generic slot pool and the TNN volley engine."""
+"""Slot-based serving: the generic slot pool, the TNN volley engine and
+the LM engine (ssm family, static lockstep decoding)."""
+
+from repro_torch.serve.engine import Engine, LMRequest, ServeConfig
+from repro_torch.serve.slots import QueueFull, SlotEntry, SlotPool, latency_summary
+from repro_torch.serve.tnn_engine import TNNEngine, TNNRequest, TNNServeConfig
+
+__all__ = [
+    "Engine",
+    "LMRequest",
+    "QueueFull",
+    "ServeConfig",
+    "SlotEntry",
+    "SlotPool",
+    "TNNEngine",
+    "TNNRequest",
+    "TNNServeConfig",
+    "latency_summary",
+]

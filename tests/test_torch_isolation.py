@@ -48,7 +48,12 @@ def test_no_port_file_imports_jax_or_the_reference():
 
 def test_importing_every_port_module_leaves_jax_out(monkeypatch):
     modules = _modules()
-    assert "repro_torch.serve.tnn_engine" in modules
+    for required in ("repro_torch.serve.tnn_engine",
+                     "repro_torch.models.ssm",
+                     "repro_torch.models.transformer",
+                     "repro_torch.serve.engine",
+                     "repro_torch.kernels.ssd_scan"):
+        assert required in modules
     code = ("import importlib, sys\n"
             f"for m in {modules!r}:\n"
             "    importlib.import_module(m)\n"
