@@ -15,12 +15,15 @@
 // behaves exactly as the reference's zero padding (log_decay 0, u = b =
 // c = 0): padded positions add nothing and are not stored.
 //
-// What bounds it on this card: operations. At the model's shapes (chunk
-// 128, N 128, P 64) a chunk of one row costs ~3.9 M multiply-adds against
-// ~40 KB of input, ~200 operations per byte; in f32 on the CUDA cores
-// (67 TFLOP/s) that is far above the memory line. The design keeps every
-// operand of a chunk in shared memory and runs four small products on the
-// CUDA cores with register tiles:
+// What bounds it on this card: at the model's shapes (chunk 128, N 128,
+// P 64) a chunk of one row costs ~3.9 M multiply-adds against ~40 KB of
+// input, ~200 operations per byte. The bf16 tensor cores (989 TFLOP/s)
+// would clear that faster than memory delivers the bytes, so the call's
+// least time is set by bytes (~0.03 ms for a prefill layer). This kernel
+// runs its products in f32 on the CUDA cores (67 TFLOP/s), which sets its
+// own least time ~7x above that line.
+// The design keeps every operand of a chunk in shared memory and runs four
+// small products on the CUDA cores with register tiles:
 //   * the chunk loop runs inside the block (blocks run in no order, so the
 //     TPU's sequential grid axis becomes a loop), and the state stays in
 //     shared memory for the whole row;

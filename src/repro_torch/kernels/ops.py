@@ -2,39 +2,24 @@
 with heads sharing B and C.
 
 The device of the tensors decides: CUDA tensors launch the hand-written
-kernel, CPU tensors run its plain version. ``impl="ref"`` asks for the
-plain chunked form on any device, as the reference's ``impl="ref"`` does.
+kernel, CPU tensors run its plain version.
 """
 
 from __future__ import annotations
-
-from typing import Literal, Optional
 
 import torch
 
 from repro_torch.kernels import ssd_scan as _ssd
 
-Impl = Optional[Literal["ref"]]
-
-
-def _use_ref(impl: Impl) -> bool:
-    if impl not in (None, "ref"):
-        raise ValueError(f"impl must be None or 'ref', got {impl!r}")
-    return impl == "ref"
-
 
 def ssd_scan(u: torch.Tensor, log_decay: torch.Tensor, b: torch.Tensor,
-             c: torch.Tensor, chunk: int = _ssd.CHUNK,
-             impl: Impl = None) -> torch.Tensor:
+             c: torch.Tensor, chunk: int = _ssd.CHUNK) -> torch.Tensor:
     """SSD scan on (BH, L, ·) operands; see :func:`repro_torch.kernels.ssd_scan.ssd_scan`."""
-    if _use_ref(impl):
-        return _ssd.ssd_scan_chunked(u, log_decay, b, c, chunk)
     return _ssd.ssd_scan(u, log_decay, b, c, chunk)
 
 
 def ssd_scan_mh(u: torch.Tensor, log_decay: torch.Tensor, b: torch.Tensor,
-                c: torch.Tensor, chunk: int = _ssd.CHUNK,
-                impl: Impl = None) -> torch.Tensor:
+                c: torch.Tensor, chunk: int = _ssd.CHUNK) -> torch.Tensor:
     """Multi-head SSD with shared B/C (u (B,H,L,P); log_decay (B,H,L);
     b, c (B,L,N)) -> y (B,H,L,P).
 
@@ -42,8 +27,6 @@ def ssd_scan_mh(u: torch.Tensor, log_decay: torch.Tensor, b: torch.Tensor,
     batch row, so they are never repeated per head (the reference's Pallas
     path repeats them H times).
     """
-    if _use_ref(impl):
-        return _ssd.ssd_scan_chunked_mh(u, log_decay, b, c, chunk)
     bsz, h, L, p = u.shape
     y = _ssd._ssd_scan(u.reshape(bsz * h, L, p).contiguous(),
                        log_decay.reshape(bsz * h, L).contiguous(),

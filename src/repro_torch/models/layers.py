@@ -37,13 +37,20 @@ def dense_init(generator: torch.Generator, d_in: int, d_out: int,
     return (_normal(generator, (d_in, d_out), device) * scale).to(dtype)
 
 
+def _f32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in float32, or in its own dtype where that is wider: the f32
+    steps of the model keep a float64 forward (a reference for the float32
+    one) in float64."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 def rmsnorm_init(d: int, device: torch.device) -> torch.Tensor:
     return torch.ones((d,), dtype=torch.float32, device=device)
 
 
 def rmsnorm(scale: torch.Tensor, x: torch.Tensor,
             eps: float = 1e-5) -> torch.Tensor:
-    xf = x.float()
+    xf = _f32(x)
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * scale).to(x.dtype)
 

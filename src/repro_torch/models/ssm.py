@@ -72,9 +72,10 @@ def _causal_conv(seq: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     k = w.shape[0]
     ln = seq.shape[1]
     pad = F.pad(seq, (0, 0, k - 1, 0))
-    out = torch.zeros(seq.shape, dtype=torch.float32, device=seq.device)
+    out = torch.zeros(seq.shape, device=seq.device,
+                      dtype=torch.promote_types(seq.dtype, torch.float32))
     for i in range(k):
-        out = out + pad[:, i:i + ln].float() * w[i].float()
+        out = out + L._f32(pad[:, i:i + ln]) * L._f32(w[i])
     return out.to(seq.dtype)
 
 
@@ -106,7 +107,7 @@ def ssm_apply(p: Dict[str, torch.Tensor], u: torch.Tensor, cfg: ModelConfig,
     b = conv_out[..., di:di + n]
     c = conv_out[..., di + n:]
 
-    dt = torch.logaddexp(dt.float() + p["dt_bias"], torch.zeros((), device=u.device))  # softplus, (B,L,H)
+    dt = torch.logaddexp(L._f32(dt) + p["dt_bias"], torch.zeros((), device=u.device))  # softplus, (B,L,H)
     log_decay = -dt * torch.exp(p["a_log"])                     # (B,L,H)
     xh = x.reshape(bsz, ln, h, pdim)
     uin = xh * dt[..., None].to(x.dtype)                        # dt-scaled
@@ -129,7 +130,7 @@ def ssm_apply(p: Dict[str, torch.Tensor], u: torch.Tensor, cfg: ModelConfig,
 
     # the gate product goes to the norm unrounded, in f32: the reference's
     # compiled block (XLA) drops the bf16 rounding between the two
-    y = y.reshape(bsz, ln, di).float() * L.silu(z).float()
+    y = L._f32(y.reshape(bsz, ln, di)) * L._f32(L.silu(z))
     y = L.rmsnorm(p["norm"], y, cfg.norm_eps).to(u.dtype)
     return y @ p["out_proj"], new_cache
 

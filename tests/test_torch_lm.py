@@ -149,6 +149,12 @@ def test_init_params_matches_reference_layout(ref, model):
     assert float(tp["embed"].float().std()) == pytest.approx(0.02, rel=0.1)
 
 
+def _map(tree, fn):
+    """The parameter tree with ``fn`` applied to every leaf."""
+    return {k: _map(v, fn) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}
+
+
 def _flatten(tree, prefix=()):
     for k, v in tree.items():
         if isinstance(v, dict):
@@ -217,6 +223,28 @@ def test_forward_all_and_last(ref, model):
     _close(last, want_last, model.dtype)
     with pytest.raises(ValueError):
         tT.forward(model.tp, model.tcfg, model.toks, logits_mode="first")
+
+
+def test_float32_forward_matches_its_float64_form():
+    """The port's float32 forward on the CPU against the same forward in
+    float64 (the model's f32 steps widen with it; the SSD scan's plain
+    version computes in float64): three runs in one process, the first
+    counting like the others, each within 1e-4 of the logits' scale and
+    all three identical."""
+    cfg = dataclasses.replace(treg.get_config(ARCH + "-smoke"),
+                              dtype="float32")
+    params = tT.init_params(torch.Generator().manual_seed(3), cfg,
+                            device="cpu")
+    p64 = _map(params, torch.Tensor.double)
+    toks = np.random.default_rng(4).integers(0, cfg.vocab_size, (2, L_SEQ))
+    want, _ = tT.forward(p64, cfg, toks)
+    assert want.dtype == torch.float64
+    runs = [tT.forward(params, cfg, toks)[0] for _ in range(3)]
+    scale = float(want.abs().max())
+    for got in runs:
+        assert got.dtype == torch.float32
+        assert float((got.double() - want).abs().max()) <= 1e-4 * scale
+        assert torch.equal(got, runs[0])
 
 
 def test_decode_step_matches_reference_and_forward(ref, model):
@@ -317,8 +345,8 @@ def test_entry_points_default_to_cuda():
 def test_cuda_forward_matches_plain_and_decode(monkeypatch):
     """The smoke model on the card in float32: the forward with the SSD
     kernel (one launch per layer) against the same forward with the
-    kernel's plain version, and against the card's own decode (the
-    recurrence). Every side runs on the card."""
+    kernel's plain version, against the card's own decode (the
+    recurrence), and against the CPU's forward in float64."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU with CUDA")
     from repro_torch.kernels import ssd_scan as tss
@@ -336,6 +364,10 @@ def test_cuda_forward_matches_plain_and_decode(monkeypatch):
         want, _ = tT.forward(params, cfg, toks)
     assert tss.LAUNCHES["ssd_scan"] == cfg.n_layers
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               atol=1e-4, rtol=1e-4)
+    host, _ = tT.forward(_map(params, lambda t: t.cpu().double()), cfg, toks)
+    assert host.dtype == torch.float64
+    np.testing.assert_allclose(got.cpu().double().numpy(), host.numpy(),
                                atol=1e-4, rtol=1e-4)
     state = tT.init_serve_state(params, cfg, 2, 128)
     for i in range(L_SEQ):

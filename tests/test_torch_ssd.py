@@ -91,8 +91,7 @@ def test_ssd_scan_matches_reference(ref, bh, L, p, n, chunk, dtype):
     _close(got, want_pallas, TOL[dtype])
     _close(got, want_oracle, TOL[dtype])
     _close(tss.ssd_scan_oracle(*t), want_oracle, TOL[dtype])
-    _close(tops.ssd_scan(*t, chunk=chunk, impl="ref"), want_oracle,
-           TOL[dtype])
+    _close(tss.ssd_scan_chunked(*t, chunk=chunk), want_oracle, TOL[dtype])
 
 
 @pytest.mark.parametrize("L", [1, 31, 33, 257])
@@ -154,7 +153,7 @@ def test_ssd_scan_mh_matches_reference(ref, bsz, h, L, p, n):
         u.reshape(bsz * h, L, p), ld.reshape(bsz * h, L),
         *rep)).reshape(bsz, h, L, p)
     for got in (tops.ssd_scan_mh(*t, chunk=32),
-                tops.ssd_scan_mh(*t, chunk=32, impl="ref")):
+                tss.ssd_scan_chunked_mh(*t, chunk=32)):
         assert tuple(got.shape) == (bsz, h, L, p)
         for want in (want_pallas, want_ref, want_oracle):
             _close(got, want, 5e-4)
@@ -195,8 +194,6 @@ def test_wrappers_validate_and_count_no_launch_on_cpu():
         tss._ssd_scan(u, ld, b, c, 16, heads=3)       # 4 rows, heads of 3
     with pytest.raises(ValueError):
         tss.ssd_scan(u, ld, b, c, chunk=0)
-    with pytest.raises(ValueError):
-        tops.ssd_scan(u, ld, b, c, impl="pallas")
 
 
 def test_kernel_limits_raise():
