@@ -7,25 +7,32 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
 largest TNN network the repository defines, three ways, the single-bank
 entry point ``fire_times_bank``, the gate-level neuron (that network's L1
 column stack through ``fire_times_bank(..., backend="scan")`` with
-``gate_level=True``, for the Catwalk and the sorting-PC dendrite), and
-mamba2-780m inference at full width and depth with random weights: the
-prefill forward (``forward(..., logits_mode="last")``, the SSD scan kernel
-once per layer) and ``Engine.generate`` (decode is the one-token
-recurrence: no kernel). A first pass records every call each path makes
-to the kernel wrappers (RNL, unary top-k, SSD scan), with its operands;
-those calls, and the repository's benchmark shapes and edge cases, are then
-held against their plain PyTorch versions on the card (bit-exact for the
-integer kernels; the SSD scan to a stated tolerance against float64),
-timed and given their bounds. The measured pass runs each path with the
-launch counts set to 0 just before it and read just after, and checks its
-outputs (TNN requests against the CPU reference, the gate-level paths
-against the ``fused`` engine and the CPU closed form). The LM phase then
+``gate_level=True``, for the Catwalk and the sorting-PC dendrite),
+mamba2-780m inference at full width and depth with random weights (the
+prefill forward, ``forward(..., logits_mode="last")``, with the SSD scan
+kernel once per layer, and ``Engine.generate``, whose decode is the
+one-token recurrence: no kernel), and deepseek-v2-lite-16b (MLA + MoE)
+inference at full width and depth with random weights (the prefill forward
+and continuous and wave ``Engine.serve`` through 6 slots, the MoE gate
+kernel once per layer per forward and per decode step). A first pass
+records every call each path makes to the kernel wrappers (RNL, unary
+top-k, SSD scan, MoE gate), with its operands; those calls, and the
+repository's benchmark shapes and edge cases, are then held against their
+plain PyTorch versions on the card (bit-exact for the integer kernels and
+the gate's ids; the SSD scan and the gate's probabilities to stated
+tolerances), timed and given their bounds. The measured pass runs each
+path with the launch counts set to 0 just before it and read just after,
+and checks its outputs (TNN requests against the CPU reference, the
+gate-level paths against the ``fused`` engine and the CPU closed form,
+served MoE requests against each request served alone). The LM phase then
 holds each layer's Mamba2 block (the kernel) against token-by-token decode
 (the recurrence), greedy generation against the forward's argmax, and the
-card's float32 forward against the CPU's float64 one. Phases
-print one JSON line each; the last line is ``{"ok": true, "device":
-{...}}``. Any failure raises and exits non-zero; without CUDA it exits
-non-zero at once.
+card's float32 forward against the CPU's float64 one; the MoE phase holds
+each MLA block against its cached decode, a 2-layer model's forward
+against its decode, and the card's float32 forward against the CPU's
+float64 one. Phases print one JSON line each; the last line is ``{"ok":
+true, "device": {...}}``. Any failure raises and exits non-zero; without
+CUDA it exits non-zero at once.
 
 Run from the repository root:  python3 chip_smoke.py
 """
@@ -53,6 +60,7 @@ from repro_torch.core import topk_prune  # noqa: E402
 from repro_torch.configs import registry as lm_registry  # noqa: E402
 from repro_torch.data import tokenizer  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import moe_gate as mg  # noqa: E402
 from repro_torch.kernels import rnl_neuron as rn  # noqa: E402
 from repro_torch.kernels import ssd_scan as ss  # noqa: E402
 from repro_torch.kernels import unary_topk as ut  # noqa: E402
@@ -86,6 +94,17 @@ N_SLOTS, N_CLIENTS = 64, 256
 LM_ARCH = "mamba2-780m"
 PREFILL_B, PREFILL_L = 4, 2048
 N_PROMPTS, NEW_TOKENS = 8, 32
+
+#: the MoE path: deepseek-v2-lite-16b (configs/deepseek_v2_lite_16b.py) at
+#: full width and depth, bf16; prefill of B x S tokens (T = 8,192, as the
+#: mamba2 prefill); continuous serving of benchmarks/bench_serve_lm.py's
+#: request population, halved (24 requests of 1-24 prompt tokens, 16 new
+#: tokens each, max_len 24 + 16 + 2) through 6 slots. Six slots is top_k:
+#: the catwalk capacity is then t = 6, so no assignment can drop and each
+#: row's tokens depend on its own request only.
+MOE_ARCH = "deepseek-v2-lite-16b"
+MOE_PREFILL_B, MOE_PREFILL_S = 4, 2048
+MOE_REQUESTS, MOE_MAX_PROMPT, MOE_NEW_TOKENS, MOE_SLOTS = 24, 24, 16, 6
 
 
 def emit(phase: str, **fields) -> None:
@@ -212,26 +231,30 @@ REPLACES = {"rnl_fire_times_layer": "src/repro/kernels/rnl_neuron.py:218",
             "rnl_fire_times_compact": "src/repro/kernels/rnl_neuron.py:276",
             "unary_topk_count": "src/repro/kernels/unary_topk.py:116",
             "unary_topk_relocate": "src/repro/kernels/unary_topk.py:79",
-            "ssd_scan": "src/repro/kernels/ssd_scan.py:68"}
+            "ssd_scan": "src/repro/kernels/ssd_scan.py:68",
+            "moe_gate_topk": "src/repro/kernels/moe_gate.py:54"}
 RNL_WRAPPERS = ("rnl_fire_times_layer", "rnl_fire_times",
                 "rnl_fire_times_compact")
 SOURCES = {"rnl_neuron": "src/repro_torch/kernels/csrc/rnl_neuron.cu",
            "unary_topk": "src/repro_torch/kernels/csrc/unary_topk.cu",
-           "ssd_scan": "src/repro_torch/kernels/csrc/ssd_scan.cu"}
+           "ssd_scan": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+           "moe_gate": "src/repro_torch/kernels/csrc/moe_gate.cu"}
 #: the source each wrapper launches
 SOURCE_OF = {**{name: "rnl_neuron" for name in RNL_WRAPPERS},
              "unary_topk_count": "unary_topk",
-             "unary_topk_relocate": "unary_topk", "ssd_scan": "ssd_scan"}
+             "unary_topk_relocate": "unary_topk", "ssd_scan": "ssd_scan",
+             "moe_gate_topk": "moe_gate"}
 
 
 def reset_launches() -> None:
     rn.reset_launches()
     ut.reset_launches()
     ss.reset_launches()
+    mg.reset_launches()
 
 
 def launch_counts() -> Dict[str, int]:
-    return {**rn.LAUNCHES, **ut.LAUNCHES, **ss.LAUNCHES}
+    return {**rn.LAUNCHES, **ut.LAUNCHES, **ss.LAUNCHES, **mg.LAUNCHES}
 
 
 @dataclasses.dataclass
@@ -240,13 +263,14 @@ class Path:
     entry points a user calls and returns ``(outputs, stats)``;
     ``check(outputs, stats)`` raises unless they are right and returns the
     fields to print; ``kernel`` is the wrapper the path must launch (None:
-    it must launch none), ``launches`` how often, where that is fixed."""
+    it must launch none), ``launches`` how often, where that is fixed (an
+    int, or a function of the run's stats)."""
 
     name: str
     kernel: Optional[str]
     run: Callable[[], Tuple[Any, Any]]
     check: Callable[[Any, Any], Dict[str, Any]]
-    launches: Optional[int] = None
+    launches: Any = None
 
 
 def main_paths(dev, streams, ff, p_ff) -> List[Path]:
@@ -445,18 +469,114 @@ def lm_paths(dev, cfg, params, tokens, prompts) -> List[Path]:
             Path("lm_generate", None, generate_run, generate_check)]
 
 
+def moe_prompts(vocab: int) -> List[np.ndarray]:
+    """The request population of benchmarks/bench_serve_lm.py
+    (``_population``), halved: MOE_REQUESTS prompts of 1-MOE_MAX_PROMPT
+    random in-vocab ids."""
+    rng = np.random.RandomState(0)
+    lengths = rng.randint(1, MOE_MAX_PROMPT + 1, size=MOE_REQUESTS)
+    return [rng.randint(3, vocab, (int(n),)).astype(np.int32)
+            for n in lengths]
+
+
+def moe_engine(dev, cfg, params) -> Engine:
+    return Engine(params, cfg, ServeConfig(
+        max_len=MOE_MAX_PROMPT + MOE_NEW_TOKENS + 2), device=dev)
+
+
+def moe_paths(dev, cfg, params, tokens, prompts) -> List[Path]:
+    """deepseek-v2-lite-16b inference at full width and depth: the prefill
+    forward on ``tokens`` (``logits_mode="last"``; one gate launch per
+    layer) and ``Engine.serve`` of ``prompts`` through MOE_SLOTS slots,
+    continuous and then wave (one gate launch per layer per decode step).
+    The serve check holds both schedules' tokens equal, and each request's
+    tokens equal to its own ``serve([p], n_slots=MOE_SLOTS)``: the same
+    batch shape, so the card's products round alike (a 1-slot serve picks
+    other GEMM kernels; its agreement is reported, not held)."""
+    def prefill_run():
+        logits, aux = lm.forward(params, cfg, tokens, logits_mode="last")
+        return (logits, aux), None
+
+    def prefill_check(out, _):
+        logits, aux = out
+        want = (tokens.shape[0], 1, cfg.vocab_size)
+        if tuple(logits.shape) != want or logits.dtype != torch.bfloat16 \
+                or not bool(torch.isfinite(logits).all()) \
+                or not bool(torch.isfinite(aux)):
+            raise AssertionError(f"moe_prefill: logits {tuple(logits.shape)}"
+                                 f" {logits.dtype}, expected finite {want}")
+        return dict(arch=cfg.name, layers=cfg.n_layers, dtype=cfg.dtype,
+                    batch=int(tokens.shape[0]), seq=int(tokens.shape[1]),
+                    aux_loss=float(aux), finite=True)
+
+    def serve_run():
+        eng = moe_engine(dev, cfg, params)
+        outs, stats = {}, {}
+        for mode in ("continuous", "wave"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs[mode] = eng.serve(prompts, MOE_NEW_TOKENS, n_slots=MOE_SLOTS,
+                                   continuous=mode == "continuous")
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            new = sum(len(o) for o in outs[mode])
+            stats[mode] = dict(steps=eng.n_steps, wall_s=wall_s,
+                               new_tokens=new, tokens_per_s=new / wall_s,
+                               steps_per_s=eng.n_steps / wall_s)
+        return outs, stats
+
+    def serve_check(outs, st):
+        eng = moe_engine(dev, cfg, params)
+        alone = [eng.serve([p], MOE_NEW_TOKENS, n_slots=MOE_SLOTS)[0]
+                 for p in prompts]
+        one_slot = [eng.serve([p], MOE_NEW_TOKENS)[0] for p in prompts]
+        for mode, got in outs.items():
+            for i, (o, a) in enumerate(zip(got, alone)):
+                if not 1 <= len(o) <= MOE_NEW_TOKENS or o.min() < 0 \
+                        or o.max() >= cfg.vocab_size:
+                    raise AssertionError(f"moe_serve {mode}: request {i}'s "
+                                         f"tokens out of range")
+                if not np.array_equal(o, a):
+                    raise AssertionError(
+                        f"moe_serve {mode}: request {i}'s tokens differ from "
+                        f"its own serve([p], n_slots={MOE_SLOTS})")
+        if st["continuous"]["steps"] > st["wave"]["steps"]:
+            raise AssertionError(f"moe_serve: continuous took "
+                                 f"{st['continuous']['steps']} steps, wave "
+                                 f"{st['wave']['steps']}")
+        return dict(arch=cfg.name, layers=cfg.n_layers, dtype=cfg.dtype,
+                    requests=len(prompts), slots=MOE_SLOTS,
+                    prompt_tokens=[len(p) for p in prompts],
+                    max_new_tokens=MOE_NEW_TOKENS, **st,
+                    equal_to_own_serve=len(prompts),
+                    equal_to_one_slot_serve=sum(
+                        bool(np.array_equal(o, a))
+                        for o, a in zip(outs["continuous"], one_slot)))
+
+    def serve_launches(st):
+        return cfg.n_layers * (st["continuous"]["steps"]
+                               + st["wave"]["steps"])
+
+    return [Path("moe_prefill", "moe_gate_topk", prefill_run, prefill_check,
+                 launches=cfg.n_layers),
+            Path("moe_serve", "moe_gate_topk", serve_run, serve_check,
+                 launches=serve_launches)]
+
+
 def capture(run) -> List[Dict[str, Any]]:
-    """Drives ``run()`` with the three RNL wrappers, the unary top-k entry
-    and the SSD scan entry spied on. Returns, for each distinct call
-    (wrapper, operand shapes, options or network) in first-call order, its
-    number of calls and a copy of the operands of its busiest call — the
-    one with the most in-cycle spikes (hot bits for unary top-k), so that a
-    pipeline's all-silent fill and drain ticks do not stand for the path;
-    for the SSD scan, a copy of the operands of every call."""
+    """Drives ``run()`` with the three RNL wrappers, the unary top-k entry,
+    the SSD scan entry and the MoE gate entry spied on. Returns, for each
+    distinct call (wrapper, operand shapes, options or network) in
+    first-call order, its number of calls and a copy of the operands of its
+    busiest call — the one with the most in-cycle spikes (hot bits for
+    unary top-k), so that a pipeline's all-silent fill and drain ticks do
+    not stand for the path; for the SSD scan, a copy of the operands of
+    every call; for the gate, of the first call."""
     cases: Dict[tuple, Dict[str, Any]] = {}
     originals = {name: getattr(rn, name) for name in RNL_WRAPPERS}
     topk = ut._unary_topk
     ssd = ss._ssd_scan
+    gate = mg._moe_gate
 
     def spy(name, fn):
         def call(times, weights, **kw):
@@ -494,10 +614,19 @@ def capture(run) -> List[Dict[str, Any]]:
                                       for t in (u, log_decay, b, c)))
         return ssd(u, log_decay, b, c, chunk, heads)
 
+    def spy_gate(logits, k, renorm):
+        key = ("moe_gate_topk", tuple(logits.shape), k, renorm)
+        case = cases.setdefault(key, dict(wrapper="moe_gate_topk", k=k,
+                                          renorm=renorm, calls=0))
+        case["calls"] += 1
+        case.setdefault("logits", logits.clone())
+        return gate(logits, k, renorm)
+
     for name, fn in originals.items():
         setattr(rn, name, spy(name, fn))
     ut._unary_topk = spy_topk
     ss._ssd_scan = spy_ssd
+    mg._moe_gate = spy_gate
     try:
         run()
     finally:
@@ -505,6 +634,7 @@ def capture(run) -> List[Dict[str, Any]]:
             setattr(rn, name, fn)
         ut._unary_topk = topk
         ss._ssd_scan = ssd
+        mg._moe_gate = gate
     return list(cases.values())
 
 
@@ -798,12 +928,106 @@ def synthetic_ssd_cases(dev, operands, chunk, heads):
     return cases
 
 
+def gate_bound_ms(t, e, k):
+    """Least time the card could take for one gate call: the logits read
+    once (T*E*4 bytes) and the probabilities and ids written once (T*k*8)
+    over the memory rate; its operations (E exps and ~k*E compares a row)
+    bind far less. Returns ``(ms, "bytes")``."""
+    return 1e3 * (t * e * 4 + t * k * 8) / HBM_BYTES_PER_S, "bytes"
+
+
+def check_gate(label, logits, k, renorm, *, timed=True,
+               **extra) -> Dict[str, Any]:
+    """One gate call against its plain version on the same inputs on the
+    card: ids bit-exact and probabilities within 1e-6 (the reference's own
+    tolerance, tests/test_kernels.py), or raise. When ``timed``: device ms
+    (profiler), call ms (CUDA events), the plain version's ms, the byte
+    bound and the library call's ms — ``torch.softmax`` + ``torch.topk`` +
+    renormalise, the same function but for the order among equal logits,
+    which ``torch.topk`` leaves unspecified."""
+    def fn():
+        return mg._moe_gate(logits, k, renorm)
+
+    def plain():
+        return mg.moe_gate_topk_plain(logits, k, renorm)
+
+    def library():
+        probs, ids = torch.topk(torch.softmax(logits, dim=-1), k, dim=-1)
+        if renorm:
+            probs = probs / probs.sum(dim=-1, keepdim=True)
+        return probs, ids
+
+    (p, i), (wp, wi) = fn(), plain()
+    torch.cuda.synchronize()
+    err = float((p - wp).abs().max()) if p.numel() else 0.0
+    if not torch.equal(i, wi) or err > 1e-6 or p.dtype != torch.float32:
+        raise AssertionError(f"moe_gate/{label}: kernel disagrees with its "
+                             f"plain version (ids equal "
+                             f"{torch.equal(i, wi)}, max |err| {err})")
+    t, e = logits.shape
+    row = dict(variant="moe_gate_topk", shape=label, **extra, logits=[t, e],
+               k=k, renorm=renorm, ids_bit_exact=True, max_abs_err=err)
+    if timed:
+        call_ms = time_ms(fn)
+        ms = kernel_ms(fn, key="moe_gate")
+        bound, bound_by = gate_bound_ms(t, e, k)
+        row.update(ms=call_ms if ms is None else ms,
+                   ms_source="cuda_events" if ms is None else "profiler",
+                   call_ms=call_ms, plain_ms=time_ms(plain, reps=10),
+                   bound_ms=bound, bound_by=bound_by,
+                   library_ms=time_ms(library),
+                   library_call="softmax + topk + renormalise (tie order "
+                                "unspecified)")
+    emit("kernels", **row)
+    return row
+
+
+def synthetic_gate_cases(dev):
+    """(label, logits, k, renorm) for the gate kernel: the reference's test
+    shapes (tests/test_kernels.py) with renorm both ways, one row, a row
+    count that is not a multiple of the kernel's 8 rows per block,
+    tie-heavy logits (integers in [-2, 2]), logits of magnitude 80, and
+    the widest row the kernel holds."""
+    rng = np.random.default_rng(8)
+
+    def normal(t, e, scale=1.0):
+        return torch.from_numpy((scale * rng.standard_normal((t, e))).astype(
+            np.float32)).to(dev)
+
+    cases = [(f"ref_{t}x{e}_k{k}_renorm{int(r)}", normal(t, e), k, r)
+             for t, e, k in ((7, 8, 2), (300, 64, 6), (1000, 128, 2))
+             for r in (True, False)]
+    ties = torch.from_numpy(rng.integers(-2, 3, (8195, 64)).astype(
+        np.float32)).to(dev)
+    return cases + [
+        ("rows_1", normal(1, 64), 6, True),
+        ("rows_8195", normal(8195, 64), 6, True),
+        ("ties_8195x64", ties, 6, True),
+        ("ties_8195x64_norenorm", ties, 6, False),
+        ("magnitude_80", normal(4096, 64, 80.0), 6, True),
+        (f"experts_{mg.MAX_EXPERTS}", normal(33, mg.MAX_EXPERTS), 8, True),
+    ]
+
+
+def check_gate_cap(dev) -> None:
+    """E above the kernel's cap must raise ``ValueError`` on the card."""
+    wide = torch.zeros((4, mg.MAX_EXPERTS + 1), device=dev)
+    try:
+        mg.moe_gate_topk(wide, 2)
+    except ValueError as exc:
+        emit("kernels", variant="moe_gate_topk", shape="experts_above_cap",
+             logits=list(wide.shape), raised=str(exc))
+        return
+    raise AssertionError("moe_gate: E above the cap did not raise")
+
+
 def phase_kernels(dev, captured) -> Dict[str, Dict[str, Any]]:
     """Every launch variant against its plain version on the card: each
     distinct call the main path made (its own operands), the clip variants
     on the main path's layer and bank operands, then the synthetic cases.
     Returns, per wrapper, the row of the call its first path made most (for
-    unary top-k and the SSD scan, the first path's first call)."""
+    unary top-k, the SSD scan and the gate, the first path's first
+    call)."""
     main_rows: Dict[str, Dict[str, Any]] = {}
     ssd_call = None
     for path, cases in captured.items():
@@ -816,6 +1040,12 @@ def phase_kernels(dev, captured) -> Dict[str, Dict[str, Any]]:
                                     calls=case["calls"])
                     main_rows.setdefault("ssd_scan", row)
                 ssd_call = (case["operands"][0], case["chunk"], case["heads"])
+                continue
+            if case["wrapper"] == "moe_gate_topk":
+                row = check_gate(f"{path}#{i}", case["logits"], case["k"],
+                                 case["renorm"], path=path,
+                                 calls=case["calls"])
+                main_rows.setdefault("moe_gate_topk", row)
                 continue
             if case["wrapper"].startswith("unary_topk"):
                 row = check_topk(f"{path}#{i}", case["bits"], case["units"],
@@ -845,6 +1075,9 @@ def phase_kernels(dev, captured) -> Dict[str, Dict[str, Any]]:
         for label, *ops, chunk, heads, timed in synthetic_ssd_cases(
                 dev, *ssd_call):
             check_ssd(label, *ops, chunk, heads, timed=timed)
+    for label, logits, k, renorm in synthetic_gate_cases(dev):
+        check_gate(label, logits, k, renorm, timed=False)
+    check_gate_cap(dev)
     return main_rows
 
 
@@ -872,11 +1105,12 @@ def phase_serve(paths, captured) -> Dict[str, Dict[str, int]]:
         if path.kernel is not None and counts[path.kernel] <= 0:
             raise AssertionError(f"{path.name}: {path.kernel} was not "
                                  f"launched")
-        if path.launches is not None \
-                and counts[path.kernel] != path.launches:
+        want = path.launches(st) if callable(path.launches) \
+            else path.launches
+        if want is not None and counts[path.kernel] != want:
             raise AssertionError(f"{path.name}: {counts[path.kernel]} "
                                  f"launches of {path.kernel}, expected "
-                                 f"{path.launches}")
+                                 f"{want}")
         if counts != seen or any(n for name, n in counts.items()
                                  if name != path.kernel):
             raise AssertionError(f"{path.name}: launches {counts}, calls "
@@ -936,7 +1170,7 @@ def phase_profile(dev, streams, ff, p_ff):
     emit("profile", run="auto", steps=steps, **device_share(prof, wall_ms))
 
 
-def phase_lm_prefill(cfg, params, tokens):
+def phase_lm_prefill(cfg, params, tokens, name="lm_prefill_time"):
     """Host clock around whole prefill forwards, each ended by a
     synchronise: ms per forward (median of 3) and prefill tokens/s."""
     times = []
@@ -947,17 +1181,20 @@ def phase_lm_prefill(cfg, params, tokens):
         torch.cuda.synchronize()
         times.append(1e3 * (time.perf_counter() - t0))
     ms = statistics.median(times)
-    emit("lm_prefill_time", batch=int(tokens.shape[0]),
+    emit(name, batch=int(tokens.shape[0]),
          seq=int(tokens.shape[1]), forward_ms=ms, forward_ms_all=times,
          tokens_per_s=tokens.numel() / (ms / 1e3))
 
 
-def phase_profile_decode(cfg, params, prompts):
+def phase_profile_decode(cfg, params, prompts, run="lm_decode_step",
+                         per_slot=False):
     """Where a generation step's time goes: 4 warm ``decode_step`` calls
     for the prompts' batch under the profiler (busy, idle share, top
-    device ops)."""
+    device ops), with per-slot cache positions when ``per_slot``."""
     steps = 4
     state = lm.init_serve_state(params, cfg, len(prompts), 256)
+    if per_slot:
+        state = lm.per_slot_state(state, len(prompts))
     first = np.array([[p[0]] for p in prompts], np.int32)
     _, state = lm.decode_step(params, cfg, state, first)
     torch.cuda.synchronize()
@@ -968,7 +1205,7 @@ def phase_profile_decode(cfg, params, prompts):
             logits, state = lm.decode_step(params, cfg, state, first)
         logits.float().cpu()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    emit("profile", run="lm_decode_step", steps=steps, batch=len(prompts),
+    emit("profile", run=run, steps=steps, batch=len(prompts),
          **device_share(prof, wall_ms))
 
 
@@ -1119,6 +1356,96 @@ def phase_lm_checks(dev, cfg, params, tokens, prompts):
                           max_err_over_scale=card_cpu, tol=1e-4))
 
 
+#: moe checks, as fractions of the output's scale (float32): each MLA
+#: block's full-sequence form against its cached decode; a 2-layer
+#: model's forward logits against its token-by-token decode; the card's
+#: 1-layer forward against the CPU's float64 one
+MLA_TOL_F32, MOE_LOGITS_TOL_F32, MOE_CARD_CPU_TOL = 1e-5, 1e-4, 1e-4
+
+
+def _f32_layers(params, n):
+    """The parameters in float32 with the first ``n`` layers."""
+    return {**{k: v.float() for k, v in params.items() if k != "layers"},
+            "layers": _map(params["layers"], lambda t: t[:n].float())}
+
+
+def phase_moe_checks(dev, cfg, params):
+    """Cross-checks of the MoE path at full width in float32 (copies of the
+    bf16 weights, upcast), TF32 off.
+
+    (1) Each of the 27 layers' MLA block on identical inputs (1 x 64
+    random positions): the full-sequence form against its cached decode
+    fed token by token, within 1e-5 of the output's scale. (2) A 2-layer
+    model's forward logits (1 x 32 tokens) against its token-by-token
+    decode, within 1e-4 of the logits' scale, with ``capacity_factor =
+    E/k``: then cap = t at every T (32 at the forward, 1 at a decode step),
+    so no assignment drops on either side; at the model's own factor the
+    forward (cap 6 for 32 tokens) drops where the decode (cap 1 for one
+    token) cannot, which is the reference's semantics, not a fault. (3) The card's 1-layer
+    forward (B = 1, S = 64, ``logits_mode="last"``; capacity 7 of 64, so
+    drops happen alike) against the CPU's plain forward in float64, within
+    1e-4 of the scale."""
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    rng = np.random.default_rng(9)
+    seq = 64
+    h = torch.from_numpy(rng.standard_normal(
+        (1, seq, cfg.d_model)).astype(np.float32)).to(dev)
+    mla = []
+    for i in range(cfg.n_layers):
+        p = _map(lm._layer(params["layers"], i)["attn"], lambda t: t.float())
+        full, _ = lm.A.mla_apply(p, h, cfg32)
+        cache = lm.A.mla_cache_init(cfg32, 1, seq, torch.float32, dev)
+        steps = []
+        for t in range(seq):
+            out, cache = lm.A.mla_apply(p, h[:, t:t + 1], cfg32, cache=cache)
+            steps.append(out)
+        mla.append(_over_scale(torch.cat(steps, dim=1), full))
+    if not max(mla) <= MLA_TOL_F32:
+        raise AssertionError(f"moe: MLA full sequence vs cached decode "
+                             f"{max(mla)} of scale")
+
+    e, k = cfg.moe.n_experts, cfg.moe.top_k
+    cfg2 = dataclasses.replace(cfg32, n_layers=2, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=e / k))
+    p2 = _f32_layers(params, 2)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 32))).to(dev)
+    for t in (1, toks.shape[1]):
+        if lm.M._capacity(t, cfg2.moe) != t:
+            raise AssertionError(f"moe: capacity at T={t} is not T")
+    fwd, _ = lm.forward(p2, cfg2, toks)
+    state = lm.init_serve_state(p2, cfg2, 1, toks.shape[1])
+    dec = []
+    for t in range(toks.shape[1]):
+        logits, state = lm.decode_step(p2, cfg2, state, toks[:, t:t + 1])
+        dec.append(logits)
+    fwd_dec = _over_scale(torch.stack(dec, dim=1), fwd)
+    del p2, fwd, state, dec
+    if not fwd_dec <= MOE_LOGITS_TOL_F32:
+        raise AssertionError(f"moe: 2-layer forward vs decode {fwd_dec}")
+
+    cfg1 = dataclasses.replace(cfg32, n_layers=1)
+    p1 = _f32_layers(params, 1)
+    toks1 = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 64))).to(dev)
+    card, _ = lm.forward(p1, cfg1, toks1, logits_mode="last")
+    host, _ = lm.forward(_map(p1, lambda t: t.cpu().double()), cfg1,
+                         toks1.cpu(), logits_mode="last")
+    card_cpu = _over_scale(card.cpu(), host)
+    if host.dtype != torch.float64 or not card_cpu <= MOE_CARD_CPU_TOL:
+        raise AssertionError(f"moe: card vs CPU float64 forward {card_cpu}")
+    emit("moe_checks", arch=cfg.name,
+         tf32_matmul=torch.backends.cuda.matmul.allow_tf32,
+         mla_full_vs_decode=dict(positions=seq, worst_layer=max(mla),
+                                 layers=mla, tol=MLA_TOL_F32),
+         forward_vs_decode=dict(layers=2, tokens=int(toks.shape[1]),
+                                capacity_factor=e / k,
+                                max_err_over_scale=fwd_dec,
+                                tol=MOE_LOGITS_TOL_F32),
+         card_vs_cpu=dict(layers=1, batch=1, seq=int(toks1.shape[1]),
+                          logits_mode="last", card_dtype="float32",
+                          host_dtype="float64", max_err_over_scale=card_cpu,
+                          tol=MOE_CARD_CPU_TOL))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1134,6 +1461,7 @@ def main() -> int:
     rn._library()
     ut._library()
     ss._library()
+    mg._library()
     build_s = time.perf_counter() - t0
     ptxas = {}
     for name in SOURCES:
@@ -1157,8 +1485,15 @@ def main() -> int:
     lm_tokens = torch.from_numpy(np.random.default_rng(5).integers(
         0, lm_cfg.vocab_size, (PREFILL_B, PREFILL_L))).to(dev)
     prompts = lm_prompts()
+    moe_cfg = lm_registry.get_config(MOE_ARCH)
+    moe_params = lm.init_params(torch.Generator(device=dev).manual_seed(0),
+                                moe_cfg, device=dev)
+    moe_tokens = torch.from_numpy(np.random.default_rng(10).integers(
+        0, moe_cfg.vocab_size, (MOE_PREFILL_B, MOE_PREFILL_S))).to(dev)
+    moe_requests = moe_prompts(moe_cfg.vocab_size)
     paths = main_paths(dev, streams, ff, p_ff) + lm_paths(
-        dev, lm_cfg, lm_params, lm_tokens, prompts)
+        dev, lm_cfg, lm_params, lm_tokens, prompts) + moe_paths(
+        dev, moe_cfg, moe_params, moe_tokens, moe_requests)
     # capture pass (also the warm-up): each path's calls and operands
     # (the generation path launches no kernel: its measured run shows it)
     captured = {path.name: capture(path.run) if path.kernel else []
@@ -1167,11 +1502,16 @@ def main() -> int:
     launches = phase_serve(paths, captured)
     phase_profile(dev, streams, ff, p_ff)
     for path in paths:
-        if path.name.startswith("gate_level") or path.name == "lm_prefill":
+        if path.name.startswith("gate_level") \
+                or path.name in ("lm_prefill", "moe_prefill"):
             phase_profile_path(path)
     phase_lm_prefill(lm_cfg, lm_params, lm_tokens)
     phase_profile_decode(lm_cfg, lm_params, prompts)
     phase_lm_checks(dev, lm_cfg, lm_params, lm_tokens, prompts)
+    phase_lm_prefill(moe_cfg, moe_params, moe_tokens, "moe_prefill_time")
+    phase_profile_decode(moe_cfg, moe_params, moe_requests[:MOE_SLOTS],
+                         "moe_decode_step", per_slot=True)
+    phase_moe_checks(dev, moe_cfg, moe_params)
 
     kernels = []
     for name, row in main_rows.items():

@@ -33,8 +33,9 @@ def params_from_numpy(params: Sequence[np.ndarray],
 
 
 #: LM leaves the reference keeps in float32 whatever the model dtype (norm
-#: scales, the SSD time-step bias and decay rate)
-F32_LEAVES = frozenset({"final_norm", "norm", "norm1", "dt_bias", "a_log"})
+#: scales, the SSD time-step bias and decay rate, the MoE router)
+F32_LEAVES = frozenset({"final_norm", "norm", "norm1", "norm2", "dt_bias",
+                        "a_log", "router"})
 
 
 def lm_params_from_numpy(tree: Mapping[str, Any], cfg: ModelConfig,

@@ -1,5 +1,5 @@
 """Kernel entry points of the LM path: the SSD scan, one head per row or
-with heads sharing B and C.
+with heads sharing B and C, and the MoE router gate.
 
 The device of the tensors decides: CUDA tensors launch the hand-written
 kernel, CPU tensors run its plain version.
@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import moe_gate as _moe
 from repro_torch.kernels import ssd_scan as _ssd
 
 
@@ -32,3 +33,10 @@ def ssd_scan_mh(u: torch.Tensor, log_decay: torch.Tensor, b: torch.Tensor,
                        log_decay.reshape(bsz * h, L).contiguous(),
                        b.contiguous(), c.contiguous(), chunk, heads=h)
     return y.reshape(bsz, h, L, p)
+
+
+def moe_gate_topk(logits: torch.Tensor, k: int, renorm: bool = True):
+    """Softmax gate + top-k of router logits (T, E) -> (probs (T, k)
+    float32, ids (T, k) int32); see
+    :func:`repro_torch.kernels.moe_gate.moe_gate_topk`."""
+    return _moe.moe_gate_topk(logits, k, renorm)

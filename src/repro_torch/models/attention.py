@@ -1,0 +1,260 @@
+"""Attention mixers: GQA (grouped-query) and MLA (multi-head latent).
+
+Both run in two modes from the same parameters:
+  * full-sequence (prefill / scoring): causal, or bidirectional for GQA;
+  * cached decode: this call's tokens against a (B, S_max) KV cache.
+
+MLA (deepseek-v2) caches the compressed latent c_kv (kv_lora_rank) and the
+shared rotary key (d_rope) instead of full per-head K/V, and expands them
+on use. Scores and softmax run in float32; the cache keeps the model dtype.
+
+The functions are pure, as the reference's are: a cache update returns a
+new buffer and leaves the old one as it was.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import MLAConfig, ModelConfig
+from repro_torch.models import layers as L
+
+NEG_INF = -1e30
+
+
+class KVCache(NamedTuple):
+    """Decode KV cache. ``pos`` comes in two layouts:
+
+    * ``()`` scalar — all rows share one write position (static batching);
+    * ``(B,)`` vector — per-slot positions (continuous batching: row r
+      writes at ``pos[r]`` and attends over its own ``pos[r] + s`` valid
+      entries only).
+
+    Both advance by ``s`` per call; the cache ops below branch on
+    ``pos.dim()``.
+    """
+
+    k: torch.Tensor       # GQA: (B, S, Hkv, Dh) | MLA: (B, S, kv_lora)
+    v: torch.Tensor       # GQA: (B, S, Hkv, Dh) | MLA: (B, S, d_rope)
+    pos: torch.Tensor     # () | (B,) int32 — tokens already in cache
+
+
+def _cache_positions(pos: torch.Tensor, s: int) -> torch.Tensor:
+    """Absolute positions of this call's ``s`` new tokens: (1, s) for a
+    scalar ``pos``, (B, s) for per-slot ``pos``."""
+    base = torch.arange(s, dtype=torch.int32, device=pos.device)[None, :]
+    return pos[:, None] + base if pos.dim() == 1 else pos + base
+
+
+def _cache_update(buf: torch.Tensor, new: torch.Tensor,
+                  pos: torch.Tensor) -> torch.Tensor:
+    """``buf`` (B, S, ...) with ``new`` (B, s, ...) written at ``pos``.
+
+    Scalar ``pos``: one slice shared by all rows, its start clamped to
+    ``[0, S - s]`` as the reference's ``dynamic_update_slice`` clamps it.
+    Per-slot ``(B,)`` pos: row r lands at ``pos[r]``; writes past S are
+    dropped (the reference's ``mode='drop'``): they go to a trash row past
+    the end, which is cut off, so no index leaves the buffer."""
+    b, s = new.shape[:2]
+    big = buf.shape[1]
+    steps = torch.arange(s, dtype=torch.int64, device=buf.device)
+    if pos.dim() == 0:
+        start = pos.to(torch.int64).clamp(0, max(big - s, 0))
+        out = buf.clone()
+        out[:, start + steps] = new
+        return out
+    t_idx = pos.to(torch.int64)[:, None] + steps[None, :]
+    t_idx = torch.where((t_idx >= 0) & (t_idx < big), t_idx, big)
+    b_idx = torch.arange(b, device=buf.device)[:, None].expand(b, s)
+    out = torch.cat([buf, buf.new_zeros((b, 1) + tuple(buf.shape[2:]))], 1)
+    out[b_idx, t_idx] = new
+    return out[:, :big]
+
+
+def _cache_valid(pos: torch.Tensor, s: int, s_max: int) -> torch.Tensor:
+    """Validity mask over the cache axis after this call's ``s`` writes:
+    (S,) for scalar ``pos``, (B, S) per-slot."""
+    idx = torch.arange(s_max, device=pos.device)
+    if pos.dim() == 0:
+        return idx < (pos + s)
+    return idx[None, :] < (pos[:, None] + s)
+
+
+def _positions(cache: Optional[KVCache], s: int,
+               device: torch.device) -> torch.Tensor:
+    if cache is None:
+        return torch.arange(s, dtype=torch.int32, device=device)[None, :]
+    return _cache_positions(cache.pos, s)
+
+
+def _inv_sqrt(d: int) -> float:
+    """``1 / sqrt(d)`` as the reference's compiled division by ``sqrt(d)``
+    applies it: a multiplication by the float32 reciprocal."""
+    return float(np.float32(1.0) / np.float32(np.sqrt(d)))
+
+
+def _softmax(scores: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softmax``'s steps: ``exp(x - max) / sum`` (``torch.softmax``
+    multiplies by the reciprocal of the sum instead)."""
+    z = torch.exp(scores - torch.amax(scores, dim=-1, keepdim=True))
+    return z / torch.sum(z, dim=-1, keepdim=True)
+
+
+# =============================================================== GQA ======
+def gqa_init(generator: torch.Generator, cfg: ModelConfig,
+             dtype: torch.dtype, device: torch.device
+             ) -> Dict[str, torch.Tensor]:
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    return {
+        "wq": L.dense_init(generator, d, cfg.n_heads * hd, dtype, device),
+        "wk": L.dense_init(generator, d, cfg.n_kv_heads * hd, dtype, device),
+        "wv": L.dense_init(generator, d, cfg.n_kv_heads * hd, dtype, device),
+        "wo": L.dense_init(generator, cfg.n_heads * hd, d, dtype, device),
+    }
+
+
+def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+          causal: bool,
+          kv_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """q (B,Sq,H,D); k/v (B,Sk,G,D) with H = G*rep. f32 softmax."""
+    b, sq, h, dh = q.shape
+    g = k.shape[2]
+    rep = h // g
+    qf = L._f32(q.reshape(b, sq, g, rep, dh))
+    kf, vf = L._f32(k), L._f32(v)
+    scores = torch.einsum("bsgrd,btgd->bgrst", qf, kf) * _inv_sqrt(dh)
+    sk = k.shape[1]
+    if causal:
+        mask = torch.arange(sq, device=q.device)[:, None] \
+            >= torch.arange(sk, device=q.device)[None, :]
+        scores = torch.where(mask[None, None, None], scores, NEG_INF)
+    if kv_valid is not None:                      # decode: mask empty slots
+        kvm = (kv_valid[:, None, None, None, :] if kv_valid.dim() == 2
+               else kv_valid[None, None, None, None, :])
+        scores = torch.where(kvm, scores, NEG_INF)
+    probs = _softmax(scores)
+    out = torch.einsum("bgrst,btgd->bsgrd", probs, vf)
+    return out.reshape(b, sq, h, dh).to(q.dtype)
+
+
+def gqa_apply(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
+              *, causal: bool = True,
+              positions: Optional[torch.Tensor] = None,
+              cache: Optional[KVCache] = None,
+              kv_input: Optional[torch.Tensor] = None
+              ) -> Tuple[torch.Tensor, Optional[KVCache]]:
+    """x (B,S,D). kv_input: encoder output for cross-attention (no rope).
+
+    With ``cache``: writes this call's K/V at cache.pos and attends over
+    the whole cache (decode). Returns (out, new_cache | None)."""
+    b, s, _ = x.shape
+    hd = cfg.resolved_head_dim
+    if positions is None:
+        positions = _positions(cache, s, x.device)
+    q = (x @ p["wq"]).reshape(b, s, cfg.n_heads, hd)
+    src = x if kv_input is None else kv_input
+    k = (src @ p["wk"]).reshape(b, src.shape[1], cfg.n_kv_heads, hd)
+    v = (src @ p["wv"]).reshape(b, src.shape[1], cfg.n_kv_heads, hd)
+    if kv_input is None:                              # self-attn: rope
+        q = L.apply_rope(q, positions, cfg.rope_theta)
+        k = L.apply_rope(k, positions, cfg.rope_theta)
+
+    new_cache = None
+    if cache is not None:
+        k_all = _cache_update(cache.k, k, cache.pos)
+        v_all = _cache_update(cache.v, v, cache.pos)
+        new_cache = KVCache(k_all, v_all, cache.pos + s)
+        kv_valid = _cache_valid(cache.pos, s, k_all.shape[1])
+        out = _sdpa(q, k_all, v_all, causal=False, kv_valid=kv_valid)
+    else:
+        out = _sdpa(q, k, v, causal=causal and kv_input is None)
+    return out.reshape(b, s, -1) @ p["wo"], new_cache
+
+
+def gqa_cache_init(cfg: ModelConfig, batch: int, max_len: int,
+                   dtype: torch.dtype, device: torch.device) -> KVCache:
+    shape = (batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+    return KVCache(torch.zeros(shape, dtype=dtype, device=device),
+                   torch.zeros(shape, dtype=dtype, device=device),
+                   torch.zeros((), dtype=torch.int32, device=device))
+
+
+# =============================================================== MLA ======
+def mla_init(generator: torch.Generator, cfg: ModelConfig,
+             dtype: torch.dtype, device: torch.device
+             ) -> Dict[str, torch.Tensor]:
+    m = cfg.mla
+    d, h = cfg.d_model, cfg.n_heads
+    return {
+        "wq": L.dense_init(generator, d, h * (m.d_nope + m.d_rope), dtype,
+                           device),
+        "w_dkv": L.dense_init(generator, d, m.kv_lora_rank, dtype, device),
+        "w_ukv": L.dense_init(generator, m.kv_lora_rank,
+                              h * (m.d_nope + m.d_v), dtype, device),
+        "w_kr": L.dense_init(generator, d, m.d_rope, dtype, device),
+        "wo": L.dense_init(generator, h * m.d_v, d, dtype, device),
+    }
+
+
+def mla_apply(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
+              *, positions: Optional[torch.Tensor] = None,
+              cache: Optional[KVCache] = None
+              ) -> Tuple[torch.Tensor, Optional[KVCache]]:
+    """Multi-head latent attention; the cache holds (c_kv, k_rope)."""
+    m: MLAConfig = cfg.mla
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    if positions is None:
+        positions = _positions(cache, s, x.device)
+
+    q = (x @ p["wq"]).reshape(b, s, h, m.d_nope + m.d_rope)
+    q_nope, q_rope = q[..., :m.d_nope], q[..., m.d_nope:]
+    q_rope = L.apply_rope(q_rope, positions, cfg.rope_theta)
+
+    c_kv = x @ p["w_dkv"]                               # (B,S,R) latent
+    k_rope = L.apply_rope((x @ p["w_kr"])[:, :, None, :], positions,
+                          cfg.rope_theta)[:, :, 0]      # (B,S,d_rope)
+
+    kv_valid = None
+    new_cache = None
+    if cache is not None:
+        c_all = _cache_update(cache.k, c_kv, cache.pos)
+        r_all = _cache_update(cache.v, k_rope, cache.pos)
+        new_cache = KVCache(c_all, r_all, cache.pos + s)
+        kv_valid = _cache_valid(cache.pos, s, c_all.shape[1])
+        c_kv, k_rope = c_all, r_all
+
+    kv = (c_kv @ p["w_ukv"]).reshape(b, c_kv.shape[1], h, m.d_nope + m.d_v)
+    k_nope, v = kv[..., :m.d_nope], kv[..., m.d_nope:]
+
+    scores = torch.einsum("bshd,bthd->bhst", L._f32(q_nope), L._f32(k_nope))
+    scores = scores + torch.einsum("bshd,btd->bhst", L._f32(q_rope),
+                                   L._f32(k_rope))
+    scores = scores * _inv_sqrt(m.d_nope + m.d_rope)
+    sk = scores.shape[-1]
+    if cache is None:
+        mask = positions[:, :, None] >= torch.arange(
+            sk, device=x.device)[None, None, :]
+        scores = torch.where(mask[:, None], scores, NEG_INF)
+    else:
+        kvm = (kv_valid[:, None, None, :] if kv_valid.dim() == 2
+               else kv_valid[None, None, None, :])
+        scores = torch.where(kvm, scores, NEG_INF)
+    probs = _softmax(scores)
+    out = torch.einsum("bhst,bthd->bshd", probs, L._f32(v))
+    # f32 scores and values, rounded to the model dtype before wo
+    out = out.reshape(b, s, -1).to(x.dtype)
+    return out @ p["wo"], new_cache
+
+
+def mla_cache_init(cfg: ModelConfig, batch: int, max_len: int,
+                   dtype: torch.dtype, device: torch.device) -> KVCache:
+    m = cfg.mla
+    return KVCache(
+        torch.zeros((batch, max_len, m.kv_lora_rank), dtype=dtype,
+                    device=device),
+        torch.zeros((batch, max_len, m.d_rope), dtype=dtype, device=device),
+        torch.zeros((), dtype=torch.int32, device=device))

@@ -1,4 +1,4 @@
-"""Shared neural layers of the ssm family: norms, embeddings, dense init.
+"""Shared neural layers: norms, embeddings, dense init, RoPE, gated MLP.
 
 The reference's pure-functional convention carries over: each block is an
 ``init_*(generator, ...) -> params-dict`` plus an apply function on
@@ -11,7 +11,7 @@ follow the reference's distributions but cannot match its draws.
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Dict, Sequence
 
 import numpy as np
 import torch
@@ -73,3 +73,48 @@ def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     (the reference fills out-of-range ids with NaN; the engine never sends
     one, see ``Engine._fill``)."""
     return table[tokens]
+
+
+# ------------------------------------------------------------------- RoPE
+def rope_freqs(head_dim: int, theta: float) -> np.ndarray:
+    """The rotary frequencies, computed in numpy float32 as the reference
+    computes them."""
+    return 1.0 / (theta ** (np.arange(0, head_dim, 2, dtype=np.float32)
+                            / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., S, H, D) with D even; positions: broadcastable to (..., S).
+
+    Rotates interleaved pairs ``(x[..., 0::2], x[..., 1::2])``, as the
+    reference does; angles, cos and sin in float32, the result in x's
+    dtype."""
+    d = x.shape[-1]
+    freqs = torch.from_numpy(rope_freqs(d, theta)).to(x.device)  # (D/2,)
+    angles = positions[..., :, None].to(torch.float32) * freqs  # (..., S, D/2)
+    cos = torch.cos(angles)[..., None, :]                 # (..., S, 1, D/2)
+    sin = torch.sin(angles)[..., None, :]
+    x1 = _f32(x[..., 0::2])
+    x2 = _f32(x[..., 1::2])
+    out = torch.stack([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.reshape(x.shape).to(x.dtype)
+
+
+# --------------------------------------------------------------- gated MLP
+def mlp_init(generator: torch.Generator, d: int, d_ff: int,
+             dtype: torch.dtype, device: torch.device
+             ) -> Dict[str, torch.Tensor]:
+    return {
+        "w_gate": dense_init(generator, d, d_ff, dtype, device),
+        "w_up": dense_init(generator, d, d_ff, dtype, device),
+        "w_down": dense_init(generator, d_ff, d, dtype, device),
+    }
+
+
+def mlp_apply(p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
+    """SwiGLU: down( silu(gate(x)) * up(x) ), the product rounded to x's
+    dtype before the down projection, as the reference's compiled form
+    rounds it."""
+    g = silu(x @ p["w_gate"])
+    return (g * (x @ p["w_up"])) @ p["w_down"]

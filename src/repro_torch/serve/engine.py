@@ -1,13 +1,24 @@
-"""Batched LM serving engine, ssm family: static lockstep decoding.
+"""Batched LM serving engine: continuous batching over per-slot decode
+state for attention families, static lockstep decoding for the ssm family.
+
+Attention families (moe here) decode over a fixed pool of B slots, the
+batch rows of ``decode_step``. Each slot owns its request's decode state:
+a cursor into the prompt and the last sampled token (host side, in the
+slot's ``SlotEntry.state``) and its own write position into the KV cache
+(``attention.KVCache`` with vector ``pos``; ``transformer.per_slot_state``).
+A request is admitted into a free slot, prefilled token by token through
+the cached decode path, decodes until EOS or budget, and retires; the
+freed row's cache position resets to zero (``transformer.reset_slots``)
+and the row re-fills from the pending queue at the top of the next step
+while the other rows keep decoding (``continuous=True``), or only once the
+pool has drained (``continuous=False``, the wave baseline). Free rows
+decode an in-vocab filler whose outputs are discarded.
 
 The ssm family's decode state is a recurrence per row, not a positional
-KV cache, so it is served by the static wave path: all prompts are
-prefilled together, left-aligned with an in-vocab filler after each
-prompt, token by token through the cached ``decode_step`` (the exact
-one-token recurrence), then one token is sampled per step for every live
-slot; slots retire on EOS or budget and are not re-filled. Continuous
-batching over per-slot KV-cache positions (the reference's ``serve`` for
-attention families) comes with the attention slice (ROADMAP, Queue 1).
+cache, so it is served by the static wave path: all prompts are prefilled
+together, left-aligned with the filler after each prompt, then one token
+is sampled per step for every live slot; slots retire on EOS or budget and
+are not re-filled.
 
 Greedy decoding takes the first maximum of the float32 logits, as the
 reference does, and so matches it token for token. Temperature sampling
@@ -67,7 +78,7 @@ class Engine:
         # smoke configs cap vocab below tok.PAD, and an out-of-vocab id
         # cannot be looked up
         self._fill = int(min(tok.PAD, cfg.vocab_size - 1))
-        # decode steps of the last generate() call
+        # decode steps of the last serve() / generate() call
         self.n_steps = 0
 
     @property
@@ -89,10 +100,16 @@ class Engine:
     def serve(self, prompts: List[np.ndarray], max_new_tokens: int = 32, *,
               n_slots: int | None = None,
               continuous: bool = True) -> List[np.ndarray]:
-        """Slot-based decode with per-slot cache positions: refused for
+        """Slot-based decode over ``n_slots`` rows; results in order.
+
+        ``continuous=True`` re-fills freed slots from the pending queue
+        mid-flight (the top of every step); ``continuous=False`` is the
+        wave baseline — admission only when the pool has fully drained, so
+        a batch's slowest request gates the next wave. Refused for
         families served statically (``ValueError``, as the reference's
-        ``per_slot_state``); not ported yet for attention families."""
-        del max_new_tokens, continuous
+        ``per_slot_state``).
+        """
+        scfg = self.scfg
         b = len(prompts) if n_slots is None else int(n_slots)
         if b < 1:
             raise ValueError(f"need at least one slot, got {b}")
@@ -100,9 +117,77 @@ class Engine:
             raise ValueError(
                 "per-slot positions need attention KV caches; the "
                 f"{self.cfg.family!r} family is served statically")
-        raise NotImplementedError(
-            "continuous serving of attention families comes with the "
-            "attention slice of the port (ROADMAP, Queue 1)")
+        state = T.per_slot_state(
+            T.init_serve_state(self.params, self.cfg, b, scfg.max_len), b)
+
+        def on_admit(idx: int, entry) -> None:
+            del idx
+            # cursor into the prompt + last sampled token: the slot's
+            # host-side decode state (the cache position lives in the
+            # ServeState's per-slot pos, reset at admission below)
+            entry.state = {"fed": 0, "last": int(tok.PAD)}
+
+        pool: SlotPool[LMRequest, Dict[str, int]] = SlotPool(
+            b, on_admit=on_admit)
+        reqs = [
+            LMRequest(req_id=i, prompt=np.asarray(p, np.int32).reshape(-1),
+                      max_new_tokens=max_new_tokens)
+            for i, p in enumerate(prompts)]
+        for r in reqs:
+            if r.prompt.size == 0:
+                raise ValueError(f"empty prompt (request {r.req_id})")
+            pool.submit(r)
+
+        gen = torch.Generator().manual_seed(scfg.seed)
+        self.n_steps = 0
+        while pool.has_work:
+            if continuous or pool.n_live == 0:
+                admitted = pool.admit()
+                if admitted:
+                    free = np.zeros((b,), bool)
+                    for idx, _ in admitted:
+                        free[idx] = True
+                    # re-filled rows restart at cache position 0; stale
+                    # K/V above it is hidden by the pos-derived validity
+                    # mask, so no clearing
+                    state = T.reset_slots(state, free)
+            # free rows decode an in-vocab filler: their outputs are unused
+            tokens = np.full((b, 1), self._fill, np.int32)
+            for idx, entry in pool.live():
+                req, st = entry.item, entry.state
+                tokens[idx, 0] = (req.prompt[st["fed"]]
+                                  if st["fed"] < len(req.prompt)
+                                  else st["last"])
+            logits, state = T.decode_step(self.params, self.cfg, state,
+                                          tokens)
+            self.n_steps += 1
+            nxt = self._sample(logits, gen)
+            for idx, entry in list(pool.live()):
+                req, st = entry.item, entry.state
+                st["fed"] += 1
+                if st["fed"] < len(req.prompt):
+                    continue            # mid-prefill: logits not sampled
+                # this step consumed the final prompt token (first
+                # generated token) or the previous sample (next one)
+                t_new = int(nxt[idx])
+                req.tokens.append(t_new)
+                st["last"] = t_new
+                if (t_new == scfg.eos_id
+                        or len(req.tokens) >= req.max_new_tokens
+                        or st["fed"] >= scfg.max_len):
+                    pool.retire(idx)
+        return [np.asarray(r.tokens, np.int32) for r in reqs]
+
+    def _sample(self, logits: torch.Tensor,
+                gen: torch.Generator) -> np.ndarray:
+        """Next token per row of ``logits`` (B, V): the first maximum of
+        the float32 logits (greedy), or a draw from ``gen`` at the
+        temperature."""
+        lg = logits.float().cpu()
+        if self.scfg.temperature > 0:
+            probs = torch.softmax(lg / self.scfg.temperature, dim=-1)
+            return torch.multinomial(probs, 1, generator=gen)[:, 0].numpy()
+        return lg.numpy().argmax(-1)
 
     def _generate_static(self, prompts: List[np.ndarray],
                          max_new_tokens: int = 32) -> List[np.ndarray]:
@@ -137,12 +222,7 @@ class Engine:
             self.n_steps += 1
         # first generated token comes from the final prompt position
         for _ in range(max_new_tokens):
-            lg = logits.float().cpu()
-            if scfg.temperature > 0:
-                probs = torch.softmax(lg / scfg.temperature, dim=-1)
-                nxt = torch.multinomial(probs, 1, generator=gen)[:, 0].numpy()
-            else:
-                nxt = lg.numpy().argmax(-1)
+            nxt = self._sample(logits, gen)
             for r, _ in list(pool.live()):
                 outs[r].append(int(nxt[r]))
                 if nxt[r] == scfg.eos_id or len(outs[r]) >= max_new_tokens:

@@ -52,7 +52,10 @@ def test_importing_every_port_module_leaves_jax_out(monkeypatch):
                      "repro_torch.models.ssm",
                      "repro_torch.models.transformer",
                      "repro_torch.serve.engine",
-                     "repro_torch.kernels.ssd_scan"):
+                     "repro_torch.kernels.ssd_scan",
+                     "repro_torch.models.attention",
+                     "repro_torch.models.moe",
+                     "repro_torch.kernels.moe_gate"):
         assert required in modules
     code = ("import importlib, sys\n"
             f"for m in {modules!r}:\n"

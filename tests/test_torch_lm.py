@@ -112,13 +112,18 @@ def test_tokenizer_equals_the_reference(ref):
 
 # ---------------------------------------------------------- weights, init
 
-def test_lm_params_from_numpy_round_trips_every_leaf(ref, model):
-    """Every leaf, bf16 ones included, arrives exactly, in the dtype the
-    reference keeps it in."""
-    leaves_j = ref.jax.tree_util.tree_flatten_with_path(model.jp)[0]
-    n = 0
+#: the moe family's configs: leaf counts of their reference trees
+#: (embed, final_norm, lm_head; norm1, norm2; 5 MLA or 4 GQA weights;
+#: router and 3 expert stacks; 3 shared-expert or dense-residual weights)
+MOE_LEAVES = {"deepseek-v2-lite-16b": 17, "arctic-480b": 16}
+
+
+def _round_trip(ref, jp, tp):
+    """Every leaf of the reference tree ``jp`` arrives in ``tp`` exactly, in
+    the dtype the reference keeps it in; returns the number of leaves."""
+    leaves_j = ref.jax.tree_util.tree_flatten_with_path(jp)[0]
     for path, leaf in leaves_j:
-        node = model.tp
+        node = tp
         for key in path:
             node = node[key.key]
         want_dtype = torch.bfloat16 if str(leaf.dtype) == "bfloat16" \
@@ -127,18 +132,38 @@ def test_lm_params_from_numpy_round_trips_every_leaf(ref, model):
         assert tuple(node.shape) == leaf.shape, path
         np.testing.assert_array_equal(node.float().numpy(),
                                       np.asarray(leaf, np.float32))
-        n += 1
-    assert n == 10      # embed, final_norm, lm_head, norm1 and 6 ssm leaves
+    assert len(dict(_flatten(tp))) == len(leaves_j)
+    return len(leaves_j)
 
 
-def test_init_params_matches_reference_layout(ref, model):
-    """Same tree, shapes and dtypes as the reference's ``init_params``
-    (the draws differ: another generator)."""
-    tp = tT.init_params(torch.Generator().manual_seed(0), model.tcfg,
+def _moe_configs(ref, dtype):
+    for arch, n in MOE_LEAVES.items():
+        yield (n, dataclasses.replace(ref.reg.get_config(arch + "-smoke"),
+                                      dtype=dtype),
+               dataclasses.replace(treg.get_config(arch + "-smoke"),
+                                   dtype=dtype))
+
+
+def test_lm_params_from_numpy_round_trips_every_leaf(ref, model):
+    """Every leaf, bf16 ones included, arrives exactly, in the dtype the
+    reference keeps it in: mamba2's tree, and the moe family's (the router
+    and the norms stay float32)."""
+    # embed, final_norm, lm_head, norm1 and 6 ssm leaves
+    assert _round_trip(ref, model.jp, model.tp) == 10
+    for n, jcfg, tcfg in _moe_configs(ref, model.dtype):
+        jp = ref.T.init_params(ref.jax.random.PRNGKey(1), jcfg)
+        tp = convert.lm_params_from_numpy(ref.jax.tree.map(np.asarray, jp),
+                                          tcfg, device="cpu")
+        assert _round_trip(ref, jp, tp) == n
+        assert tp["layers"]["moe"]["router"].dtype == torch.float32
+        assert tp["layers"]["norm2"].dtype == torch.float32
+
+
+def _same_layout(ref, jcfg, tcfg):
+    tp = tT.init_params(torch.Generator().manual_seed(0), tcfg,
                         device="cpu")
-    shapes = ref.jax.eval_shape(
-        lambda k: ref.T.init_params(k, model.jcfg),
-        ref.jax.random.PRNGKey(0))
+    shapes = ref.jax.eval_shape(lambda k: ref.T.init_params(k, jcfg),
+                                ref.jax.random.PRNGKey(0))
     flat_t = dict(_flatten(tp))
     flat_j = {tuple(k.key for k in path): leaf for path, leaf in
               ref.jax.tree_util.tree_flatten_with_path(shapes)[0]}
@@ -147,6 +172,20 @@ def test_init_params_matches_reference_layout(ref, model):
         assert tuple(flat_t[k].shape) == leaf.shape, k
         assert str(flat_t[k].dtype).split(".")[-1] == str(leaf.dtype), k
     assert float(tp["embed"].float().std()) == pytest.approx(0.02, rel=0.1)
+    return tp
+
+
+def test_init_params_matches_reference_layout(ref, model):
+    """Same tree, shapes and dtypes as the reference's ``init_params``
+    (the draws differ: another generator), for mamba2 and the moe family;
+    the stacked layers hold independent draws."""
+    _same_layout(ref, model.jcfg, model.tcfg)
+    for _, jcfg, tcfg in _moe_configs(ref, model.dtype):
+        tp = _same_layout(ref, jcfg, tcfg)
+        w = tp["layers"]["moe"]["w_up"].float()
+        assert not torch.equal(w[0], w[1])
+        assert float(w.std()) == pytest.approx(
+            1 / np.sqrt(tcfg.d_model), rel=0.1)
 
 
 def _map(tree, fn):
@@ -319,7 +358,7 @@ def test_engine_refusals(model):
             _prompts(dense.vocab_size))
 
 
-@pytest.mark.parametrize("arch", ["internlm2-1.8b", "deepseek-v2-lite-16b",
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "phi-3-vision-4.2b",
                                   "zamba2-1.2b", "seamless-m4t-medium"])
 def test_other_families_name_their_slice(arch):
     cfg = treg.get_config(arch + "-smoke")
