@@ -107,6 +107,28 @@ MOE_PREFILL_B, MOE_PREFILL_S = 4, 2048
 MOE_REQUESTS, MOE_MAX_PROMPT, MOE_NEW_TOKENS, MOE_SLOTS = 24, 24, 16, 6
 
 
+def ptxas_report(name: str) -> List[Dict[str, Any]]:
+    """Registers, spills and static shared memory of each kernel in
+    ``csrc/<name>.cu``, from the ``-Xptxas -v`` report that the build keeps
+    beside the library (``nvcc.log``)."""
+    log = build.library_path(name).parent / "nvcc.log"
+    out: List[Dict[str, Any]] = []
+    for ln in log.read_text().splitlines() if log.exists() else []:
+        if "Compiling entry function" in ln:
+            out.append(dict(entry=ln.split("'")[1]))
+        elif out and "spill stores" in ln:
+            words = ln.replace(",", "").split()
+            out[-1].update(stack_bytes=int(words[0]),
+                           spill_store_bytes=int(words[4]),
+                           spill_load_bytes=int(words[8]))
+        elif out and "Used" in ln and "registers" in ln:
+            words = ln.replace(",", "").split()
+            out[-1]["registers"] = int(words[words.index("registers") - 1])
+            out[-1]["static_smem_bytes"] = int(
+                words[words.index("smem") - 2]) if "smem" in words else 0
+    return out
+
+
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
@@ -139,11 +161,13 @@ def time_ms(fn, reps: int = 30, warmup: int = 3) -> float:
 
 
 def kernel_ms(fn, reps: int = 50, tries: int = 3, key: str = "rnl_"):
-    """Device time of the kernel named ``key`` per ``fn()`` call in
-    milliseconds, from the profiler's CUDA activity (CUPTI). A profile
-    counts only when it recorded exactly one such kernel per call; after
-    ``tries`` profiles without such a count it returns None, and the caller
-    keeps the CUDA-event time and says so in ``ms_source``."""
+    """Device time of the kernels named ``key`` per ``fn()`` call in
+    milliseconds, from the profiler's CUDA activity (CUPTI), and how many
+    of them one call launches: ``(ms, kernels_per_call)``. A profile counts
+    only when it recorded a whole number (at least one) of such kernels per
+    call; after ``tries`` profiles without one it returns ``(None, None)``,
+    and the caller keeps the CUDA-event time and says so in
+    ``ms_source``."""
     fn()
     torch.cuda.synchronize()
     for _ in range(tries):
@@ -155,9 +179,11 @@ def kernel_ms(fn, reps: int = 50, tries: int = 3, key: str = "rnl_"):
         hits = [e for e in prof.key_averages()
                 if e.device_type == torch.autograd.DeviceType.CUDA
                 and key in e.key]
-        if sum(e.count for e in hits) == reps:
-            return sum(e.self_device_time_total for e in hits) / 1e3 / reps
-    return None
+        count = sum(e.count for e in hits)
+        if count and count % reps == 0:
+            return (sum(e.self_device_time_total for e in hits) / 1e3 / reps,
+                    count // reps)
+    return None, None
 
 
 def bound_ms(times, weights, fire, clip, t_steps, threshold):
@@ -715,7 +741,7 @@ def check_and_time(variant, label, x, w, kw, **extra) -> Dict[str, Any]:
         raise AssertionError(f"{variant}/{label}: kernel disagrees with its "
                              f"plain version (max |err| {err})")
     call_ms = time_ms(lambda: fn(x, w, **kw))
-    ms = kernel_ms(lambda: fn(x, w, **kw))
+    ms, per_call = kernel_ms(lambda: fn(x, w, **kw))
     plain_ms = time_ms(lambda: plain(x, w, **kw), reps=5, warmup=1)
     bound, bound_by = bound_ms(x, w, got_t[0],
                                got_t[1] if len(got_t) > 1 else None,
@@ -725,6 +751,7 @@ def check_and_time(variant, label, x, w, kw, **extra) -> Dict[str, Any]:
                options={k: v for k, v in kw.items() if k != "with_clip"},
                max_abs_err=err, ms=call_ms if ms is None else ms,
                ms_source="cuda_events" if ms is None else "profiler",
+               kernels_per_call=per_call,
                call_ms=call_ms, plain_ms=plain_ms, bound_ms=bound,
                bound_by=bound_by)
     emit("kernels", **row)
@@ -773,12 +800,13 @@ def check_topk(label, bits, units, n, k, *, count, timed=True,
                n=n, k=k, units=len(units), max_abs_err=err)
     if timed:
         call_ms = time_ms(fn)
-        ms = kernel_ms(fn, key="unary_topk")
+        ms, per_call = kernel_ms(fn, key="unary_topk")
         rows = bits.numel() // n
         bound, bound_by = topk_bound_ms(rows, n, len(units),
                                         got.numel() * got.element_size())
         row.update(ms=call_ms if ms is None else ms,
                    ms_source="cuda_events" if ms is None else "profiler",
+                   kernels_per_call=per_call,
                    call_ms=call_ms,
                    plain_ms=time_ms(plain, reps=5, warmup=1),
                    bound_ms=bound, bound_by=bound_by,
@@ -851,8 +879,11 @@ def check_ssd(label, u, log_decay, b, c, chunk, heads, *, timed=True,
     from the same inputs on the card, or raise. Tolerance, elementwise,
     with s = max |reference|: float32 output |y - ref| <= 5e-4 s; bfloat16
     output |y - ref| <= 2^-8 |ref| + 1e-4 s (one bf16 rounding of an f32
-    result). When ``timed``: its device time, call time, the plain
-    version's time (float32, as the CPU path runs it) and its bound."""
+    result). The split model (``ssd_scan_split_model``, the kernel's bf16
+    splits on the host, not its sum orders) is reported beside it, not
+    held: its own error against the reference and its gap to the kernel.
+    When ``timed``: its device time, call time, the plain version's time
+    (float32, as the CPU path runs it) and its bound."""
     def fn():
         return ss._ssd_scan(u, log_decay, b, c, chunk, heads)
 
@@ -862,6 +893,7 @@ def check_ssd(label, u, log_decay, b, c, chunk, heads, *, timed=True,
     got = fn()
     want = ss._ssd_scan_plain(u.double(), log_decay.double(), b.double(),
                               c.double(), chunk, heads)
+    model = ss.ssd_scan_split_model(u, log_decay, b, c, chunk, heads)
     torch.cuda.synchronize()
     err = (got.double() - want).abs()
     scale = float(want.abs().max())
@@ -877,13 +909,18 @@ def check_ssd(label, u, log_decay, b, c, chunk, heads, *, timed=True,
     row = dict(variant="ssd_scan", shape=label, **extra, u=list(u.shape),
                dtype=str(u.dtype).split(".")[-1], n=int(b.shape[-1]),
                chunk=chunk, heads=heads, max_abs_err=max_err,
-               max_err_over_scale=max_err / scale)
+               max_err_over_scale=max_err / scale,
+               model_err_over_scale=float((model.double() - want).abs()
+                                          .max()) / scale,
+               model_gap_over_scale=float((got.double() - model.double())
+                                          .abs().max()) / scale)
     if timed:
         call_ms = time_ms(fn)
-        ms = kernel_ms(fn, reps=20, key="ssd_scan")
+        ms, per_call = kernel_ms(fn, reps=20, key="ssd_scan")
         bound, bound_by = ssd_bound_ms(u, log_decay, b, got, chunk, heads)
         row.update(ms=call_ms if ms is None else ms,
                    ms_source="cuda_events" if ms is None else "profiler",
+                   kernels_per_call=per_call,
                    call_ms=call_ms, plain_ms=time_ms(plain, reps=5, warmup=1),
                    bound_ms=bound, bound_by=bound_by, library_ms=None)
     emit("kernels", **row)
@@ -969,10 +1006,11 @@ def check_gate(label, logits, k, renorm, *, timed=True,
                k=k, renorm=renorm, ids_bit_exact=True, max_abs_err=err)
     if timed:
         call_ms = time_ms(fn)
-        ms = kernel_ms(fn, key="moe_gate")
+        ms, per_call = kernel_ms(fn, key="moe_gate")
         bound, bound_by = gate_bound_ms(t, e, k)
         row.update(ms=call_ms if ms is None else ms,
                    ms_source="cuda_events" if ms is None else "profiler",
+                   kernels_per_call=per_call,
                    call_ms=call_ms, plain_ms=time_ms(plain, reps=10),
                    bound_ms=bound, bound_by=bound_by,
                    library_ms=time_ms(library),
@@ -1463,12 +1501,7 @@ def main() -> int:
     ss._library()
     mg._library()
     build_s = time.perf_counter() - t0
-    ptxas = {}
-    for name in SOURCES:
-        log = build.library_path(name).parent / "nvcc.log"
-        ptxas[name] = [ln.strip() for ln in log.read_text().splitlines()
-                       if "registers" in ln or "spill" in ln] \
-            if log.exists() else []
+    ptxas = {name: ptxas_report(name) for name in SOURCES}
     emit("env", torch=torch.__version__, cuda=torch.version.cuda,
          device=torch.cuda.get_device_name(0), nvidia_smi=smi,
          kernel_build_s=build_s, ptxas=ptxas,
@@ -1513,6 +1546,12 @@ def main() -> int:
                          "moe_decode_step", per_slot=True)
     phase_moe_checks(dev, moe_cfg, moe_params)
 
+    ssd = main_rows["ssd_scan"]
+    ssd_row = dict(ptxas=ptxas["ssd_scan"], occupancy={
+        str(dt).split(".")[-1]: dict(zip(
+            ("smem_bytes", "blocks_per_sm"),
+            ss.kernel_occupancy(ssd["chunk"], ssd["n"], dt)))
+        for dt in (torch.bfloat16, torch.float32)})
     kernels = []
     for name, row in main_rows.items():
         by_run = {path.name: launches[path.name][name] for path in paths
@@ -1523,9 +1562,12 @@ def main() -> int:
             replaces=REPLACES[name], launches=sum(by_run.values()),
             launches_by_run=by_run, shape=row["shape"],
             max_abs_err=row["max_abs_err"], ms=row["ms"],
-            ms_source=row["ms_source"], plain_ms=row["plain_ms"],
+            ms_source=row["ms_source"],
+            kernels_per_call=row["kernels_per_call"],
+            plain_ms=row["plain_ms"],
             bound_ms=row["bound_ms"], bound_by=row["bound_by"],
-            library_ms=row.get("library_ms")))
+            library_ms=row.get("library_ms"),
+            **(ssd_row if name == "ssd_scan" else {})))
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -107,19 +107,21 @@ def init_layer(generator: torch.Generator, cfg: TNNLayer,
 
 
 def carry_init(cfg: TNNLayer, batch: int,
-               device: Union[str, torch.device] = "cpu") -> torch.Tensor:
+               device: Union[str, torch.device, None] = None) -> torch.Tensor:
     """All-silent recurrent carry ``(batch, n_outputs)`` for a layer: the
-    previous-cycle output volley fed to a stream's first gamma cycle."""
+    previous-cycle output volley fed to a stream's first gamma cycle, on
+    ``device`` (``None`` = ``cuda``; raises when CUDA is absent)."""
     return torch.full((batch, cfg.n_outputs), coding.NO_SPIKE, dtype=_I32,
-                      device=device)
+                      device=resolve_device(device))
 
 
 def stage_init(cfg: TNNLayer, batch: int,
-               device: Union[str, torch.device] = "cpu") -> torch.Tensor:
+               device: Union[str, torch.device, None] = None) -> torch.Tensor:
     """All-``NO_SPIKE`` pipeline stage buffer ``(batch, n_inputs)``: the
-    inert warmup/drain input of gamma-cycle pipelining."""
+    inert warmup/drain input of gamma-cycle pipelining, on ``device``
+    (``None`` = ``cuda``; raises when CUDA is absent)."""
     return torch.full((batch, cfg.n_inputs), coding.NO_SPIKE, dtype=_I32,
-                      device=device)
+                      device=resolve_device(device))
 
 
 def _gather_rf(volleys: torch.Tensor, cfg: TNNLayer,

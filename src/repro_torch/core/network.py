@@ -83,12 +83,14 @@ class ForwardResult(NamedTuple):
 
 
 def init_carry(cfg: TNNNetwork, batch: int,
-               device: Union[str, torch.device] = "cpu"
+               device: Union[str, torch.device, None] = None
                ) -> Tuple[Optional[torch.Tensor], ...]:
     """Per-layer all-silent carry for the first gamma cycle of a stream:
     (batch, n_outputs_l) all-``NO_SPIKE`` for recurrent layers, ``None``
-    for feedforward ones."""
-    return tuple(layer_mod.carry_init(lc, batch, device) if lc.recurrent
+    for feedforward ones; on ``device`` (``None`` = ``cuda``; raises when
+    CUDA is absent)."""
+    dev = resolve_device(device)
+    return tuple(layer_mod.carry_init(lc, batch, dev) if lc.recurrent
                  else None for lc in cfg.layers)
 
 

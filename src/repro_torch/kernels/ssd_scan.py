@@ -13,15 +13,22 @@ Chunked form (``chunk`` positions, g = cumsum(log a) inside a chunk):
 
 The kernel (``csrc/ssd_scan.cu``, built for ``sm_90a`` at first use by
 :mod:`repro_torch.kernels.build`) runs the chunk loop inside one block per
-(row, tile of P) and keeps the state in shared memory. Rows may share B
-and C: with ``heads`` rows per batch row the kernel reads B and C at row
-``// heads``, so the multi-head form (:func:`repro_torch.kernels.ops.ssd_scan_mh`)
-never repeats them.
+(row, tile of 64 columns of P), keeps the state in registers and runs the
+chunk's products on the tensor cores in bf16 with f32 sums, splitting
+every f32 operand into bf16 terms. It takes chunks of at most
+:data:`KERNEL_CHUNK` positions: the chunked form is the same function for
+any chunk length, and only its rounding depends on it. Rows may share B and C: with ``heads``
+rows per batch row the kernel reads B and C at row ``// heads``, so the
+multi-head form (:func:`repro_torch.kernels.ops.ssd_scan_mh`) never
+repeats them.
 
 Plain versions, beside the kernel: the token-by-token recurrence
 (:func:`ssd_scan_oracle`), the chunked form (:func:`ssd_scan_chunked`) and
 the multi-head chunked form with shared B/C (:func:`ssd_scan_chunked_mh`).
-They compute in float32, or in float64 when given float64.
+They compute in float32, or in float64 when given float64. The split
+model (:func:`ssd_scan_split_model`) computes the chunked form in float64
+with the operands rounded and split where the kernel splits them: it
+bounds the error the kernel's split adds.
 
 A wrapper given CPU tensors runs the plain chunked form; given CUDA
 tensors it launches the kernel on the current stream or raises: it never
@@ -32,7 +39,7 @@ from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -44,8 +51,13 @@ CHUNK = 128
 MAX_CHUNK = 128
 #: ... and states of at most this many rows (N); P is split into tiles of
 #: 64 columns across blocks and has no cap. Larger inputs raise on CUDA
-#: (``csrc/ssd_scan.cu``: one block's operands in 227 KB of shared memory).
+#: (``csrc/ssd_scan.cu``: one block's operands in 227 KB of shared memory,
+#: its y rows and state in registers).
 MAX_STATE = 128
+
+#: the kernel walks chunks of min(chunk, KERNEL_CHUNK) positions
+#: (``csrc/ssd_scan.cu``: two blocks' tiles on an SM)
+KERNEL_CHUNK = 64
 
 #: kernel launches since the last :func:`reset_launches`
 LAUNCHES: Dict[str, int] = {"ssd_scan": 0}
@@ -66,13 +78,31 @@ def _library() -> ctypes.CDLL:
         if _lib is None:
             lib = build.load("ssd_scan")
             p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+            ip = ctypes.POINTER(ctypes.c_int)
             lib.ssd_scan_launch.argtypes = [p, p, p, p, p, ll, ll, i, i, i,
                                             i, i, p]
             lib.ssd_scan_launch.restype = ctypes.c_int
+            lib.ssd_scan_occupancy.argtypes = [i, i, i, ip, ip]
+            lib.ssd_scan_occupancy.restype = ctypes.c_int
             lib.ssd_scan_error_string.argtypes = [ctypes.c_int]
             lib.ssd_scan_error_string.restype = ctypes.c_char_p
             _lib = lib
         return _lib
+
+
+def kernel_occupancy(chunk: int, n: int,
+                     dtype: torch.dtype) -> Tuple[int, int]:
+    """(dynamic shared memory bytes a block, resident blocks an SM) of the
+    kernel for ``chunk``, state size ``n`` and operand ``dtype`` on the
+    current card."""
+    lib = _library()
+    smem, blocks = ctypes.c_int(), ctypes.c_int()
+    code = lib.ssd_scan_occupancy(chunk, n, int(dtype == torch.bfloat16),
+                                  ctypes.byref(smem), ctypes.byref(blocks))
+    if code != 0:
+        raise RuntimeError(f"ssd_scan_occupancy failed: "
+                           f"{lib.ssd_scan_error_string(code).decode()}")
+    return smem.value, blocks.value
 
 
 # ------------------------------------------------------------ plain versions
@@ -169,6 +199,84 @@ def _ssd_scan_plain(u, log_decay, b, c, chunk, heads):
     return y.reshape(bh, L, p)
 
 
+def _split_terms(x: torch.Tensor, k: int) -> List[torch.Tensor]:
+    """``x`` rounded to float32, then split into ``k`` bfloat16 terms (each
+    the rounding of what the ones before leave), returned in float64."""
+    rest = x.float()
+    terms = []
+    for _ in range(k):
+        head = rest.bfloat16().float()
+        terms.append(head.double())
+        rest = rest - head
+    return terms
+
+
+def _split_einsum(eq: str, a: List[torch.Tensor],
+                  b: List[torch.Tensor]) -> torch.Tensor:
+    """The kernel's split product: the sum over term pairs (i, j) with
+    i + j <= 2 of ``einsum(eq, a_i, b_j)``, in float64."""
+    return sum(torch.einsum(eq, ai, bj) for i, ai in enumerate(a)
+               for j, bj in enumerate(b) if i + j <= 2)
+
+
+def ssd_scan_split_model(u: torch.Tensor, log_decay: torch.Tensor,
+                         b: torch.Tensor, c: torch.Tensor, chunk: int = CHUNK,
+                         heads: int = 1) -> torch.Tensor:
+    """A model of the CUDA kernel's rounding, on any device: the chunked
+    form over chunks of min(chunk, :data:`KERNEL_CHUNK`) positions, as the
+    kernel takes them, in float64 with each product's operands split into
+    bfloat16 terms where the kernel splits them (u, B, C: one term for
+    bfloat16 inputs, exact, three for float32 ones; the float32
+    intermediates M = (C B^T) o D, the state S and w o U: hi + lo, three
+    terms for float32 inputs), the cumulative log decays g and their
+    differences in float32, and the state kept in float32 between chunks.
+
+    It bounds the error that the split adds; it does not reproduce the
+    kernel's result bit for bit (the kernel's sum orders, its cumsum of g
+    and its exp2 differ). Shapes and result as :func:`_ssd_scan`."""
+    kx, ki = (1, 2) if u.dtype == torch.bfloat16 else (3, 3)
+    return _split_model(u, log_decay, b, c, chunk, heads, kx, ki)
+
+
+def _split_model(u, log_decay, b, c, chunk, heads, kx, ki) -> torch.Tensor:
+    """:func:`ssd_scan_split_model` with ``kx`` bf16 terms for the inputs
+    and ``ki`` for the intermediates; each product sums the term pairs
+    with i + j <= 2."""
+    chunk = min(chunk, KERNEL_CHUNK)
+    rows, L, p = u.shape
+    bsz, n = rows // heads, b.shape[-1]
+    uu = u.reshape(bsz, heads, L, p)
+    la = log_decay.reshape(bsz, heads, L).float()
+    y = torch.zeros((bsz, heads, L, p), dtype=torch.float64, device=u.device)
+    state = torch.zeros((bsz, heads, n, p), dtype=torch.float32,
+                        device=u.device)
+    for t0 in range(0, L, chunk):
+        t1 = min(t0 + chunk, L)
+        g = torch.cumsum(la[..., t0:t1], dim=-1)        # (B, H, lc), f32
+        cs = _split_terms(c[:, t0:t1], kx)
+        bs = _split_terms(b[:, t0:t1], kx)
+        us = _split_terms(uu[:, :, t0:t1], kx)
+        causal = torch.ones((t1 - t0,) * 2, dtype=torch.bool,
+                            device=u.device).tril()
+        dmat = torch.exp((g[..., :, None] - g[..., None, :]).double()
+                         .masked_fill(~causal, float("-inf")))
+        m = _split_einsum("ztn,zsn->zts", cs, bs)[:, None] * dmat
+        yc = _split_einsum("zhts,zhsp->zhtp", _split_terms(m, ki), us)
+        if t0 > 0:
+            yc = yc + torch.exp(g.double())[..., None] * _split_einsum(
+                "ztn,zhnp->zhtp", cs, _split_terms(state, ki))
+        y[:, :, t0:t1] = yc
+        if t1 < L:
+            g_last = g[..., -1:]
+            wu = torch.exp((g_last - g).double())[..., None] \
+                * uu[:, :, t0:t1].double()
+            local = _split_einsum("zsn,zhsp->zhnp", bs,
+                                  _split_terms(wu, ki))
+            state = (torch.exp(g_last.double())[..., None] * state.double()
+                     + local).float()
+    return y.reshape(rows, L, p).to(u.dtype)
+
+
 # ------------------------------------------------------------------ wrappers
 
 def _check(u, log_decay, b, c, chunk, heads) -> None:
@@ -218,7 +326,9 @@ def _ssd_scan(u: torch.Tensor, log_decay: torch.Tensor, b: torch.Tensor,
               c: torch.Tensor, chunk: int, heads: int) -> torch.Tensor:
     """The SSD scan of rows ``u`` (R, L, P), ``log_decay`` (R, L) with B and
     C (R / heads, L, N) shared by each run of ``heads`` consecutive rows.
-    Returns y (R, L, P) in u's dtype."""
+    Returns y (R, L, P) in u's dtype. The CUDA kernel works in chunks of
+    min(chunk, :data:`KERNEL_CHUNK`) positions: the same function, but its
+    rounding differs from the plain chunked form at a larger ``chunk``."""
     _check(u, log_decay, b, c, chunk, heads)
     if u.device.type == "cpu":
         return _ssd_scan_plain(u, log_decay, b, c, chunk, heads)
@@ -254,7 +364,9 @@ def ssd_scan(u: torch.Tensor, log_decay: torch.Tensor, b: torch.Tensor,
       log_decay: (BH, L) log a_t <= 0 (float32 on CUDA).
       b:         (BH, L, N) input projections (u's dtype on CUDA).
       c:         (BH, L, N) output projections (u's dtype on CUDA).
-      chunk:     chunk length.
+      chunk:     chunk length (the CUDA kernel works in chunks of
+                 min(chunk, KERNEL_CHUNK) positions: the same function,
+                 rounded as the chunked form at that length).
 
     Returns:
       y: (BH, L, P), same dtype as u.

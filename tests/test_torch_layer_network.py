@@ -212,13 +212,28 @@ def test_network_helpers_match_reference():
             assert network.microbatch_split(b, m) == \
                 jnetwork.microbatch_split(b, m)
     assert tn.column_counts == jn.column_counts
-    for a, b in zip(jnetwork.init_carry(jn, 3), network.init_carry(tn, 3)):
+    for a, b in zip(jnetwork.init_carry(jn, 3),
+                    network.init_carry(tn, 3, device="cpu")):
         assert (a is None) == (b is None)
         if a is not None:
             _eq(a, b)
-    _eq(jlayer.stage_init(jn.layers[1], 2), layer.stage_init(tn.layers[1], 2))
+    _eq(jlayer.stage_init(jn.layers[1], 2),
+        layer.stage_init(tn.layers[1], 2, device="cpu"))
     with pytest.raises(ValueError):
         network.make_network([tn.layers[1], tn.layers[1]])
+
+
+def test_state_inits_default_to_cuda(monkeypatch):
+    """``init_carry``, ``carry_init`` and ``stage_init`` run on the card
+    unless the caller asks for the CPU: without CUDA, no device raises."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    _, tn, _, _ = _nets(recurrent=True)
+    for init in (lambda: network.init_carry(tn, 3),
+                 lambda: layer.carry_init(tn.layers[0], 3),
+                 lambda: layer.stage_init(tn.layers[1], 2)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            init()
+    assert layer.carry_init(tn.layers[0], 3, "cpu").device.type == "cpu"
 
 
 def test_init_network_is_seeded_and_shaped():

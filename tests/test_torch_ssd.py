@@ -7,8 +7,11 @@ port's wrappers run their plain versions on CPU tensors. Tolerances are
 those of ``tests/test_kernels.py``: 5e-4 (absolute and relative) for
 float32 outputs, 5e-2 for bfloat16 outputs (one bfloat16 rounding of
 values up to ~4, plus the two frameworks' different f32 summation orders).
-The CUDA kernel itself is held against the plain version by the
-``cuda``-marked test at the end, which skips without a card.
+The error that the CUDA kernel's bf16 split adds is bounded here through
+a model (``ssd_scan_split_model``: the same splits on the host, not the
+kernel's sum orders, so it bounds the split rather than reproducing the
+kernel); the kernel itself is held against the plain version by the ``cuda``-marked
+test at the end, which skips without a card.
 """
 
 import types
@@ -215,6 +218,59 @@ def test_kernel_limits_raise():
             tss._check_kernel(*args)
 
 
+# (rows, heads, L, P, N, chunk): the mamba2-780m prefill call's P, N and
+# chunk at a few rows, and the smoke shape
+SPLIT_SHAPES = [(8, 4, 300, 64, 128, 128), (4, 4, 2048, 64, 128, 128),
+                (16, 8, 70, 16, 16, 32)]
+
+
+def _kernel_gate(got, want, dtype):
+    """The kernel's tolerance, elementwise, with s = max |reference|:
+    float32 |y - ref| <= 5e-4 s; bfloat16 |y - ref| <= 2^-8 |ref| + 1e-4 s.
+    Returns (all within it, max |y - ref| / s)."""
+    err = (got.double() - want).abs()
+    s = want.abs().max()
+    if dtype == "float32":
+        ok = err <= 5e-4 * s
+    else:
+        ok = err <= 2.0 ** -8 * want.abs() + 1e-4 * s
+    return bool(ok.all()), float(err.max() / s)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rows,heads,L,p,n,chunk", SPLIT_SHAPES)
+def test_split_model_within_kernel_gates(rows, heads, L, p, n, chunk, dtype):
+    """The kernel's split model (operands split into bf16 terms where
+    the kernel splits them) against the float64 chunked form: within the
+    kernel's gates, and for float32 inputs no further from it than twice
+    the plain float32 chunked form (whose error is the float32 cumsum of
+    the log decays, as the kernel's)."""
+    u, ld, b, c = _torch(_inputs(rows + L, (rows, L, p), n, dtype), dtype)
+    b, c = b[:rows // heads], c[:rows // heads]
+    got = tss.ssd_scan_split_model(u, ld, b, c, chunk, heads)
+    want = tss._ssd_scan_plain(u.double(), ld.double(), b.double(),
+                               c.double(), chunk, heads)
+    assert got.dtype == u.dtype and got.shape == u.shape
+    ok, rel = _kernel_gate(got, want, dtype)
+    assert ok, rel
+    if dtype == "float32":
+        plain = tss._ssd_scan_plain(u, ld, b, c, chunk, heads)
+        assert rel <= 2 * _kernel_gate(plain, want, dtype)[1], rel
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_split_model_one_term_fails_the_gate(dtype):
+    """The split is what keeps the kernel within its gates: with every
+    operand rounded once to bf16 (one term), the model fails them."""
+    rows, heads, L, p, n, chunk = SPLIT_SHAPES[0]
+    u, ld, b, c = _torch(_inputs(rows + L, (rows, L, p), n, dtype), dtype)
+    b, c = b[:rows // heads], c[:rows // heads]
+    got = tss._split_model(u, ld, b, c, chunk, heads, 1, 1)
+    want = tss._ssd_scan_plain(u.double(), ld.double(), b.double(),
+                               c.double(), chunk, heads)
+    assert not _kernel_gate(got, want, dtype)[0]
+
+
 def _f64_reference(u, ld, b, c, chunk, heads):
     return tss._ssd_scan_plain(u.double(), ld.double(), b.double(),
                                c.double(), chunk, heads)
@@ -223,14 +279,26 @@ def _f64_reference(u, ld, b, c, chunk, heads):
 @pytest.mark.cuda
 def test_cuda_kernel_matches_plain_version():
     """The kernel on the card against the plain version in float64 from
-    the same inputs: bf16 and f32, heads sharing B/C, ragged L, P past one
-    tile, small and maximal chunk and state. Tolerance, elementwise, with
+    the same inputs: bf16 and f32, heads sharing B/C, the mamba2-780m
+    prefill call (ragged L too), ragged L, P past one tile and P not a
+    multiple of the 16-wide MMA tile beside a tile edge, small and maximal
+    chunk and state, a chunk the kernel splits (100: it takes at most
+    ``KERNEL_CHUNK`` positions at a time), log_decay -30. Tolerance, elementwise, with
     s = max |reference|: float32 output |y - ref| <= 5e-4 s; bfloat16
     output |y - ref| <= 2^-8 |ref| + 1e-4 s (one bf16 rounding)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU with CUDA")
     dev = torch.device("cuda")
     cases = [  # rows, heads, L, P, N, chunk, dtype
+        (192, 48, 2048, 64, 128, 128, "bfloat16"),
+        (192, 48, 2047, 64, 128, 128, "bfloat16"),
+        (192, 48, 2048, 64, 128, 128, "float32"),
+        (4, 2, 300, 24, 128, 128, "bfloat16"),
+        (4, 2, 300, 72, 128, 128, "float32"),
+        (6, 3, 200, 72, 64, 64, "bfloat16"),
+        (4, 2, 300, 64, 128, 100, "bfloat16"),
+        (4, 2, 300, 64, 128, 128, "float32", -30.0),
+        (4, 2, 300, 64, 128, 128, "bfloat16", -30.0),
         (8, 4, 300, 64, 128, 128, "bfloat16"),
         (6, 3, 257, 64, 128, 128, "float32"),
         (4, 1, 1, 16, 16, 32, "float32"),
@@ -241,18 +309,15 @@ def test_cuda_kernel_matches_plain_version():
         (2, 1, 96, 8, 4, 16, "float32"),
         (2, 1, 50, 8, 20, 20, "float32"),
     ]
-    for i, (rows, heads, L, p, n, chunk, dtype) in enumerate(cases):
+    for i, (rows, heads, L, p, n, chunk, dtype, *decay) in enumerate(cases):
         u, ld, b, c = _torch(_inputs(i, (rows, L, p), n, dtype), dtype)
         b, c = b[:rows // heads], c[:rows // heads]
+        if decay:
+            ld = torch.full_like(ld, decay[0])
         u, ld, b, c = (a.to(dev) for a in (u, ld, b, c))
         got = tss._ssd_scan(u, ld, b, c, chunk, heads)
         want = _f64_reference(u, ld, b, c, chunk, heads)
         torch.cuda.synchronize()
         assert got.dtype == u.dtype and got.shape == u.shape
-        err = (got.double() - want).abs()
-        s = want.abs().max()
-        if dtype == "float32":
-            ok = err <= 5e-4 * s
-        else:
-            ok = err <= 2.0 ** -8 * want.abs() + 1e-4 * s
-        assert bool(ok.all()), (i, float(err.max()), float(s))
+        ok, rel = _kernel_gate(got, want, dtype)
+        assert ok, (i, rel)
