@@ -17,10 +17,12 @@ and continuous and wave ``Engine.serve`` through 6 slots, the MoE gate
 kernel once per layer per forward and per decode step). A first pass
 records every call each path makes to the kernel wrappers (RNL, unary
 top-k, SSD scan, MoE gate), with its operands; those calls, and the
-repository's benchmark shapes and edge cases, are then held against their
-plain PyTorch versions on the card (bit-exact for the integer kernels and
-the gate's ids; the SSD scan and the gate's probabilities to stated
-tolerances), timed and given their bounds. The measured pass runs each
+repository's benchmark shapes and edge cases (for the RNL kernels also
+the sizes their launchers once refused: 2,048 lines, 262,148 volleys),
+are then held against their plain PyTorch versions on the card
+(bit-exact for the integer kernels and the gate's ids; the SSD scan and
+the gate's probabilities to stated tolerances), timed and given their
+bounds, beside the launch floor (a one-element ``fill_``). The measured pass runs each
 path with the launch counts set to 0 just before it and read just after,
 and checks its outputs (TNN requests against the CPU reference, the
 gate-level paths against the ``fused`` engine and the CPU closed form,
@@ -184,6 +186,18 @@ def kernel_ms(fn, reps: int = 50, tries: int = 3, key: str = "rnl_"):
             return (sum(e.self_device_time_total for e in hits) / 1e3 / reps,
                     count // reps)
     return None, None
+
+
+def launch_floor_ms() -> float:
+    """The launch floor as the profiler sees it: the device time of a
+    ``fill_`` of one float32 element on the card, the least a kernel
+    launch shows there. Raises when the profiler records no such
+    kernel."""
+    one = torch.empty(1, device="cuda")
+    ms, _ = kernel_ms(lambda: one.fill_(1.0), key="Fill")
+    if ms is None:
+        raise AssertionError("launch floor: the profiler saw no fill kernel")
+    return ms
 
 
 def bound_ms(times, weights, fire, clip, t_steps, threshold):
@@ -666,10 +680,14 @@ def capture(run) -> List[Dict[str, Any]]:
 
 def synthetic_cases(dev):
     """(variant, label, times, weights, kwargs) at the repository's
-    benchmark shapes and edge cases, all on ``dev``: bench_shard's full
-    size (C=64, B=32, rf=16, Q=16, T=64), bench_sparsity's (B=Q=n=T=64,
-    compact at density 0.1), ragged B and Q with negative weights and
-    spikes at or past the cycle end, threshold <= 0, k set and None."""
+    benchmark shapes and edge cases, all on ``dev``: the sizes past the
+    launchers' old caps (n = 2,048 at (B, Q) = (128, 1) and (256, 64),
+    layer and bank, T = 64 and T = 1 with threshold <= 0, clip on and off;
+    compact over >= 1,024 active lines at Q = 1, B = 256; a layer call of
+    262,148 volleys at Q = 32), bench_shard's full size (C=64, B=32, rf=16,
+    Q=16, T=64), bench_sparsity's (B=Q=n=T=64, compact at density 0.1),
+    ragged B and Q with negative weights and spikes at or past the cycle
+    end, threshold <= 0, k set and None."""
     gen = torch.Generator().manual_seed(0)
     rng = np.random.default_rng(0)
 
@@ -699,7 +717,39 @@ def synthetic_cases(dev):
     rg_cw = compaction.gather_weights(rg_w[0], rg_comp.line_index)
     rg_cw = rg_cw.contiguous()
     clip = dict(with_clip=True)
+    # sizes the launchers refused before the sweep kernel's redesign:
+    # shared memory grew with n (caps of 450 lines at Q = 1, B >= 128;
+    # 1,614 at Q >= 32; 454 compacted lines at Q = 1) and a grid dimension
+    # held at most 65,535 volley tiles (262,140 volleys at Q >= 32)
+    cap1_x, cap1_w = volleys((1, 128, 2048), 64, 0.5), weights((1, 1, 2048))
+    cap64_x = volleys((1, 256, 2048), 64, 0.5)
+    cap64_w = weights((1, 64, 2048))
+    cap = dict(t_steps=64, threshold=2000, k=40)
+    cap_comp = compaction.compact_volleys(volleys((256, 2400), 64, 0.5), 64)
+    cap_c = cap_comp.times.contiguous()
+    cap_cw = compaction.gather_weights(weights((1, 2400)),
+                                       cap_comp.line_index).contiguous()
+    grid_x, grid_w = volleys((1, 262_148, 4), 8, 0.6), weights((1, 32, 4))
+    grid = dict(t_steps=8, threshold=3, k=1)
+    tick1 = dict(t_steps=1, threshold=0, k=2)
     return [
+        ("layer", "cap_n2048_b128_q1", cap1_x, cap1_w, cap),
+        ("layer+clip", "cap_n2048_b128_q1", cap1_x, cap1_w, {**cap, **clip}),
+        ("layer", "cap_n2048_b256_q64", cap64_x, cap64_w, cap),
+        ("layer+clip", "cap_n2048_b256_q64", cap64_x, cap64_w,
+         {**cap, **clip}),
+        ("layer", "cap_n2048_b256_q64_t1_threshold_0", cap64_x, cap64_w,
+         tick1),
+        ("bank", "cap_n2048_b128_q1", cap1_x[0], cap1_w[0], cap),
+        ("bank", "cap_n2048_b256_q64_k_none", cap64_x[0], cap64_w[0],
+         {**cap, "k": None, "threshold": 1500}),
+        ("bank+clip", "cap_n2048_b256_q64_t1_threshold_neg", cap64_x[0],
+         cap64_w[0], {**tick1, "threshold": -2, **clip}),
+        ("compact", f"cap_s{cap_c.shape[1]}_b256_q1", cap_c, cap_cw,
+         dict(t_steps=64, threshold=300, k=20)),
+        ("layer", "grid_262148_volleys_q32", grid_x, grid_w, grid),
+        ("layer+clip", "grid_262148_volleys_q32", grid_x, grid_w,
+         {**grid, **clip}),
         ("layer", "bench_shard", shard_x, shard_w, shard),
         ("layer", "bench_shard_k_none", shard_x, shard_w,
          {**shard, "k": None}),
@@ -1020,12 +1070,26 @@ def check_gate(label, logits, k, renorm, *, timed=True,
     return row
 
 
+def edge_rows(e, rng):
+    """Three rows of E logits: all equal; a top pair of -0.0 (id 1) and
+    +0.0 (id 4), which compare equal, so id 1 goes first; all below -1e30
+    but ids E - 1 and E // 2, so from the third round on the kernel picks
+    a masked expert (-1e30) again, as the reference's kernel does."""
+    equal = np.full(e, 0.25, np.float32)
+    zeros = -1.0 - rng.random(e).astype(np.float32)
+    zeros[1], zeros[4] = -0.0, 0.0
+    low = (-2e30 * (1.0 + rng.random(e))).astype(np.float32)
+    low[e - 1], low[e // 2] = 1.0, 0.5
+    return np.stack([equal, zeros, low])
+
+
 def synthetic_gate_cases(dev):
     """(label, logits, k, renorm) for the gate kernel: the reference's test
-    shapes (tests/test_kernels.py) with renorm both ways, one row, a row
-    count that is not a multiple of the kernel's 8 rows per block,
-    tie-heavy logits (integers in [-2, 2]), logits of magnitude 80, and
-    the widest row the kernel holds."""
+    shapes (tests/test_kernels.py) with renorm both ways, the edge rows
+    (:func:`edge_rows`) at E = 8, 33, 64, 160, 256 with k = 6 and k = E,
+    one row, a row count that is not a multiple of the kernel's 8 rows per
+    block, tie-heavy logits (integers in [-2, 2]), logits of magnitude 80,
+    and the widest row the kernel holds."""
     rng = np.random.default_rng(8)
 
     def normal(t, e, scale=1.0):
@@ -1037,6 +1101,10 @@ def synthetic_gate_cases(dev):
              for r in (True, False)]
     ties = torch.from_numpy(rng.integers(-2, 3, (8195, 64)).astype(
         np.float32)).to(dev)
+    for e in (8, 33, 64, 160, 256):
+        edge = torch.from_numpy(edge_rows(e, rng)).to(dev)
+        for k in sorted({min(6, e), e}):
+            cases.append((f"edge_rows_E{e}_k{k}", edge, k, True))
     return cases + [
         ("rows_1", normal(1, 64), 6, True),
         ("rows_8195", normal(8195, 64), 6, True),
@@ -1059,13 +1127,13 @@ def check_gate_cap(dev) -> None:
     raise AssertionError("moe_gate: E above the cap did not raise")
 
 
-def phase_kernels(dev, captured) -> Dict[str, Dict[str, Any]]:
+def phase_kernels(dev, captured, floor_ms) -> Dict[str, Dict[str, Any]]:
     """Every launch variant against its plain version on the card: each
     distinct call the main path made (its own operands), the clip variants
     on the main path's layer and bank operands, then the synthetic cases.
-    Returns, per wrapper, the row of the call its first path made most (for
-    unary top-k, the SSD scan and the gate, the first path's first
-    call)."""
+    The gate's timed rows carry the launch floor ``floor_ms``. Returns,
+    per wrapper, the row of the call its first path made most (for unary
+    top-k, the SSD scan and the gate, the first path's first call)."""
     main_rows: Dict[str, Dict[str, Any]] = {}
     ssd_call = None
     for path, cases in captured.items():
@@ -1082,7 +1150,7 @@ def phase_kernels(dev, captured) -> Dict[str, Dict[str, Any]]:
             if case["wrapper"] == "moe_gate_topk":
                 row = check_gate(f"{path}#{i}", case["logits"], case["k"],
                                  case["renorm"], path=path,
-                                 calls=case["calls"])
+                                 calls=case["calls"], floor_ms=floor_ms)
                 main_rows.setdefault("moe_gate_topk", row)
                 continue
             if case["wrapper"].startswith("unary_topk"):
@@ -1531,7 +1599,10 @@ def main() -> int:
     # (the generation path launches no kernel: its measured run shows it)
     captured = {path.name: capture(path.run) if path.kernel else []
                 for path in paths}
-    main_rows = phase_kernels(dev, captured)
+    floor_ms = launch_floor_ms()
+    emit("kernels", variant="launch_floor", op="fill_ of one float32 "
+         "element", ms=floor_ms, ms_source="profiler")
+    main_rows = phase_kernels(dev, captured, floor_ms)
     launches = phase_serve(paths, captured)
     phase_profile(dev, streams, ff, p_ff)
     for path in paths:
@@ -1566,7 +1637,7 @@ def main() -> int:
             kernels_per_call=row["kernels_per_call"],
             plain_ms=row["plain_ms"],
             bound_ms=row["bound_ms"], bound_by=row["bound_by"],
-            library_ms=row.get("library_ms"),
+            library_ms=row.get("library_ms"), floor_ms=floor_ms,
             **(ssd_row if name == "ssd_scan" else {})))
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

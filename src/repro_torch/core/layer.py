@@ -79,9 +79,11 @@ class TNNLayer:
         """Dendritic inputs per neuron: rf_size + Q recurrent lines."""
         return self.rf_size + (self.n_neurons if self.recurrent else 0)
 
-    def rf_index(self, device: Union[str, torch.device] = "cpu"
+    def rf_index(self, device: Union[str, torch.device, None] = None
                  ) -> torch.Tensor:
-        """(C, rf_size) int32 input-line ids per column."""
+        """(C, rf_size) int32 input-line ids per column, on ``device``
+        (default: the card, :func:`resolve_device`)."""
+        device = resolve_device(device)
         starts = torch.arange(self.n_columns, dtype=_I32,
                               device=device) * self.stride
         return starts[:, None] + torch.arange(self.rf_size, dtype=_I32,

@@ -18,14 +18,29 @@
 // T*k*8; its arithmetic (E exps and ~k*E compares per row) is far below the
 // memory line at any T, and at the main path's shapes (T = 8192 or a few
 // decode slots, E = 64) the bound is a microsecond or less, so one launch's
-// fixed cost dominates. Design: one warp per row, 8 rows (warps) per
-// 256-thread block. Lane l holds experts l, l + 32, ... in registers (EPL
-// per lane, a template parameter: 1, 2, 4 or 8, so E <= 256; the loads of a
-// warp are coalesced), the max and the sum are butterfly shuffles, and each
-// round's argmax is a (value desc, index asc) butterfly, after which every
-// lane knows the pick and its owner masks it. expf, not __expf, and no
-// fast-math, so the probabilities stay within float32 rounding of the plain
-// version.
+// fixed cost and each row's serial chain are what a design can cut.
+//
+// Design: one warp per row, 8 rows (warps) per 256-thread block. Lane l
+// holds experts l, l + 32, ... in registers (EPL per lane, a template
+// parameter: 1, 2, 4 or 8, so E <= 256; the loads of a warp are coalesced).
+// Each logit also becomes an order-preserving uint32 key (-0.0 taken as
+// +0.0 first, as float comparison takes them as equal). A round's maximum
+// is one warp reduction of the keys (redux.sync); its lowest id among
+// equals is the first non-empty ballot of key == max over the lane's
+// experts in increasing id, then ffs: no (value, index) shuffle chain. The
+// row max m is round 0's maximum. The owner of a pick sets its key to that
+// of -1e30, as the reference masks (a row whose logits lie below -1e30
+// then picks a masked expert again, as the reference's kernel does);
+// padding past E is -inf and never picked. The picks stay in registers:
+// lane r % 32 keeps round r's key and id. Every per-slot update is a
+// select, so no array is indexed at run time (an indexed update compiled
+// to a chain of predicated moves across all of them). After the rounds
+// each lane turns its picks into probabilities at once (no exp or divide
+// inside the rounds), their sum is taken in round order by shuffles, the
+// same in every lane, so the renormalisation is a register divide, and
+// lanes < k store probs and ids once, coalesced. expf, not __expf, and no
+// fast-math, so the probabilities stay within float32 rounding of the
+// plain version.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -35,6 +50,18 @@ namespace {
 
 constexpr int kWarps = 8;          // rows per block
 constexpr float kNeg = -1e30f;     // the reference's NEG
+constexpr unsigned kFull = 0xffffffffu;
+
+// Order-preserving key: key(a) < key(b) exactly when a < b, for every
+// float but NaN; -0.0 and +0.0 share one key.
+__device__ __forceinline__ unsigned order_key(float f) {
+  const unsigned u = __float_as_uint(f == 0.0f ? 0.0f : f);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+__device__ __forceinline__ float key_value(unsigned key) {
+  return __uint_as_float((key & 0x80000000u) ? (key & 0x7fffffffu) : ~key);
+}
 
 template <int EPL>
 __global__ void __launch_bounds__(kWarps * 32)
@@ -48,18 +75,19 @@ moe_gate_kernel(const float* __restrict__ logits, float* __restrict__ probs,
   const float* x = logits + row * e;
 
   float v[EPL];
+  unsigned key[EPL];
 #pragma unroll
   for (int j = 0; j < EPL; ++j) {
     const int col = j * 32 + lane;
     v[j] = col < e ? x[col] : -CUDART_INF_F;   // padding: never a max or pick
+    key[j] = order_key(v[j]);
   }
 
-  float m = -CUDART_INF_F;
+  unsigned top = key[0];
 #pragma unroll
-  for (int j = 0; j < EPL; ++j) m = fmaxf(m, v[j]);
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+  for (int j = 1; j < EPL; ++j) top = max(top, key[j]);
+  top = __reduce_max_sync(kFull, top);
+  const float m = key_value(top);
 
   float z = 0.0f;
 #pragma unroll
@@ -67,40 +95,65 @@ moe_gate_kernel(const float* __restrict__ logits, float* __restrict__ probs,
     if (j * 32 + lane < e) z += expf(v[j] - m);
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
-    z += __shfl_xor_sync(0xffffffffu, z, off);
+    z += __shfl_xor_sync(kFull, z, off);
   const float denom = z;
+  const unsigned neg_key = order_key(kNeg);
 
-  float* out_p = probs + row * k;
-  int32_t* out_i = ids + row * k;
-  float picked = 0.0f;
+  // round r's pick sits in lane r % 32, slot r / 32: its key, then its
+  // probability once the rounds are done
+  unsigned top_out[EPL];
+  int id_out[EPL];
+#pragma unroll
+  for (int j = 0; j < EPL; ++j) {
+    top_out[j] = 0u;
+    id_out[j] = 0;
+  }
   for (int r = 0; r < k; ++r) {
-    // this lane's best: its experts in increasing id, strict > keeps the
-    // lowest id among equals
-    float best = v[0];
-    int arg = lane;
+    if (r > 0) {
+      top = key[0];
 #pragma unroll
-    for (int j = 1; j < EPL; ++j)
-      if (v[j] > best) { best = v[j]; arg = j * 32 + lane; }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float ob = __shfl_xor_sync(0xffffffffu, best, off);
-      const int oa = __shfl_xor_sync(0xffffffffu, arg, off);
-      if (ob > best || (ob == best && oa < arg)) { best = ob; arg = oa; }
+      for (int j = 1; j < EPL; ++j) top = max(top, key[j]);
+      top = __reduce_max_sync(kFull, top);
     }
-    if ((arg & 31) == lane) {
+    // the lowest id holding the maximum: the first slot with a hit (slots
+    // in increasing id), its lowest lane
+    unsigned hit[EPL];
 #pragma unroll
-      for (int j = 0; j < EPL; ++j)
-        if (j == (arg >> 5)) v[j] = kNeg;
-    }
-    const float p = expf(best - m) / denom;
-    picked += p;
-    if (lane == 0) {
-      out_p[r] = p;
-      out_i[r] = arg;
+    for (int j = 0; j < EPL; ++j)
+      hit[j] = __ballot_sync(kFull, key[j] == top);
+    int arg = 0;
+#pragma unroll
+    for (int j = EPL - 1; j >= 0; --j)
+      if (hit[j]) arg = j * 32 + __ffs(hit[j]) - 1;
+    // selects, not indexing: the arrays stay in registers
+    const bool owner = (arg & 31) == lane, keeper = (r & 31) == lane;
+#pragma unroll
+    for (int j = 0; j < EPL; ++j) {
+      key[j] = owner && j == (arg >> 5) ? neg_key : key[j];
+      top_out[j] = keeper && j == (r >> 5) ? top : top_out[j];
+      id_out[j] = keeper && j == (r >> 5) ? arg : id_out[j];
     }
   }
-  if (renorm && lane == 0) {
-    for (int r = 0; r < k; ++r) out_p[r] = out_p[r] / picked;
+  // the picks' probabilities in parallel, their sum in round order
+  float p_out[EPL];
+  float picked = 0.0f;
+#pragma unroll
+  for (int j = 0; j < EPL; ++j) {
+    p_out[j] = 0.0f;
+    if (j * 32 >= k) continue;             // warp-uniform
+    p_out[j] = expf(key_value(top_out[j]) - m) / denom;
+    for (int l = 0; l < 32 && j * 32 + l < k; ++l)
+      picked += __shfl_sync(kFull, p_out[j], l);
+  }
+  float* out_p = probs + row * k;
+  int32_t* out_i = ids + row * k;
+#pragma unroll
+  for (int j = 0; j < EPL; ++j) {
+    const int r = j * 32 + lane;
+    if (r < k) {
+      out_p[r] = renorm ? p_out[j] / picked : p_out[j];
+      out_i[r] = id_out[j];
+    }
   }
 }
 

@@ -168,7 +168,7 @@ class TNNEngine:
             = collections.OrderedDict()
         self._evictions = 0
         self._t_steps = net.layers[0].t_steps
-        self._rf0 = net.layers[0].rf_index().numpy()
+        self._rf0 = net.layers[0].rf_index(device="cpu").numpy()
         # host column ranges of each recurrent carry in the packed transfer
         offs, start = [], net.n_inputs
         for lc in net.layers:

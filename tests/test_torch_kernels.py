@@ -139,6 +139,49 @@ def test_spikes_at_or_past_cycle_end_are_inert(ref):
     assert (got[0] == NO_SPIKE).all()
 
 
+@pytest.mark.parametrize("entry,with_clip", [
+    ("bank", False), ("bank", True), ("layer", False), ("layer", True),
+    ("compact", False)])
+def test_reference_and_plain_agree_past_the_old_line_cap(ref, entry,
+                                                         with_clip):
+    """n = 2,048 lines (compact: 1,024 active), past the shared-memory caps
+    the CUDA launchers once had (450 lines at Q = 1 and B >= 128, 1,614 at
+    Q >= 32, 454 compacted lines at Q = 1): the reference computes these
+    banks, and the port's plain version agrees with it bit for bit."""
+    rng = np.random.default_rng(2048 + with_clip)
+    bsz, q, n, t_steps = 4, 2, 2048, 16
+    kw = dict(t_steps=t_steps, threshold=150, k=40)
+
+    def weights(shape):
+        """The last neuron keeps ~1 % of its lines: it stays silent."""
+        w = _weights(rng, shape)
+        w[..., -1, :] *= rng.random(shape[-1]) < 0.01
+        return w
+
+    if entry == "bank":
+        got = _both(ref, ref.rn.rnl_fire_times, trn.rnl_fire_times,
+                    _volleys(rng, (bsz, n), t_steps), weights((q, n)),
+                    with_clip=with_clip, **kw)
+    elif entry == "layer":
+        got = _both(ref, ref.rn.rnl_fire_times_layer,
+                    trn.rnl_fire_times_layer,
+                    _volleys(rng, (2, bsz, n), t_steps),
+                    weights((2, q, n)), with_clip=with_clip, **kw)
+    else:
+        times = _volleys(rng, (bsz, n), t_steps, silent=0.5)
+        comp = ref.compaction.compact_volleys(ref.jnp.asarray(times), t_steps)
+        ct = np.asarray(comp.times)[:, :1024]
+        assert (np.asarray(comp.times)[:, 1024:] >= t_steps).all()
+        w_c = np.asarray(ref.compaction.gather_weights(
+            ref.jnp.asarray(weights((q, n))), comp.line_index))
+        got = _both(ref, ref.rn.rnl_fire_times_compact,
+                    trn.rnl_fire_times_compact, ct, w_c[:, :, :1024], **kw)
+    fired = got[0] < NO_SPIKE
+    assert fired.any() and not fired.all()
+    if with_clip:
+        assert (got[1] > 0).any()
+
+
 def test_wrappers_reject_bad_operands():
     t = torch.zeros((2, 4), dtype=torch.int32)
     w = torch.zeros((3, 4), dtype=torch.int32)
@@ -199,6 +242,62 @@ def test_cuda_kernels_match_plain_versions():
         want = trn.rnl_fire_times_compact_plain(*comp, **kw)
         torch.testing.assert_close(got, want, rtol=0, atol=0)
     torch.cuda.synchronize()
+
+
+def _match_on_card(fn, plain, *args, **kw):
+    got, want = fn(*args, **kw), plain(*args, **kw)
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    for g, r in zip(got, want):
+        assert g.dtype == torch.int32
+        torch.testing.assert_close(g, r, rtol=0, atol=0)
+    return got
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_past_the_old_caps():
+    """Sizes the launchers once refused: n = 2,048 lines at (B, Q) =
+    (128, 1) and (256, 64), layer and bank (shared memory grew with n);
+    compact over s = 1,024 lines at Q = 1, B = 256; T = 64, and T = 1 with
+    threshold <= 0; clip output on and off; and a layer call of 262,148
+    volleys at Q = 32 (past the 65,535-tile grid limit). Bit-exact against
+    the plain versions on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with CUDA")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(11)
+    trn.reset_launches()
+    for bsz, q in ((128, 1), (256, 64)):
+        times = torch.from_numpy(_volleys(rng, (2, bsz, 2048), 64)).to(dev)
+        w = torch.from_numpy(_weights(rng, (2, q, 2048))).to(dev)
+        for t_steps, threshold, k in ((64, 2000, 40), (64, 1500, None),
+                                      (1, 0, 2), (1, -4, None)):
+            kw = dict(t_steps=t_steps, threshold=threshold, k=k)
+            for with_clip in (False, True):
+                _match_on_card(trn.rnl_fire_times_layer,
+                               trn.rnl_fire_times_layer_plain, times, w,
+                               with_clip=with_clip, **kw)
+                _match_on_card(trn.rnl_fire_times, trn.rnl_fire_times_plain,
+                               times[0], w[0], with_clip=with_clip, **kw)
+    dense = torch.from_numpy(_volleys(rng, (256, 2400), 64, silent=0.5))
+    comp = _compact(dense.to(dev), torch.from_numpy(
+        _weights(rng, (1, 2400))).to(dev), 64)
+    assert comp[0].shape[1] >= 1024
+    for threshold, k in ((300, 20), (0, None)):
+        _match_on_card(trn.rnl_fire_times_compact,
+                       trn.rnl_fire_times_compact_plain, *comp, t_steps=64,
+                       threshold=threshold, k=k)
+    many = torch.from_numpy(_volleys(rng, (1, 262_148, 4), 8)).to(dev)
+    w32 = torch.from_numpy(_weights(rng, (1, 32, 4))).to(dev)
+    for with_clip in (False, True):
+        fire = _match_on_card(trn.rnl_fire_times_layer,
+                              trn.rnl_fire_times_layer_plain, many, w32,
+                              t_steps=8, threshold=3, k=1,
+                              with_clip=with_clip)[0]
+        assert bool((fire[0, 262_140:] < NO_SPIKE).any())
+    torch.cuda.synchronize()
+    assert trn.LAUNCHES == {"rnl_fire_times": 16, "rnl_fire_times_layer": 18,
+                            "rnl_fire_times_compact": 2}
 
 
 def _compact(times, w, t_steps):

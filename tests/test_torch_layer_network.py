@@ -55,7 +55,7 @@ def test_layer_forward_overlapping_strides(stride):
               dendrite="catwalk", k=2, rf_stride=stride)
     jcfg, tcfg = _pair(kw)
     assert tcfg.n_inputs == jcfg.n_inputs and tcfg.stride == jcfg.stride
-    _eq(jcfg.rf_index(), tcfg.rf_index())
+    _eq(jcfg.rf_index(), tcfg.rf_index(device="cpu"))
     rng = np.random.default_rng(0 if stride is None else stride)
     x = _volleys(rng, (7, tcfg.n_inputs), 18, 0.4)
     w = _weights(kw, 1)
@@ -234,6 +234,17 @@ def test_state_inits_default_to_cuda(monkeypatch):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             init()
     assert layer.carry_init(tn.layers[0], 3, "cpu").device.type == "cpu"
+
+
+def test_rf_index_defaults_to_cuda(monkeypatch):
+    """``TNNLayer.rf_index`` runs on the card unless the caller asks for
+    the CPU, as every other entry point: without CUDA, no device raises."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    _, tn, _, _ = _nets(recurrent=True)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tn.layers[0].rf_index()
+    idx = tn.layers[0].rf_index("cpu")
+    assert idx.device.type == "cpu" and idx.dtype == torch.int32
 
 
 def test_init_network_is_seeded_and_shaped():

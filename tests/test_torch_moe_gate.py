@@ -44,6 +44,20 @@ def _ties(seed, t, e):
     return rng.integers(-2, 3, (t, e)).astype(np.float32)
 
 
+def _edge_rows(e):
+    """Rows that test the kernel's keys and masking: all logits equal; a
+    top pair of -0.0 (lower id) and +0.0, which compare equal; logits below
+    -1e30 but for two, so the third pick on is a masked expert taken
+    again, as the reference's kernel does."""
+    rng = np.random.default_rng(e)
+    equal = np.full(e, 0.25, np.float32)
+    zeros = -1.0 - rng.random(e).astype(np.float32)
+    zeros[1], zeros[4] = -0.0, 0.0
+    low = (-2e30 * (1.0 + rng.random(e))).astype(np.float32)
+    low[e - 1], low[e // 2] = 1.0, 0.5
+    return np.stack([equal, zeros, low])
+
+
 def _assert_same(got, want):
     p, i = got
     wp, wi = (np.asarray(a) for a in want)
@@ -80,6 +94,26 @@ def test_ties_go_to_the_lowest_id(ref, renorm):
     assert (np.diff(vals, axis=1) <= 0).all()
     same = np.diff(vals, axis=1) == 0
     assert same.any() and (np.diff(ids, axis=1)[same] > 0).all()
+
+
+@pytest.mark.parametrize("e", [8, 33, 64])
+def test_edge_rows_match_reference(ref, e):
+    """Equal logits, a -0.0/+0.0 top pair (the lower id first) and logits
+    below -1e30 (a masked expert picked again): the plain version gives
+    the reference kernel's ids and probabilities. The reference's
+    ``lax.top_k`` oracle differs from its own kernel on the last two rows
+    (it orders -0.0 below +0.0 and never picks an expert twice); the port
+    follows the kernel."""
+    x = _edge_rows(e)
+    got = tmg.moe_gate_topk_plain(torch.from_numpy(x), min(6, e), True)
+    jx = ref.jnp.asarray(x)
+    _assert_same(got, ref.ops.moe_gate_topk(jx, min(6, e), True,
+                                            impl="pallas"))
+    _assert_same((got[0][:1], got[1][:1]),
+                 ref.ref.moe_gate_topk(jx[:1], min(6, e), True))
+    ids = got[1].numpy()
+    assert ids[1, :2].tolist() == [1, 4]
+    assert ids[2].tolist() == [e - 1] + [e // 2] * (min(6, e) - 1)
 
 
 def test_large_logits_and_one_row(ref):
@@ -140,7 +174,10 @@ def test_cuda_kernel_matches_plain_version():
     """The kernel on the card against the plain version on the same
     inputs: the reference's shapes both ways, one row, a row count that is
     not a multiple of the block's 8 rows, ties, logits of magnitude 80, E
-    of 1, 32, 33 and the cap; ids bit-exact, probabilities within 1e-6.
+    of 1, 32, 33 and the cap; E of 8, 33, 64, 160 and 256 at T of 1, 6 and
+    8,193 with k of 1, 6 and E; rows of equal logits, a -0.0/+0.0 top pair
+    and logits below -1e30 (:func:`_edge_rows`); ids bit-exact,
+    probabilities within 1e-6.
     Above the cap, and for logits that are not float32, it raises."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU with CUDA")
@@ -157,6 +194,14 @@ def test_cuda_kernel_matches_plain_version():
               (9, 33, 5, False, _logits(8, 9, 33)),
               (40, tmg.MAX_EXPERTS, 8, True,
                _logits(9, 40, tmg.MAX_EXPERTS))]
+    for e in (8, 33, 64, 160, 256):
+        for t in (1, 6, 8193):
+            for k in sorted({1, min(6, e), e}):
+                cases.append((t, e, k, k % 2 == 0, _logits(t * e + k, t, e)))
+        edge = _edge_rows(e)
+        for k in sorted({min(6, e), e}):
+            for renorm in (True, False):
+                cases.append((len(edge), e, k, renorm, edge))
     tmg.reset_launches()
     for t, e, k, renorm, x in cases:
         xd = torch.from_numpy(x).to(dev)
