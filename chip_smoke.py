@@ -7,7 +7,10 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
 largest TNN network the repository defines, three ways, the single-bank
 entry point ``fire_times_bank``, the gate-level neuron (that network's L1
 column stack through ``fire_times_bank(..., backend="scan")`` with
-``gate_level=True``, for the Catwalk and the sorting-PC dendrite),
+``gate_level=True``, for the Catwalk and the sorting-PC dendrite: one
+launch of the gate-level kernel a call, which makes the ramp bits on the
+card; and the same stack's bit-planes, made by ``rnl_response_bits``,
+through ``unary_topk_count``, the bit-plane kernel),
 mamba2-780m inference at full width and depth with random weights (the
 prefill forward, ``forward(..., logits_mode="last")``, with the SSD scan
 kernel once per layer, and ``Engine.generate``, whose decode is the
@@ -16,7 +19,7 @@ inference at full width and depth with random weights (the prefill forward
 and continuous and wave ``Engine.serve`` through 6 slots, the MoE gate
 kernel once per layer per forward and per decode step). A first pass
 records every call each path makes to the kernel wrappers (RNL, unary
-top-k, SSD scan, MoE gate), with its operands; those calls, and the
+top-k, gate level, SSD scan, MoE gate), with its operands; those calls, and the
 repository's benchmark shapes and edge cases (for the RNL kernels also
 the sizes their launchers once refused: 2,048 lines, 262,148 volleys),
 are then held against their plain PyTorch versions on the card
@@ -43,6 +46,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import pathlib
 import statistics
 import subprocess
@@ -58,7 +62,7 @@ ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.core import coding, compaction, layer, network, neuron  # noqa: E402
-from repro_torch.core import topk_prune  # noqa: E402
+from repro_torch.core import sorting_networks, topk_prune  # noqa: E402
 from repro_torch.configs import registry as lm_registry  # noqa: E402
 from repro_torch.data import tokenizer  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
@@ -271,6 +275,7 @@ REPLACES = {"rnl_fire_times_layer": "src/repro/kernels/rnl_neuron.py:218",
             "rnl_fire_times_compact": "src/repro/kernels/rnl_neuron.py:276",
             "unary_topk_count": "src/repro/kernels/unary_topk.py:116",
             "unary_topk_relocate": "src/repro/kernels/unary_topk.py:79",
+            "gate_level_trace": "src/repro/kernels/unary_topk.py:79",
             "ssd_scan": "src/repro/kernels/ssd_scan.py:68",
             "moe_gate_topk": "src/repro/kernels/moe_gate.py:54"}
 RNL_WRAPPERS = ("rnl_fire_times_layer", "rnl_fire_times",
@@ -282,7 +287,8 @@ SOURCES = {"rnl_neuron": "src/repro_torch/kernels/csrc/rnl_neuron.cu",
 #: the source each wrapper launches
 SOURCE_OF = {**{name: "rnl_neuron" for name in RNL_WRAPPERS},
              "unary_topk_count": "unary_topk",
-             "unary_topk_relocate": "unary_topk", "ssd_scan": "ssd_scan",
+             "unary_topk_relocate": "unary_topk",
+             "gate_level_trace": "unary_topk", "ssd_scan": "ssd_scan",
              "moe_gate_topk": "moe_gate"}
 
 
@@ -398,12 +404,16 @@ def gate_level_paths(dev, streams, ff, p_ff) -> List[Path]:
     L1 weights, T=32, k=3) through ``fire_times_bank(..., backend="scan")``
     with ``gate_level=True``: Catwalk's pruned top-k network (sorter
     'optimal', 31 CAS units) and the sorting-PC dendrite's full bitonic
-    sorter (80 units). Two calls each, one unary top-k launch over
-    32 x 64 x 12 x 32 = 786,432 rows per call: B=64 served volleys (the
-    first of each of the first 64 clients; sparse enough that no tick
-    clips) and B=64 random volleys at density 0.5 (bench_sparsity's),
-    which do clip. Held bit for bit against the ``fused`` engine on the
-    card and the CPU closed form."""
+    sorter (80 units). Two calls each, one gate-level launch each over
+    32 x 64 x 12 = 24,576 (volley, neuron) pairs of 32 ticks: B=64 served
+    volleys (the first of each of the first 64 clients; sparse enough that
+    no tick clips) and B=64 random volleys at density 0.5
+    (bench_sparsity's), which do clip. Held bit for bit against the
+    ``fused`` engine on the card and the CPU closed form. Then the same
+    stack's bit-planes (32 x 64 x 12 x 32 = 786,432 rows of 16 wires, made
+    by ``coding.rnl_response_bits``) through the bit-plane kernel's entry
+    ``unary_topk_count`` with Catwalk's network, one launch per plane,
+    held against ``min(popcount, k)``."""
     l1 = ff.layers[0]
     served = torch.from_numpy(np.stack([s[0] for s in streams[:N_SLOTS]]))
     rng = np.random.default_rng(3)
@@ -413,6 +423,7 @@ def gate_level_paths(dev, streams, ff, p_ff) -> List[Path]:
     inputs = {"served": layer._gather_rf(served.to(dev), l1).contiguous(),
               "dense": torch.from_numpy(dense.astype(np.int32)).to(dev)}
     w = torch.round(p_ff[0]).to(torch.int32)                  # (C, Q, n)
+    bq = (l1.n_columns, N_SLOTS, w.shape[1], l1.rf_total)
 
     def gate_path(dendrite):
         cfg = dataclasses.replace(l1.neuron_config(), dendrite=dendrite,
@@ -437,7 +448,6 @@ def gate_level_paths(dev, streams, ff, p_ff) -> List[Path]:
                     raise AssertionError(
                         f"gate_level_{dendrite}/{name}: fire times differ "
                         f"from fused / closed form")
-                bq = want + (x.shape[-1],)
                 raw = coding.rnl_response_bits(
                     torch.broadcast_to(x[:, :, None, :], bq),
                     torch.broadcast_to(w[:, None, :, :], bq),
@@ -449,9 +459,32 @@ def gate_level_paths(dev, streams, ff, p_ff) -> List[Path]:
                         neurons=int(w.shape[1]), inputs=stats,
                         bit_exact=True)
 
-        return Path(f"gate_level_{dendrite}", "unary_topk_count", run, check)
+        return Path(f"gate_level_{dendrite}", "gate_level_trace", run, check,
+                    launches=len(inputs))
 
-    return [gate_path("catwalk"), gate_path("sorting_pc")]
+    net = topk_prune.topk_network("optimal", l1.rf_total, K)
+    planes = {name: coding.rnl_response_bits(
+        torch.broadcast_to(x[:, :, None, :], bq),
+        torch.broadcast_to(w[:, None, :, :], bq), T_STEPS)
+        for name, x in inputs.items()}
+
+    def plane_run():
+        return {name: ut.unary_topk_count(bits, net)
+                for name, bits in planes.items()}, None
+
+    def plane_check(counts, _):
+        for name, bits in planes.items():
+            want = bits.sum(dim=-1, dtype=torch.int32).clamp_(max=K)
+            if counts[name].dtype != torch.int32 \
+                    or not torch.equal(counts[name], want):
+                raise AssertionError(f"gate_level_bitplane/{name}: counts "
+                                     f"differ from min(popcount, k)")
+        return dict(rows=int(planes["dense"].numel() // l1.rf_total),
+                    planes=len(planes), bit_exact=True)
+
+    return [gate_path("catwalk"), gate_path("sorting_pc"),
+            Path("gate_level_bitplane", "unary_topk_count", plane_run,
+                 plane_check, launches=len(planes))]
 
 
 def lm_prompts() -> List[np.ndarray]:
@@ -605,7 +638,8 @@ def moe_paths(dev, cfg, params, tokens, prompts) -> List[Path]:
 
 def capture(run) -> List[Dict[str, Any]]:
     """Drives ``run()`` with the three RNL wrappers, the unary top-k entry,
-    the SSD scan entry and the MoE gate entry spied on. Returns, for each
+    the gate-level entry, the SSD scan entry and the MoE gate entry spied
+    on. Returns, for each
     distinct call (wrapper, operand shapes, options or network) in
     first-call order, its number of calls and a copy of the operands of its
     busiest call — the one with the most in-cycle spikes (hot bits for
@@ -615,6 +649,7 @@ def capture(run) -> List[Dict[str, Any]]:
     cases: Dict[tuple, Dict[str, Any]] = {}
     originals = {name: getattr(rn, name) for name in RNL_WRAPPERS}
     topk = ut._unary_topk
+    trace = ut.gate_level_trace
     ssd = ss._ssd_scan
     gate = mg._moe_gate
 
@@ -644,6 +679,21 @@ def capture(run) -> List[Dict[str, Any]]:
             case.update(bits=bits.clone(), spikes=spikes)
         return topk(bits, units, n, k, count=count)
 
+    def spy_trace(times, weights, units, n, k, t_steps):
+        units = tuple(tuple(u) for u in units)
+        key = ("gate_level_trace", tuple(times.shape), tuple(weights.shape),
+               units, n, k, t_steps)
+        case = cases.setdefault(key, dict(wrapper="gate_level_trace",
+                                          units=units, n=n, k=k,
+                                          t_steps=t_steps, calls=0,
+                                          spikes=-1))
+        case["calls"] += 1
+        spikes = int((times < t_steps).sum())
+        if spikes > case["spikes"]:
+            case.update(times=times.clone(), weights=weights.clone(),
+                        spikes=spikes)
+        return trace(times, weights, units, n, k, t_steps)
+
     def spy_ssd(u, log_decay, b, c, chunk, heads):
         key = ("ssd_scan", tuple(u.shape), tuple(b.shape), str(u.dtype),
                chunk, heads)
@@ -665,6 +715,7 @@ def capture(run) -> List[Dict[str, Any]]:
     for name, fn in originals.items():
         setattr(rn, name, spy(name, fn))
     ut._unary_topk = spy_topk
+    ut.gate_level_trace = spy_trace
     ss._ssd_scan = spy_ssd
     mg._moe_gate = spy_gate
     try:
@@ -673,6 +724,7 @@ def capture(run) -> List[Dict[str, Any]]:
         for name, fn in originals.items():
             setattr(rn, name, fn)
         ut._unary_topk = topk
+        ut.gate_level_trace = trace
         ss._ssd_scan = ssd
         mg._moe_gate = gate
     return list(cases.values())
@@ -850,7 +902,7 @@ def check_topk(label, bits, units, n, k, *, count, timed=True,
                n=n, k=k, units=len(units), max_abs_err=err)
     if timed:
         call_ms = time_ms(fn)
-        ms, per_call = kernel_ms(fn, key="unary_topk")
+        ms, per_call = kernel_ms(fn, key="unary_topk_kernel")
         rows = bits.numel() // n
         bound, bound_by = topk_bound_ms(rows, n, len(units),
                                         got.numel() * got.element_size())
@@ -864,6 +916,93 @@ def check_topk(label, bits, units, n, k, *, count, timed=True,
                        -1, dtype=torch.int32).clamp_(max=k)))
     emit("kernels", **row)
     return row
+
+
+def gate_trace_bound_ms(times, weights, t_steps, n_units):
+    """Least time the card could take for one gate-level call: the larger
+    of the bytes it must move (the times and weights read once, the
+    potential trace and the clip counts written once) over the memory
+    rate, and, for every pair's every 32-tick word, 1 int32 operation a
+    wire (its ramp word) and 2 a CAS unit (AND, OR) over the int32 ALU
+    rate; returns ``(ms, "bytes" | "operations")``."""
+    pairs = times.numel() // times.shape[-1] * weights.shape[-2]
+    nbytes = 4 * (times.numel() + weights.numel() + pairs * (t_steps + 1))
+    ops = -(-t_steps // 32) * pairs * (times.shape[-1] + 2 * n_units)
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
+    return 1e3 * max(by_bytes, by_ops), \
+        ("bytes" if by_bytes > by_ops else "operations")
+
+
+def check_gate_trace(label, times, weights, units, n, k, t_steps, *,
+                     timed=True, **extra) -> Dict[str, Any]:
+    """One gate-level call against its plain version (the bit-plane
+    composition) on the same inputs on the card (potential and clip
+    counts bit-exact, or raise); when ``timed``, its times and its bound.
+    No single PyTorch call computes it: ``library_ms`` is None."""
+    def fn():
+        return ut.gate_level_trace(times, weights, units, n, k, t_steps)
+
+    def plain():
+        return ut.gate_level_trace_plain(times, weights, units, n, k,
+                                         t_steps)
+
+    got, want = fn(), plain()
+    torch.cuda.synchronize()
+    err = max(int((g.to(torch.int64) - r.to(torch.int64)).abs().max())
+              if g.numel() else 0 for g, r in zip(got, want))
+    if err != 0 or any(g.shape != r.shape or g.dtype != torch.int32
+                       for g, r in zip(got, want)):
+        raise AssertionError(f"gate_level_trace/{label}: kernel disagrees "
+                             f"with its plain version (max |err| {err})")
+    row = dict(variant="gate_level_trace", shape=label, **extra,
+               times=list(times.shape), weights=list(weights.shape), n=n,
+               k=k, t_steps=t_steps, units=len(units),
+               clipped=int(got[1].sum()), max_abs_err=err)
+    if timed:
+        call_ms = time_ms(fn)
+        ms, per_call = kernel_ms(fn, key="gate_level_kernel")
+        bound, bound_by = gate_trace_bound_ms(times, weights, t_steps,
+                                              len(units))
+        row.update(ms=call_ms if ms is None else ms,
+                   ms_source="cuda_events" if ms is None else "profiler",
+                   kernels_per_call=per_call, call_ms=call_ms,
+                   plain_ms=time_ms(plain, reps=5, warmup=1),
+                   bound_ms=bound, bound_by=bound_by, library_ms=None)
+    emit("kernels", **row)
+    return row
+
+
+def synthetic_gate_trace_cases(dev):
+    """(label, times, weights, units, n, k, t_steps) for the gate-level
+    kernel, checked only: the rows form of ``simulate_neuron`` (B = Q = 1)
+    over 70 ticks, a cycle one tick past a word, n = 20 with a pruned
+    odd-even transposition network, the widest row with its full sorter,
+    k = 8 (the wide counters), B = 0."""
+    rng = np.random.default_rng(4)
+
+    def draw(shape_t, shape_w, t_steps):
+        t = np.where(rng.random(shape_t) < 0.6,
+                     rng.integers(0, t_steps + 4, shape_t), coding.NO_SPIKE)
+        return (torch.from_numpy(t.astype(np.int32)).to(dev),
+                torch.randint(0, 9, shape_w, dtype=torch.int32,
+                              generator=torch.Generator().manual_seed(
+                                  len(shape_t))).to(dev))
+
+    transposition = [(i, i + 1) for r in range(20)
+                     for i in range(r % 2, 19, 2)]
+    l1 = topk_prune.topk_network("optimal", 16, 3).units
+    return [
+        ("rows_form_t70", *draw((4096, 1, 16), (4096, 1, 16), 70), l1, 16,
+         3, 70),
+        ("t33", *draw((8, 40, 16), (8, 12, 16), 33), l1, 16, 3, 33),
+        ("n20_t40", *draw((64, 20), (12, 20), 40),
+         topk_prune.prune_topk(transposition, 20, 3).units, 20, 3, 40),
+        ("n256_bitonic_sorter", *draw((2, 16, 256), (2, 8, 256), 32),
+         sorting_networks.get_network("bitonic", 256), 256, 3, 32),
+        ("k8_sorter", *draw((64, 16), (12, 16), 32),
+         sorting_networks.get_network("bitonic", 16), 16, 8, 32),
+        ("b0", *draw((4, 0, 16), (4, 12, 16), 32), l1, 16, 3, 32),
+    ]
 
 
 def synthetic_topk_cases(dev):
@@ -1133,7 +1272,8 @@ def phase_kernels(dev, captured, floor_ms) -> Dict[str, Dict[str, Any]]:
     on the main path's layer and bank operands, then the synthetic cases.
     The gate's timed rows carry the launch floor ``floor_ms``. Returns,
     per wrapper, the row of the call its first path made most (for unary
-    top-k, the SSD scan and the gate, the first path's first call)."""
+    top-k, the gate level, the SSD scan and the gate, the first path's
+    first call)."""
     main_rows: Dict[str, Dict[str, Any]] = {}
     ssd_call = None
     for path, cases in captured.items():
@@ -1152,6 +1292,13 @@ def phase_kernels(dev, captured, floor_ms) -> Dict[str, Dict[str, Any]]:
                                  case["renorm"], path=path,
                                  calls=case["calls"], floor_ms=floor_ms)
                 main_rows.setdefault("moe_gate_topk", row)
+                continue
+            if case["wrapper"] == "gate_level_trace":
+                row = check_gate_trace(
+                    f"{path}#{i}", case["times"], case["weights"],
+                    case["units"], case["n"], case["k"], case["t_steps"],
+                    path=path, calls=case["calls"])
+                main_rows.setdefault("gate_level_trace", row)
                 continue
             if case["wrapper"].startswith("unary_topk"):
                 row = check_topk(f"{path}#{i}", case["bits"], case["units"],
@@ -1177,6 +1324,8 @@ def phase_kernels(dev, captured, floor_ms) -> Dict[str, Dict[str, Any]]:
         for count in (True, False):
             check_topk(label, bits, net.units, net.n, net.k, count=count,
                        timed=timed)
+    for label, *case in synthetic_gate_trace_cases(dev):
+        check_gate_trace(label, *case, timed=False)
     if ssd_call is not None:
         for label, *ops, chunk, heads, timed in synthetic_ssd_cases(
                 dev, *ssd_call):
@@ -1224,11 +1373,15 @@ def phase_serve(paths, captured) -> Dict[str, Dict[str, int]]:
     return launches
 
 
-def device_share(prof, wall_ms):
-    """Device busy time (the sum of the CUDA activity: kernels and copies),
-    the idle share 1 - busy / wall, and the top device ops."""
-    dev_events = [e for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
+def device_events(prof):
+    """The profile's CUDA activity (kernels and copies), one entry a name."""
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def device_share(dev_events, wall_ms):
+    """Device busy time (the sum of the CUDA activity ``dev_events``), the
+    idle share 1 - busy / wall, and the top device ops."""
     busy_ms = sum(e.self_device_time_total for e in dev_events) / 1e3
     top = sorted(dev_events, key=lambda e: -e.self_device_time_total)[:12]
     return dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
@@ -1238,18 +1391,68 @@ def device_share(prof, wall_ms):
                           ms=e.self_device_time_total / 1e3) for e in top])
 
 
+#: host-clock milliseconds a path profile spans at least: a shorter path
+#: runs back to back inside one profile
+PROFILE_MIN_MS = 20.0
+#: marker kernels (``spin_kernel``, from ``torch.cuda._sleep``) launched
+#: inside a path profile before and after its runs: late in the script a
+#: profile can drop a dozen or so device records at one end (runs 1 and
+#: 4-7 of this script's gate-level profiles), which the markers take
+#: instead of the path's own
+PROFILE_MARKERS = 32
+
+
 def phase_profile_path(path):
     """Where one main-path run's time goes: ``path.run()`` (already warm)
-    under the profiler; the profiler's host cost makes the idle share an
-    upper estimate."""
+    under the profiler, repeated back to back until the runs span
+    ``PROFILE_MIN_MS``, between ``PROFILE_MARKERS`` marker kernels on each
+    side; every number is per run, the markers left out. ``markers_lost``
+    counts the markers missing before and after the runs (by their start
+    times). The profile is ``recorded`` only when markers survived on both
+    sides and every op of the path has a whole multiple of the runs;
+    otherwise the line carries no busy time or idle share. The profiler's
+    host cost makes the idle share an upper estimate."""
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path.run()
+    torch.cuda.synchronize()
+    runs = max(1, math.ceil(PROFILE_MIN_MS /
+                            (1e3 * (time.perf_counter() - t0))))
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        path.run()
+        for _ in range(PROFILE_MARKERS):
+            torch.cuda._sleep(1)
         torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0)
-    emit("profile", run=path.name, **device_share(prof, wall_ms))
+        t0 = time.perf_counter()
+        for _ in range(runs):
+            path.run()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0) / runs
+        for _ in range(PROFILE_MARKERS):
+            torch.cuda._sleep(1)
+        torch.cuda.synchronize()
+    starts = [(e.time_range.start, "spin_kernel" in e.name)
+              for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    own = [t for t, marker in starts if not marker]
+    seen = [sum(1 for t, marker in starts if marker and t < min(own)),
+            sum(1 for t, marker in starts if marker and t > max(own))] \
+        if own else [0, 0]
+    lost = [PROFILE_MARKERS - n for n in seen]
+    ops = [e for e in device_events(prof) if "spin_kernel" not in e.key]
+    if not ops or not all(seen) or any(e.count % runs for e in ops):
+        emit("profile", run=path.name, runs=runs, recorded=False,
+             markers_lost=lost, wall_ms=wall_ms, device_busy_ms=None,
+             idle_share=None, device_ops_recorded=len(own), top=[])
+        return
+    share = device_share(ops, wall_ms * runs)
+    emit("profile", run=path.name, runs=runs, recorded=True,
+         markers_lost=lost, wall_ms=wall_ms,
+         device_busy_ms=share["device_busy_ms"] / runs,
+         idle_share=share["idle_share"],
+         device_ops=share["device_ops"] // runs,
+         top=[dict(op, count=op["count"] // runs, ms=op["ms"] / runs)
+              for op in share["top"]])
 
 
 def phase_profile(dev, streams, ff, p_ff):
@@ -1273,7 +1476,8 @@ def phase_profile(dev, streams, ff, p_ff):
             steps += 1
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    emit("profile", run="auto", steps=steps, **device_share(prof, wall_ms))
+    emit("profile", run="auto", steps=steps,
+         **device_share(device_events(prof), wall_ms))
 
 
 def phase_lm_prefill(cfg, params, tokens, name="lm_prefill_time"):
@@ -1312,7 +1516,7 @@ def phase_profile_decode(cfg, params, prompts, run="lm_decode_step",
         logits.float().cpu()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     emit("profile", run=run, steps=steps, batch=len(prompts),
-         **device_share(prof, wall_ms))
+         **device_share(device_events(prof), wall_ms))
 
 
 def _map(tree, fn):

@@ -177,6 +177,37 @@ def test_pack_layers_matches_reference_and_units_in_order(ref, n, k, kind):
                                   by_units.numpy().astype(np.int8))
 
 
+@pytest.mark.parametrize("n,k,kind", KERNEL_GRID + [(16, 16, "optimal")])
+def test_network_words_apply_the_units_in_order(n, k, kind):
+    """The kernels' constant table holds the network in layers of 8-unit
+    chunks: every layer's units join disjoint wires, each wire's units
+    keep their order, the padding joins the spare wire n to itself, and
+    applying the layers (each unit's loads before any store, as the
+    kernels do) equals applying the units one by one, on the reference's
+    layer step too."""
+    net = topk_prune.topk_network(kind, n, k)
+    words = unary_topk._network_words(net.units, n).tolist()
+    assert len(words) % 8 == 0
+    pairs = [(e & 0xffff, e >> 16) for e in words]
+    real = [u for u in pairs if u != (n, n)]
+    assert sorted(real) == sorted(net.units)
+    for w in range(n):                               # per-wire order kept
+        assert [u for u in real if w in u] == \
+            [u for u in net.units if w in u]
+    bits = _bits(n + k, (300, n + 1), 0.3)
+    bits[:, n] = False                               # the spare wire
+    x = bits.copy()
+    for c in range(0, len(pairs), 8):
+        chunk = pairs[c:c + 8]
+        loads = [(x[:, i].copy(), x[:, j].copy()) for i, j in chunk]
+        for (i, j), (a, b) in zip(chunk, loads):
+            x[:, i], x[:, j] = a & b, a | b
+    by_units = unary_ops.apply_cas_bits(torch.from_numpy(bits[:, :n]),
+                                        net.units).numpy()
+    np.testing.assert_array_equal(x[:, :n], by_units)
+    assert not x[:, n].any()
+
+
 # -------------------------------------------------------------- unary ops
 @pytest.mark.parametrize("n,k,kind", KERNEL_GRID)
 def test_unary_ops_match_reference(ref, n, k, kind):
@@ -341,16 +372,171 @@ def test_fire_times_bank_gate_level_n64_matches_reference(ref):
     _eq(want, got)
 
 
+# ----------------------------------------- gate-level neuron, bits on chip
+# (dendrite, n, k, t_steps): every width and cycle length of the grid, each
+# dendrite at three of them; k = 0 exactly (all integer outputs)
+GATE_GRID = [("catwalk", 4, 2, 8), ("catwalk", 16, 3, 32),
+             ("catwalk", 64, 2, 70), ("catwalk", 16, 2, 40),
+             ("sorting_pc", 4, 2, 40), ("sorting_pc", 16, 3, 70),
+             ("sorting_pc", 16, 4, 8), ("sorting_pc", 64, 3, 32)]
+
+
+def _gate_draw(seed, shape_t, shape_w, t_steps):
+    """Times with silent lines and spikes at or past the cycle's end;
+    weights with zeros; dense enough that ticks clip."""
+    rng = np.random.default_rng(seed)
+    times = rng.integers(0, max(t_steps // 2, 1), shape_t)
+    late = rng.random(shape_t)
+    times = np.where(late < 0.1, t_steps + rng.integers(0, 4, shape_t),
+                     np.where(late < 0.3, NO_SPIKE, times))
+    w = rng.integers(1, 9, shape_w)
+    w = np.where(rng.random(shape_w) < 0.15, 0, w)
+    return times.astype(np.int32), w.astype(np.int32)
+
+
+def _transposition(n):
+    """Odd-even transposition sort: a sorting network for any n."""
+    return tuple((i, i + 1) for r in range(n) for i in range(r % 2, n - 1, 2))
+
+
+@pytest.mark.parametrize("dendrite,n,k,t_steps", GATE_GRID)
+def test_simulate_neuron_gate_level_grid_matches_reference(ref, dendrite, n,
+                                                           k, t_steps):
+    """Every ``NeuronOutput`` field of the gate-level neuron (rows form,
+    through the gate-level entry's plain version) equals the reference's
+    cycle-accurate scan, bit for bit."""
+    times, w = _gate_draw(n * t_steps + k, (3, 5, n), (3, 5, n), t_steps)
+    kw = dict(n_inputs=n, threshold=2 * n, t_steps=t_steps,
+              dendrite=dendrite, k=k, gate_level=True)
+    want = ref.neuron.simulate_neuron(ref.jnp.asarray(times),
+                                      ref.jnp.asarray(w),
+                                      ref.neuron.NeuronConfig(**kw))
+    unary_topk.reset_launches()
+    got = neuron.simulate_neuron(torch.from_numpy(times), torch.from_numpy(w),
+                                 neuron.NeuronConfig(**kw))
+    for field in FIELDS:
+        _eq(getattr(want, field), getattr(got, field))
+    assert int(got.clip_events.sum()) > 0     # the draw does clip
+    assert all(v == 0 for v in unary_topk.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("t_steps", [40, 70])
+@pytest.mark.parametrize("full_sorter", [False, True])
+def test_gate_level_trace_n20_matches_reference_pallas(ref, t_steps,
+                                                       full_sorter):
+    """n = 20, a width no named network takes: a pruned (or, in the
+    sorting-PC form, the full) odd-even transposition network through the
+    gate-level entry, against the reference's bit-plane, its Pallas kernel
+    in interpret mode (count) or its gate-level sort, and its cumsum."""
+    n, k = 20, 3
+    times, w = _gate_draw(t_steps + full_sorter, (2, 4, n), (2, 3, n),
+                          t_steps)
+    if full_sorter:
+        units = _transposition(n)
+    else:
+        units = topk_prune.prune_topk(_transposition(n), n, k).units
+    pot, clip = unary_topk.gate_level_trace(
+        torch.from_numpy(times), torch.from_numpy(w), units, n, k, t_steps)
+    shape = (2, 4, 3, n)
+    tj = ref.jnp.broadcast_to(ref.jnp.asarray(times)[:, :, None, :], shape)
+    wj = ref.jnp.broadcast_to(ref.jnp.asarray(w)[:, None, :, :], shape)
+    bits = ref.coding.rnl_response_bits(tj, wj, t_steps)
+    if full_sorter:
+        inc = ref.jnp.sum(ref.ops.sort_bits(bits, units)[..., n - k:]
+                          .astype(ref.jnp.int32), axis=-1)
+    else:
+        jnet = ref.tp.prune_topk(_transposition(n), n, k)
+        inc = ref.kops.unary_topk_count(bits, jnet, impl="pallas")
+    raw = ref.jnp.sum(bits.astype(ref.jnp.int32), axis=-1)
+    _eq(ref.jnp.cumsum(inc, axis=-1).astype(ref.jnp.int32), pot)
+    _eq(ref.jnp.sum((raw > k).astype(ref.jnp.int32), axis=-1), clip)
+    assert int(clip.sum()) > 0
+
+
+@pytest.mark.parametrize("dendrite,n,k,t_steps", [
+    ("catwalk", 4, 2, 70), ("catwalk", 16, 3, 40), ("sorting_pc", 16, 2, 8),
+    ("sorting_pc", 4, 1, 32)])
+def test_gate_level_bank_form_matches_rows_form_and_reference(
+        ref, dendrite, n, k, t_steps):
+    """The bank form (volleys (C, B, n), neurons (C, Q, n), never
+    broadcast) equals the rows form on the broadcast pairs, field by field,
+    and ``fire_times_bank(backend="scan")`` equals the reference's."""
+    times, w = _gate_draw(7 * n + t_steps, (3, 6, n), (3, 4, n), t_steps)
+    kw = dict(n_inputs=n, threshold=n + 3, t_steps=t_steps,
+              dendrite=dendrite, k=k, gate_level=True)
+    cfg = neuron.NeuronConfig(**kw)
+    tt, wt = torch.from_numpy(times), torch.from_numpy(w)
+    pot, clip = neuron._gate_level_trace(tt, wt, cfg)
+    shape = (3, 6, 4, n)
+    rows = neuron.simulate_neuron(
+        torch.broadcast_to(tt[:, :, None, :], shape),
+        torch.broadcast_to(wt[:, None, :, :], shape), cfg)
+    torch.testing.assert_close(pot, rows.potential, rtol=0, atol=0)
+    torch.testing.assert_close(clip, rows.clip_events, rtol=0, atol=0)
+    assert int(clip.sum()) > 0
+    got = neuron.fire_times_bank(tt, wt, cfg, backend="scan")
+    want = ref.neuron.fire_times_bank(ref.jnp.asarray(times),
+                                      ref.jnp.asarray(w),
+                                      ref.neuron.NeuronConfig(**kw),
+                                      backend="scan")
+    _eq(want, got)
+    torch.testing.assert_close(got, rows.fire_time, rtol=0, atol=0)
+    for x, ww in ((tt[0], wt[0]), (tt[0, 0], wt[0, 0])):    # 2-D and 1-D
+        _eq(ref.neuron.fire_times_bank(ref.jnp.asarray(x.numpy()),
+                                       ref.jnp.asarray(ww.numpy()),
+                                       ref.neuron.NeuronConfig(**kw),
+                                       backend="scan"),
+            neuron.fire_times_bank(x, ww, cfg, backend="scan"))
+
+
+def test_gate_level_trace_edges_and_checks():
+    """Empty banks and cycles, an all-silent bank, zero weights; bad shapes,
+    k, devices and networks raise; CPU tensors count no launch."""
+    net = topk_prune.topk_network("optimal", 16, 3)
+    unary_topk.reset_launches()
+    times, w = _gate_draw(1, (2, 5, 16), (2, 3, 16), 24)
+    tt, wt = torch.from_numpy(times), torch.from_numpy(w)
+    for x, ww, t_steps, pot_shape in (
+            (tt[:, :0], wt, 24, (2, 0, 3, 24)),
+            (tt, wt[:, :0], 24, (2, 5, 0, 24)),
+            (tt, wt, 0, (2, 5, 3, 0)), (tt[:0], wt[:0], 24, (0, 5, 3, 24))):
+        pot, clip = unary_topk.gate_level_trace(x, ww, net.units, 16, 3,
+                                                t_steps)
+        assert tuple(pot.shape) == pot_shape and pot.dtype == torch.int32
+        assert tuple(clip.shape) == pot_shape[:-1]
+        assert clip.dtype == torch.int32 and int(clip.sum()) == 0
+    silent = torch.full((2, 5, 16), NO_SPIKE, dtype=torch.int32)
+    for x, ww in ((silent, wt), (tt, torch.zeros_like(wt))):
+        pot, clip = unary_topk.gate_level_trace(x, ww, net.units, 16, 3, 24)
+        assert int(pot.abs().sum()) == 0 and int(clip.sum()) == 0
+    assert all(v == 0 for v in unary_topk.LAUNCHES.values())
+    for bad in ((tt, wt[0]), (tt[..., :15], wt), (tt, wt[:1])):
+        with pytest.raises(ValueError, match="same leading axes"):
+            unary_topk.gate_level_trace(*bad, net.units, 16, 3, 24)
+    with pytest.raises(ValueError, match="1 <= k <= n"):
+        unary_topk.gate_level_trace(tt, wt, net.units, 16, 17, 24)
+    with pytest.raises(ValueError, match="no gate-level kernel"):
+        unary_topk.gate_level_trace(tt.to("meta"), wt.to("meta"), net.units,
+                                    16, 3, 24)
+    with pytest.raises(ValueError, match="no unary top-k kernel"):
+        unary_topk.unary_topk_count(torch.zeros((3, 16), dtype=torch.bool,
+                                                device="meta"), net)
+
+
 # ------------------------------------------------------------- on the card
 @pytest.mark.cuda
 def test_cuda_kernel_matches_plain_version():
     """The kernel on the card against its plain version there (bit-exact):
-    every load width (16-, 4- and 1-byte, misaligned views), ragged and
-    empty row counts, n up to the kernel's limit, both outputs."""
+    every load width (16-, 4- and 1-byte), bool, int8 and uint8 planes
+    (hot bytes of 1, 2, 3, 0x7f, 0xff and 0x80), aligned (bulk copies) and
+    misaligned (lane copies) views, the gate-level L1
+    call's 786,432 rows, ragged and empty row counts, n up to the kernel's
+    limit, both outputs; a new network's first launch on a side stream."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU with CUDA")
     dev = torch.device("cuda")
-    cases = [("optimal", 16, 3, 786), ("auto", 64, 2, 512),
+    cases = [("optimal", 16, 3, 786_432), ("optimal", 16, 3, 786),
+             ("auto", 64, 2, 512),
              ("selection", 64, 4, 3001), ("bitonic", 32, 32, 1025),
              ("optimal", 4, 1, 1), ("auto", 128, 2, 2000),
              ("bitonic", 256, 3, 1500), ("optimal", 8, 2, 0)]
@@ -369,6 +555,38 @@ def test_cuda_kernel_matches_plain_version():
                          unary_topk.unary_topk_relocate_plain)):
                     torch.testing.assert_close(fn(x, net), plain(x, net),
                                                rtol=0, atol=0)
+    # int8 / uint8 planes whose hot bytes are not 1, at every load width
+    # (n = 16, 20, 13), aligned and misaligned
+    hot = {torch.int8: np.array([1, 2, 3, 0x7F, -1, -128], np.int8),
+           torch.uint8: np.array([1, 2, 3, 0x7F, 0xFF, 0x80], np.uint8)}
+    for n, k, rows in ((16, 3, 3001), (20, 3, 2000), (13, 2, 1500)):
+        units = topk_prune.prune_topk(_transposition(n), n, k).units
+        rng = np.random.default_rng(n)
+        bits = _bits(rows + 2 * n, (rows, n), 0.5)
+        for dtype, values in hot.items():
+            plane = torch.from_numpy(
+                np.where(bits, rng.choice(values, (rows, n)), 0)
+                .astype(values.dtype)).to(dev)
+            shifted = torch.zeros((rows * n + 1,), dtype=dtype,
+                                  device=dev)[1:].view(rows, n)
+            for x in (plane, shifted.copy_(plane)):
+                for count in (True, False):
+                    torch.testing.assert_close(
+                        unary_topk._unary_topk(x, units, n, k, count=count),
+                        unary_topk._unary_topk_plain(x, units, n, k,
+                                                     count=count),
+                        rtol=0, atol=0)
+    # a network's first launch on a side stream sees the network's words
+    units = topk_prune.prune_topk(_transposition(24), 24, 5).units
+    bits = torch.from_numpy(_bits(24, (5000, 24), 0.4)).to(dev)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got = unary_topk._unary_topk(bits, units, 24, 5, count=True)
+    side.synchronize()
+    torch.testing.assert_close(
+        got, unary_topk._unary_topk_plain(bits, units, 24, 5, count=True),
+        rtol=0, atol=0)
     srt = sorting_networks.get_network("odd_even", 16)
     bits = torch.from_numpy(_bits(7, (20, 5, 16), 0.5)).to(dev)
     torch.testing.assert_close(
@@ -379,4 +597,84 @@ def test_cuda_kernel_matches_plain_version():
         unary_topk._unary_topk(torch.zeros((2, 257), dtype=torch.bool,
                                            device=dev),
                                [(0, 1)], 257, 2, count=True)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_gate_level_trace_matches_plain_version():
+    """The gate-level kernel on the card against its plain version there
+    (bit-exact): the L1 stack's shapes (C = 32 columns, B = 64 volleys,
+    Q = 12 neurons, n = 16, T = 32) for both dendrites' networks, cycles of
+    8, 32, 33 and 70 ticks, n = 20, 64 and 256, k past 6 (the wide
+    counters), B or Q = 0, the rows form of ``simulate_neuron``; the neuron
+    on the card launches it once a call and equals the CPU, field by
+    field; unknown devices and n > 256 raise."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with CUDA")
+    dev = torch.device("cuda")
+    cat16 = topk_prune.topk_network("optimal", 16, 3).units
+    cases = [  # (label, units, n, k, times shape, weights shape, T)
+        ("l1_catwalk", cat16, 16, 3, (32, 64, 16), (32, 12, 16), 32),
+        ("l1_sorting_pc", sorting_networks.get_network("bitonic", 16), 16, 3,
+         (32, 64, 16), (32, 12, 16), 32),
+        ("t8", cat16, 16, 3, (5, 16), (7, 16), 8),
+        ("t33", topk_prune.topk_network("optimal", 16, 2).units, 16, 2,
+         (3, 9, 16), (3, 4, 16), 33),
+        ("t70_n8", sorting_networks.get_network("bitonic", 8), 8, 3,
+         (2, 11, 8), (2, 5, 8), 70),
+        ("n20_t40", topk_prune.prune_topk(_transposition(20), 20, 3).units,
+         20, 3, (4, 20), (6, 20), 40),
+        ("n64_t70", topk_prune.topk_network("optimal", 64, 2).units, 64, 2,
+         (6, 64), (5, 64), 70),
+        ("n256_t33", topk_prune.topk_network("bitonic", 256, 3).units, 256,
+         3, (3, 256), (2, 256), 33),
+        ("n256_sorter", sorting_networks.get_network("bitonic", 256), 256, 4,
+         (2, 3, 256), (2, 2, 256), 32),
+        ("k8", sorting_networks.get_network("bitonic", 16), 16, 8,
+         (40, 16), (9, 16), 70),
+        ("b0", cat16, 16, 3, (2, 0, 16), (2, 3, 16), 32),
+        ("q0", cat16, 16, 3, (2, 5, 16), (2, 0, 16), 32),
+        ("rows_form", cat16, 16, 3, (300, 1, 16), (300, 1, 16), 40),
+    ]
+    for i, (label, units, n, k, shape_t, shape_w, t_steps) in \
+            enumerate(cases):
+        times, w = _gate_draw(i, shape_t, shape_w, t_steps)
+        x, ww = torch.from_numpy(times).to(dev), torch.from_numpy(w).to(dev)
+        unary_topk.reset_launches()
+        pot, clip = unary_topk.gate_level_trace(x, ww, units, n, k, t_steps)
+        launched = unary_topk.LAUNCHES["gate_level_trace"]
+        want_pot, want_clip = unary_topk.gate_level_trace_plain(
+            x, ww, units, n, k, t_steps)
+        torch.testing.assert_close(pot, want_pot, rtol=0, atol=0,
+                                   msg=label)
+        torch.testing.assert_close(clip, want_clip, rtol=0, atol=0,
+                                   msg=label)
+        assert launched == (1 if pot.numel() else 0), label
+    for dendrite in ("catwalk", "sorting_pc"):
+        times, w = _gate_draw(5, (7, 9, 16), (7, 9, 16), 40)
+        cfg = neuron.NeuronConfig(n_inputs=16, threshold=12, t_steps=40,
+                                  dendrite=dendrite, k=3, gate_level=True)
+        unary_topk.reset_launches()
+        got = neuron.simulate_neuron(torch.from_numpy(times).to(dev),
+                                     torch.from_numpy(w).to(dev), cfg)
+        assert unary_topk.LAUNCHES == {"unary_topk_relocate": 0,
+                                       "unary_topk_count": 0,
+                                       "gate_level_trace": 1}
+        want = neuron.simulate_neuron(torch.from_numpy(times),
+                                      torch.from_numpy(w), cfg)
+        for field in FIELDS:
+            torch.testing.assert_close(getattr(got, field).cpu(),
+                                       getattr(want, field), rtol=0, atol=0)
+        bank_t, bank_w = _gate_draw(6, (4, 10, 16), (4, 6, 16), 40)
+        fire = neuron.fire_times_bank(torch.from_numpy(bank_t).to(dev),
+                                      torch.from_numpy(bank_w).to(dev), cfg,
+                                      backend="scan")
+        torch.testing.assert_close(
+            fire.cpu(), neuron.fire_times_bank(torch.from_numpy(bank_t),
+                                               torch.from_numpy(bank_w), cfg,
+                                               backend="scan"),
+            rtol=0, atol=0)
+    wide = torch.zeros((2, 257), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="at most 256"):
+        unary_topk.gate_level_trace(wide, wide, [(0, 1)], 257, 2, 8)
     torch.cuda.synchronize()
