@@ -10,7 +10,13 @@ column stack through ``fire_times_bank(..., backend="scan")`` with
 ``gate_level=True``, for the Catwalk and the sorting-PC dendrite: one
 launch of the gate-level kernel a call, which makes the ramp bits on the
 card; and the same stack's bit-planes, made by ``rnl_response_bits``,
-through ``unary_topk_count``, the bit-plane kernel),
+through ``unary_topk_count``, the bit-plane kernel), learning while
+serving (``TNNEngine(learn=True)`` on benchmarks/bench_serve_learn.py's
+workload: learning off, STDP every step, every 4th step, seeded, on
+``fused_compact``, and at 64 slots; each held against a manual
+``network.step`` loop on the card and one step against the CPU), the
+column trainer ``train_column`` on the clustering example's stream (one
+single-bank launch a volley, held bit-exact against the CPU),
 mamba2-780m inference at full width and depth with random weights (the
 prefill forward, ``forward(..., logits_mode="last")``, with the SSD scan
 kernel once per layer, and ``Engine.generate``, whose decode is the
@@ -29,15 +35,17 @@ bounds, beside the launch floor (a one-element ``fill_``). The measured pass run
 path with the launch counts set to 0 just before it and read just after,
 and checks its outputs (TNN requests against the CPU reference, the
 gate-level paths against the ``fused`` engine and the CPU closed form,
-served MoE requests against each request served alone). The LM phase then
-holds each layer's Mamba2 block (the kernel) against token-by-token decode
-(the recurrence), greedy generation against the forward's argmax, and the
-card's float32 forward against the CPU's float64 one; the MoE phase holds
-each MLA block against its cached decode, a 2-layer model's forward
-against its decode, and the card's float32 forward against the CPU's
-float64 one. Phases print one JSON line each; the last line is ``{"ok":
-true, "device": {...}}``. Any failure raises and exits non-zero; without
-CUDA it exits non-zero at once.
+served MoE requests against each request served alone). The profile
+phase adds a learning step at 4 and 64 slots with its STDP ops named. The
+LM phase then holds each layer's Mamba2 block (the kernel) against
+token-by-token decode (the recurrence), greedy generation against the
+forward's argmax, and the card's float32 forward against the CPU's
+float64 one; the MoE phase holds each MLA block against its cached
+decode, a 2-layer model's forward against its decode, and the card's
+float32 forward against the CPU's float64 one. Phases print one JSON
+line each; the last line is ``{"ok": true, "device": {...}}``. Any
+failure raises and exits non-zero; without CUDA it exits non-zero at
+once.
 
 Run from the repository root:  python3 chip_smoke.py
 """
@@ -61,7 +69,8 @@ from torch.profiler import ProfilerActivity, profile
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-from repro_torch.core import coding, compaction, layer, network, neuron  # noqa: E402
+from repro_torch.core import coding, column, compaction, layer  # noqa: E402
+from repro_torch.core import network, neuron, stdp  # noqa: E402
 from repro_torch.core import sorting_networks, topk_prune  # noqa: E402
 from repro_torch.configs import registry as lm_registry  # noqa: E402
 from repro_torch.data import tokenizer  # noqa: E402
@@ -73,6 +82,8 @@ from repro_torch.kernels import unary_topk as ut  # noqa: E402
 from repro_torch.models import transformer as lm  # noqa: E402
 from repro_torch.serve import tnn_engine  # noqa: E402
 from repro_torch.serve.engine import Engine, ServeConfig  # noqa: E402
+
+from examples import tnn_clustering_torch as clustering  # noqa: E402
 
 #: H100 SXM device-memory rate, bytes/s (NVIDIA data sheet).
 HBM_BYTES_PER_S = 3.35e12
@@ -93,6 +104,15 @@ F32_SPLIT_FLOPS_PER_S = 495e12 / 3
 #: L2 24 columns x rf 16 x 8 neurons, threshold 8; T = 32, catwalk, k = 3.
 N_FEATURES, N_FIELDS, T_STEPS, K = 32, 16, 32, 3
 N_SLOTS, N_CLIENTS = 64, 256
+
+#: learning while serving: benchmarks/bench_serve_learn.py's full-size
+#: workload on that network — 64 clients, each burst tiled to 8 cycles, 4
+#: slots: 128 engine steps, all slots full
+LEARN_CLIENTS, LEARN_CYCLES, LEARN_SLOTS = 64, 8, 4
+#: one-step weight tolerance, card against the CPU
+STDP_ATOL = 2e-6
+#: the clustering example's stream (examples/tnn_clustering_torch.py)
+CLUSTER_VOLLEYS = 600
 
 #: the LM path: the repository's only attention-free model
 #: (configs/mamba2_780m.py) at full width and depth, bf16; prefill of B
@@ -487,6 +507,250 @@ def gate_level_paths(dev, streams, ff, p_ff) -> List[Path]:
                  plane_check, launches=len(planes))]
 
 
+def learn_population(streams, n_clients: int, n_cycles: int):
+    """bench_serve_learn's fixed-length population: the first ``n_clients``
+    client bursts (cyclically), each tiled to ``n_cycles`` volleys, so
+    every engine variant steps the same batch sequence."""
+    pop = []
+    for i in range(n_clients):
+        s = streams[i % len(streams)]
+        pop.append(np.tile(s, (-(-n_cycles // s.shape[0]), 1))[:n_cycles])
+    return pop
+
+
+def weight_agreement(want, got) -> Dict[str, Any]:
+    """How far two weight tuples are apart: the largest float difference
+    and the count of rounded weights that differ."""
+    diff = max(float((a.cpu() - b.cpu()).abs().max()) for a, b in
+               zip(want, got))
+    flips = sum(int((torch.round(a.cpu()) != torch.round(b.cpu())).sum())
+                for a, b in zip(want, got))
+    return dict(max_abs_diff=diff, rounded_differ=flips)
+
+
+def check_one_step(dev, net, params, batch) -> Dict[str, Any]:
+    """One ``network.step`` from ``params`` on ``batch``, the card against
+    the port's CPU closed form: outputs and winners bit-exact, float
+    weights within ``STDP_ATOL``, rounded weights equal; raises
+    otherwise."""
+    cpu_net = network.make_network([
+        dataclasses.replace(lc, backend="closed_form") for lc in net.layers])
+    got = network.step(params, batch.to(dev), net)
+    want = network.step(tuple(p.cpu() for p in params), batch.cpu(), cpu_net)
+    agree = weight_agreement(want.params, got.params)
+    if not torch.equal(got.out.cpu(), want.out) or not all(
+            torch.equal(a.cpu(), b) for a, b in zip(got.winners,
+                                                    want.winners)):
+        raise AssertionError(f"network.step at B={batch.shape[0]}: outputs "
+                             f"or winners differ from the CPU closed form")
+    if agree["max_abs_diff"] > STDP_ATOL or agree["rounded_differ"]:
+        raise AssertionError(f"network.step at B={batch.shape[0]}: weights "
+                             f"{agree} against the CPU closed form")
+    return dict(batch=int(batch.shape[0]), **agree)
+
+
+def learn_paths(dev, streams, ff, p_ff) -> List[Path]:
+    """Learning while serving at the served network's full width:
+    bench_serve_learn's workload (64 clients x 8 cycles through 4 slots,
+    128 steps) through ``TNNEngine`` on ``auto`` (→ ``fused``) with
+    learning off, STDP every step, every 4th step, every step with the
+    stochastic rule (``stdp_seed=0``), and every step on ``fused_compact``;
+    then the serve path's size (64 slots, the 256 clients, every step), so
+    that the STDP reduction runs at B = 64. Held: a learning engine's first
+    step equals learning off; each engine's outputs and final weights equal
+    a manual ``network.step`` loop over the same batches on the card (the
+    compact engine: the ``fused`` engine's); one ``network.step`` equals
+    the CPU closed form (weights within ``STDP_ATOL``); the seeded run
+    gives the same weights each time; the STDP update counts. Reported,
+    not held: the whole run's weights and outputs against the same run on
+    the CPU (a B-way float32 sum on the card may round differently)."""
+    pop = learn_population(streams, LEARN_CLIENTS, LEARN_CYCLES)
+    cpu_net = network.make_network([
+        dataclasses.replace(lc, backend="closed_form") for lc in ff.layers])
+    last: Dict[str, Any] = {}
+    seeded: List[Tuple[torch.Tensor, ...]] = []
+
+    def engine(n_slots, backend, dev_, params, net, **kw):
+        return tnn_engine.TNNEngine(
+            params, net, tnn_engine.TNNServeConfig(
+                n_slots=n_slots, backend=backend, **kw), device=dev_)
+
+    def replay(every, seed):
+        """The engine's step sequence by hand: groups of LEARN_SLOTS
+        clients fill the slots in order and retire together."""
+        p, outs, step_id = p_ff, [[] for _ in pop], 0
+        for g in range(0, len(pop), LEARN_SLOTS):
+            for c in range(LEARN_CYCLES):
+                x = torch.from_numpy(np.stack(
+                    [s[c] for s in pop[g:g + LEARN_SLOTS]])).to(dev)
+                if step_id % every == 0:
+                    key = (None if seed is None else
+                           torch.Generator(device=dev).manual_seed(
+                               tnn_engine.stdp_step_seed(seed, step_id)))
+                    res = network.step(p, x, ff, key=key)
+                    p = res.params
+                else:
+                    res = network.forward(p, x, ff)
+                out = res.out.cpu().numpy()
+                for i in range(LEARN_SLOTS):
+                    outs[g + i].append(out[i])
+                step_id += 1
+        return [np.stack(o) for o in outs], p
+
+    def learn_path(name, population, n_slots, backend="auto", every=None,
+                   seed=None):
+        learn = every is not None
+        kw = dict(learn=True, stdp_every=every, stdp_seed=seed) \
+            if learn else {}
+        want_engine = "fused" if backend == "auto" else backend
+        kernel = ("rnl_fire_times_compact" if backend == "fused_compact"
+                  else "rnl_fire_times_layer")
+
+        def run():
+            eng = engine(n_slots, backend, dev, p_ff, ff, **kw)
+            results = eng.serve(population)
+            last[name] = (results, eng.params)
+            if seed is not None:
+                seeded.append(eng.params)
+            return (results, eng.params), eng.stats()
+
+        def check(outputs, st):
+            results, params = outputs
+            engines = {k[6:]: int(v) for k, v in st.items()
+                       if k.startswith("steps_")
+                       and not k.startswith("steps_predicted_")}
+            steps = int(st["n_steps"])
+            if engines != {want_engine: steps}:
+                raise AssertionError(f"{name}: engines {engines}, expected "
+                                     f"every step on {want_engine}")
+            full = LEARN_CLIENTS * LEARN_CYCLES // LEARN_SLOTS
+            if n_slots == LEARN_SLOTS and steps != full:
+                raise AssertionError(f"{name}: {steps} steps, expected "
+                                     f"{full}")
+            # step_id 0, every, 2 * every, ... learn
+            updates = 0 if not learn else -(-steps // every)
+            if int(st["n_stdp_updates"]) != updates:
+                raise AssertionError(f"{name}: {st['n_stdp_updates']} STDP "
+                                     f"updates, expected {updates}")
+            for i, (got, s) in enumerate(zip(results, population)):
+                if got.shape != (s.shape[0], 24, 8) or got.dtype != np.int32:
+                    raise AssertionError(f"{name}: request {i} has shape "
+                                         f"{got.shape}")
+            fields = dict(requests=len(population),
+                          volleys=int(st["n_volleys"]), steps=steps,
+                          n_slots=n_slots, stdp_updates=updates,
+                          volleys_per_s=st.get("volleys_per_s"),
+                          latency_ms_p50=st.get("latency_ms_p50"),
+                          run_s=st["run_s"], engine_steps=engines)
+            if not learn:
+                refs = [tnn_engine.reference_outputs(
+                    tuple(p.cpu() for p in p_ff), cpu_net, s)
+                    for s in population]
+                if not all(np.array_equal(a, b)
+                           for a, b in zip(results, refs)):
+                    raise AssertionError(f"{name}: a request differs from "
+                                         f"the CPU closed-form reference")
+                return dict(fields, bit_exact=True)
+            for key in ("weight_drift_l0", "weight_drift_l1"):
+                fields[key] = st[key]
+            if n_slots == LEARN_SLOTS:
+                off = last["learn_off"][0]
+                first = [r[0] for r in results[:n_slots]]
+                if not all(np.array_equal(a, b[0])
+                           for a, b in zip(first, off)):
+                    raise AssertionError(f"{name}: first step's outputs "
+                                         f"differ from learning off")
+                if backend == "fused_compact":
+                    want_out, want_p = last["learn_every1"]
+                else:
+                    want_out, want_p = replay(every, seed)
+                if not all(np.array_equal(a, b)
+                           for a, b in zip(results, want_out)) or not all(
+                        torch.equal(a, b) for a, b in zip(params, want_p)):
+                    raise AssertionError(
+                        f"{name}: outputs or weights differ from a manual "
+                        f"network.step loop on the card")
+                fields["replay_bit_exact"] = True
+            if seed is not None:
+                if len(seeded) < 2 or not all(
+                        torch.equal(a, b) for a, b in zip(seeded[-1],
+                                                          seeded[-2])):
+                    raise AssertionError(f"{name}: two seeded runs learned "
+                                         f"different weights")
+                fields["seeded_runs_equal"] = len(seeded)
+            if name in ("learn_every1", "learn_every1_64"):
+                first_batch = torch.from_numpy(np.stack(
+                    [s[0] for s in population[:n_slots]]))
+                fields["one_step_vs_cpu"] = check_one_step(dev, ff, p_ff,
+                                                           first_batch)
+            if backend == "auto" and seed is None:
+                cpu = engine(n_slots, "closed_form", "cpu",
+                             tuple(p.cpu() for p in p_ff), cpu_net, **kw)
+                cpu_results = cpu.serve(population)
+                fields["whole_run_vs_cpu"] = dict(
+                    weight_agreement(cpu.params, params),
+                    outputs_differ=sum(
+                        int((a != b).any(axis=(1, 2)).sum())
+                        for a, b in zip(results, cpu_results)),
+                    outputs=sum(r.shape[0] for r in results))
+            return fields
+
+        launches = (lambda st: 2 * int(st["n_steps"]))
+        return Path(name, kernel, run, check, launches=launches)
+
+    return [learn_path("learn_off", pop, LEARN_SLOTS),
+            learn_path("learn_every1", pop, LEARN_SLOTS, every=1),
+            learn_path("learn_every4", pop, LEARN_SLOTS, every=4),
+            learn_path("learn_seeded", pop, LEARN_SLOTS, every=1, seed=0),
+            learn_path("learn_every1_compact", pop, LEARN_SLOTS,
+                       backend="fused_compact", every=1),
+            learn_path("learn_every1_64", streams, N_SLOTS, every=1)]
+
+
+def column_paths(dev) -> List[Path]:
+    """The clustering example's stream (600 volleys over 16 lines, 3
+    classes, from its numpy seed) through ``column.train_column`` with 3
+    neurons, Catwalk (threshold 12, k = 2) and compact PC (threshold 18):
+    one single-bank kernel launch a volley. Held: final weights and winners
+    bit-exact against the same training on the CPU (B = 1: no reduction).
+    Reported: purity by thirds of the stream."""
+    volleys, labels = clustering.make_stream(np.random.default_rng(42),
+                                             CLUSTER_VOLLEYS)
+    x = torch.from_numpy(volleys)
+
+    def column_path(dendrite, thr, k):
+        cfg = column.ColumnConfig(n_inputs=16, n_neurons=3, threshold=thr,
+                                  t_steps=16, dendrite=dendrite, k=k,
+                                  stdp=clustering.stdp_config())
+        w0 = column.init_column(torch.Generator().manual_seed(0), cfg, dev)
+        x_dev = x.to(dev)
+
+        def run():
+            return column.train_column(w0, x_dev, cfg), None
+
+        def check(outputs, _):
+            w, winners = outputs
+            want_w, want_win = column.train_column(
+                w0.cpu(), x, dataclasses.replace(cfg, backend="closed_form"))
+            if winners.dtype != torch.int32 \
+                    or not torch.equal(winners.cpu(), want_win) \
+                    or not torch.equal(w.cpu(), want_w):
+                raise AssertionError(f"train_column_{dendrite}: weights or "
+                                     f"winners differ from the CPU run")
+            m = CLUSTER_VOLLEYS
+            thirds = [float(column.cluster_purity(
+                want_win[lo:hi], torch.from_numpy(labels[lo:hi]), 3, 3))
+                for lo, hi in ((0, m // 3), (m // 3, 2 * m // 3),
+                               (2 * m // 3, m))]
+            return dict(volleys=m, neurons=3, purity_by_thirds=thirds,
+                        bit_exact=True)
+
+        return Path(f"train_column_{dendrite}", "rnl_fire_times", run, check,
+                    launches=CLUSTER_VOLLEYS)
+
+    return [column_path(*d) for d in clustering.DENDRITES]
+
+
 def lm_prompts() -> List[np.ndarray]:
     """N_PROMPTS prompts of 16-128 tokens from ``tokenizer.encode`` (BOS
     plus 15-127 bytes of lowercase text)."""
@@ -826,9 +1090,11 @@ WRAPPER = {"layer": "rnl_fire_times_layer", "bank": "rnl_fire_times",
            "compact": "rnl_fire_times_compact"}
 
 
-def check_and_time(variant, label, x, w, kw, **extra) -> Dict[str, Any]:
+def check_and_time(variant, label, x, w, kw, timed=True,
+                   **extra) -> Dict[str, Any]:
     """One launch variant against its plain version on the same inputs on
-    the card (bit-exact, or raise), then its times and bound."""
+    the card (bit-exact, or raise), then, when ``timed``, its times and
+    bound."""
     name = WRAPPER[variant.split("+")[0]]
     fn, plain = getattr(rn, name), getattr(rn, name + "_plain")
     got = fn(x, w, **kw)
@@ -842,6 +1108,12 @@ def check_and_time(variant, label, x, w, kw, **extra) -> Dict[str, Any]:
                        for g, r in zip(got_t, want_t)):
         raise AssertionError(f"{variant}/{label}: kernel disagrees with its "
                              f"plain version (max |err| {err})")
+    if not timed:
+        row = dict(variant=variant, shape=label, **extra,
+                   times=list(x.shape), weights=list(w.shape),
+                   max_abs_err=err, timed=False)
+        emit("kernels", **row)
+        return row
     call_ms = time_ms(lambda: fn(x, w, **kw))
     ms, per_call = kernel_ms(lambda: fn(x, w, **kw))
     plain_ms = time_ms(lambda: plain(x, w, **kw), reps=5, warmup=1)
@@ -1276,7 +1548,8 @@ def phase_kernels(dev, captured, floor_ms) -> Dict[str, Dict[str, Any]]:
     first call)."""
     main_rows: Dict[str, Dict[str, Any]] = {}
     ssd_call = None
-    for path, cases in captured.items():
+    timed_calls = set()     # an RNL call of an earlier path's shape and
+    for path, cases in captured.items():     # options is checked, not timed
         for i, case in enumerate(cases):
             if case["wrapper"] == "ssd_scan":
                 for k, ops in enumerate(case["operands"]):
@@ -1309,15 +1582,20 @@ def phase_kernels(dev, captured, floor_ms) -> Dict[str, Dict[str, Any]]:
                 continue
             variant = VARIANT[case["wrapper"]]
             x, w, kw = case["times"], case["weights"], case["kw"]
-            row = check_and_time(variant, f"{path}#{i}", x, w, kw,
+            call = (variant, tuple(x.shape), tuple(w.shape),
+                    tuple(sorted(kw.items())))
+            timed = call not in timed_calls
+            timed_calls.add(call)
+            row = check_and_time(variant, f"{path}#{i}", x, w, kw, timed,
                                  path=path, calls=case["calls"])
             best = main_rows.get(case["wrapper"])
-            if best is None or (best["path"] == path
-                                and row["calls"] > best["calls"]):
+            if timed and (best is None or (best["path"] == path
+                                           and row["calls"]
+                                           > best["calls"])):
                 main_rows[case["wrapper"]] = row
             if variant in ("layer", "bank"):
                 check_and_time(variant + "+clip", f"{path}#{i}", x, w,
-                               {**kw, "with_clip": True}, path=path)
+                               {**kw, "with_clip": True}, timed, path=path)
     for variant, label, x, w, kw in synthetic_cases(dev):
         check_and_time(variant, label, x, w, kw)
     for label, bits, net, timed in synthetic_topk_cases(dev):
@@ -1373,6 +1651,47 @@ def phase_serve(paths, captured) -> Dict[str, Dict[str, int]]:
     return launches
 
 
+#: round-robin rounds of the learning-cost phase
+LEARN_ROUNDS = 5
+
+
+def phase_learn_ratio(dev, streams, ff, p_ff) -> None:
+    """Learning's cost end to end, as benchmarks/bench_serve_learn.py
+    measures it (that benchmark gates the every1/off ratio at 2x on a
+    CPU; here it is reported, not held): the learning workload drained by
+    engines with learning off, every step and every 4th step, warm, in
+    ``LEARN_ROUNDS`` round-robin rounds so that the host's drift lands on
+    every variant. Per variant the median volleys/s and latency p50 (host
+    clock; each step ends in a device-to-host copy); per learning variant
+    the median of its per-round time ratios to learning off."""
+    pop = learn_population(streams, LEARN_CLIENTS, LEARN_CYCLES)
+    variants = {"off": {}, "every1": dict(learn=True, stdp_every=1),
+                "every4": dict(learn=True, stdp_every=4)}
+    engines = {}
+    for name, kw in variants.items():
+        eng = tnn_engine.TNNEngine(p_ff, ff, tnn_engine.TNNServeConfig(
+            n_slots=LEARN_SLOTS, **kw), device=dev)
+        eng.serve(pop)                       # warm the path
+        engines[name] = eng
+    runs: Dict[str, List[Dict[str, float]]] = {name: [] for name in variants}
+    for _ in range(LEARN_ROUNDS):
+        for name, eng in engines.items():
+            eng.reset_stats()
+            eng.serve(pop)
+            runs[name].append(eng.stats())
+    fields = {}
+    for name, sts in runs.items():
+        fields[name] = dict(
+            volleys_per_s=statistics.median(s["volleys_per_s"] for s in sts),
+            latency_ms_p50=statistics.median(s["latency_ms_p50"]
+                                             for s in sts))
+        if name != "off":
+            fields[name]["time_over_off"] = statistics.median(
+                s["run_s"] / o["run_s"] for s, o in zip(sts, runs["off"]))
+    emit("serve", run="learn_cost", rounds=LEARN_ROUNDS, n_slots=LEARN_SLOTS,
+         volleys=sum(s.shape[0] for s in pop), **fields)
+
+
 def device_events(prof):
     """The profile's CUDA activity (kernels and copies), one entry a name."""
     return [e for e in prof.key_averages()
@@ -1402,7 +1721,12 @@ PROFILE_MIN_MS = 20.0
 PROFILE_MARKERS = 32
 
 
-def phase_profile_path(path):
+def kernel_count(event) -> int:
+    """Kernels launched under a profiled CPU op, its children's included."""
+    return len(event.kernels) + sum(map(kernel_count, event.cpu_children))
+
+
+def phase_profile_path(path, span: Optional[str] = None):
     """Where one main-path run's time goes: ``path.run()`` (already warm)
     under the profiler, repeated back to back until the runs span
     ``PROFILE_MIN_MS``, between ``PROFILE_MARKERS`` marker kernels on each
@@ -1411,7 +1735,9 @@ def phase_profile_path(path):
     times). The profile is ``recorded`` only when markers survived on both
     sides and every op of the path has a whole multiple of the runs;
     otherwise the line carries no busy time or idle share. The profiler's
-    host cost makes the idle share an upper estimate."""
+    host cost makes the idle share an upper estimate. ``span`` names a
+    ``record_function`` range inside the run: the line then also carries
+    the device time of the kernels launched under it and their top ops."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     path.run()
@@ -1433,26 +1759,46 @@ def phase_profile_path(path):
         torch.cuda.synchronize()
     starts = [(e.time_range.start, "spin_kernel" in e.name)
               for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.name != span]
     own = [t for t, marker in starts if not marker]
     seen = [sum(1 for t, marker in starts if marker and t < min(own)),
             sum(1 for t, marker in starts if marker and t > max(own))] \
         if own else [0, 0]
     lost = [PROFILE_MARKERS - n for n in seen]
-    ops = [e for e in device_events(prof) if "spin_kernel" not in e.key]
+    ops = [e for e in device_events(prof)
+           if "spin_kernel" not in e.key and e.key != span]
     if not ops or not all(seen) or any(e.count % runs for e in ops):
         emit("profile", run=path.name, runs=runs, recorded=False,
              markers_lost=lost, wall_ms=wall_ms, device_busy_ms=None,
              idle_share=None, device_ops_recorded=len(own), top=[])
         return
     share = device_share(ops, wall_ms * runs)
+    spans = {}
+    if span is not None:
+        # the range's device time, by the op in it that launched each kernel
+        by_op: Dict[str, List[float]] = {}
+        for e in prof.events():
+            if e.name == span and e.device_type != \
+                    torch.autograd.DeviceType.CUDA:
+                for op in e.cpu_children:
+                    if kernel_count(op):
+                        acc = by_op.setdefault(op.name, [0, 0.0])
+                        acc[0] += kernel_count(op)
+                        acc[1] += op.device_time_total / 1e3
+        top = sorted(by_op.items(), key=lambda kv: -kv[1][1])
+        spans[span] = dict(
+            device_ms=sum(v[1] for v in by_op.values()) / runs,
+            device_ops=sum(v[0] for v in by_op.values()) / runs,
+            top=[dict(op=name, count=n / runs, ms=ms / runs)
+                 for name, (n, ms) in top])
     emit("profile", run=path.name, runs=runs, recorded=True,
          markers_lost=lost, wall_ms=wall_ms,
          device_busy_ms=share["device_busy_ms"] / runs,
          idle_share=share["idle_share"],
          device_ops=share["device_ops"] // runs,
          top=[dict(op, count=op["count"] // runs, ms=op["ms"] / runs)
-              for op in share["top"]])
+              for op in share["top"]], spans=spans)
 
 
 def phase_profile(dev, streams, ff, p_ff):
@@ -1478,6 +1824,40 @@ def phase_profile(dev, streams, ff, p_ff):
         wall_ms = 1e3 * (time.perf_counter() - t0)
     emit("profile", run="auto", steps=steps,
          **device_share(device_events(prof), wall_ms))
+
+
+#: the profiler range around each STDP update in a learning step's profile
+STDP_SPAN = "stdp_update_column_minibatch"
+
+
+def phase_profile_learn(dev, streams, ff, p_ff):
+    """Where a learning step's time goes: one ``TNNEngine`` step with STDP
+    every step, at 4 slots (bench_serve_learn's workload) and at 64 (the
+    serve path's), each run back to back under the profiler as
+    :func:`phase_profile_path` does, with every STDP update inside a
+    ``record_function`` range so that its kernels are named apart."""
+    real = stdp.stdp_update_column_minibatch
+
+    def spanned(*args, **kw):
+        with torch.profiler.record_function(STDP_SPAN):
+            return real(*args, **kw)
+
+    for n_slots in (LEARN_SLOTS, N_SLOTS):
+        # enough full steps for any profile: 64 at either size
+        pop = learn_population(streams, 8 * n_slots, LEARN_CYCLES)
+        eng = tnn_engine.TNNEngine(
+            p_ff, ff, tnn_engine.TNNServeConfig(n_slots=n_slots, learn=True),
+            device=dev)
+        eng.serve(pop[:n_slots])             # warm the path
+        for s in pop:
+            eng.submit(s)
+        path = Path(f"learn_step_{n_slots}", "rnl_fire_times_layer",
+                    eng.step, lambda *_: {})
+        stdp.stdp_update_column_minibatch = spanned
+        try:
+            phase_profile_path(path, span=STDP_SPAN)
+        finally:
+            stdp.stdp_update_column_minibatch = real
 
 
 def phase_lm_prefill(cfg, params, tokens, name="lm_prefill_time"):
@@ -1796,7 +2176,8 @@ def main() -> int:
     moe_tokens = torch.from_numpy(np.random.default_rng(10).integers(
         0, moe_cfg.vocab_size, (MOE_PREFILL_B, MOE_PREFILL_S))).to(dev)
     moe_requests = moe_prompts(moe_cfg.vocab_size)
-    paths = main_paths(dev, streams, ff, p_ff) + lm_paths(
+    paths = main_paths(dev, streams, ff, p_ff) + learn_paths(
+        dev, streams, ff, p_ff) + column_paths(dev) + lm_paths(
         dev, lm_cfg, lm_params, lm_tokens, prompts) + moe_paths(
         dev, moe_cfg, moe_params, moe_tokens, moe_requests)
     # capture pass (also the warm-up): each path's calls and operands
@@ -1808,7 +2189,9 @@ def main() -> int:
          "element", ms=floor_ms, ms_source="profiler")
     main_rows = phase_kernels(dev, captured, floor_ms)
     launches = phase_serve(paths, captured)
+    phase_learn_ratio(dev, streams, ff, p_ff)
     phase_profile(dev, streams, ff, p_ff)
+    phase_profile_learn(dev, streams, ff, p_ff)
     for path in paths:
         if path.name.startswith("gate_level") \
                 or path.name in ("lm_prefill", "moe_prefill"):

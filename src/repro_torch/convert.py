@@ -32,6 +32,18 @@ def params_from_numpy(params: Sequence[np.ndarray],
     return tuple(out)
 
 
+def column_from_numpy(weights: np.ndarray,
+                      device: Union[str, torch.device, None] = None
+                      ) -> torch.Tensor:
+    """One column's ``(q, n)`` float32 weight array -> a float32 tensor on
+    ``device`` (``None`` = ``cuda``; raises when CUDA is absent)."""
+    arr = np.asarray(weights, dtype=np.float32)
+    if arr.ndim != 2:
+        raise ValueError(f"expected (q, n) column weights, got shape "
+                         f"{arr.shape}")
+    return torch.from_numpy(arr.copy()).to(resolve_device(device))
+
+
 #: LM leaves the reference keeps in float32 whatever the model dtype (norm
 #: scales, the SSD time-step bias and decay rate, the MoE router)
 F32_LEAVES = frozenset({"final_norm", "norm", "norm1", "norm2", "dt_bias",

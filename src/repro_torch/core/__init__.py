@@ -1,2 +1,3 @@
 """Core TNN library: coding, compaction, engine policy, neuron bank,
-layers and networks, as plain functions on torch tensors."""
+columns, layers and networks, STDP learning and the silicon cost model, as
+plain functions on torch tensors."""

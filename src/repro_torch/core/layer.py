@@ -12,14 +12,19 @@ A :class:`TNNLayer` is C independent columns side by side. Per gamma cycle:
   4. 1-WTA lateral inhibition per (volley, column): the earliest-firing
      neuron keeps its spike, ties going to the lowest index (the hardware
      priority encoder); losers are silenced.
+  5. Minibatch STDP (``stdp.stdp_update_column_minibatch``, all columns
+     at once) accumulates per-volley updates across the batch dimension;
+     at B=1 it is bit-identical to the online per-volley rule of
+     :func:`repro_torch.core.column.column_step`.
 
 Weights are (C, Q, rf_total) float tensors, rounded to int32 at use.
+Everything is functional: weights in, weights out.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple, Union
+from typing import Callable, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -93,6 +98,15 @@ class TNNLayer:
         return neuron.NeuronConfig(
             n_inputs=self.rf_total, threshold=self.threshold,
             t_steps=self.t_steps, dendrite=self.dendrite, k=self.k)
+
+    def column_config(self):
+        """Single-column view (for per-column tooling / equivalence tests)."""
+        from repro_torch.core import column
+        return column.ColumnConfig(
+            n_inputs=self.rf_total, n_neurons=self.n_neurons,
+            threshold=self.threshold, t_steps=self.t_steps,
+            dendrite=self.dendrite, k=self.k, w_max=self.w_max,
+            stdp=self.stdp, backend=self.backend)
 
 
 def init_layer(generator: torch.Generator, cfg: TNNLayer,
@@ -182,8 +196,18 @@ def layer_forward(weights: torch.Tensor, volleys: torch.Tensor,
         volleys = volleys[None, :]
         if carry is not None and carry.dim() == 1:
             carry = carry[None, :]
-    w_int = torch.round(weights).to(_I32)
     times_rf = _gather_rf(volleys.to(_I32), cfg, carry)      # (C, B, rft)
+    out, winners = _fire_and_inhibit(weights, times_rf, cfg)
+    if single:
+        return out[0], winners[0]
+    return out, winners
+
+
+def _fire_and_inhibit(weights: torch.Tensor, times_rf: torch.Tensor,
+                      cfg: TNNLayer) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The neuron bank and 1-WTA on gathered ``(C, B, rf_total)`` slices;
+    returns ``(out (B, C, Q), winners (B, C))``."""
+    w_int = torch.round(weights).to(_I32)
     fire = neuron.fire_times_bank(times_rf, w_int, cfg.neuron_config(),
                                   backend=cfg.backend,
                                   n_active_max=cfg.n_active_max,
@@ -196,7 +220,95 @@ def layer_forward(weights: torch.Tensor, volleys: torch.Tensor,
     any_fire = earliest[..., 0] < coding.NO_SPIKE
     winners = torch.where(any_fire, first, -1).to(_I32)
     out = torch.where(lane == winners[..., None], fire, coding.NO_SPIKE)
-    out = out.to(_I32)
-    if single:
-        return out[0], winners[0]
-    return out, winners
+    return out.to(_I32), winners
+
+
+# repro-lint: unplaced (single-device layer; multi-GPU columns come later)
+def layer_step(weights: torch.Tensor, volleys: torch.Tensor, cfg: TNNLayer,
+               key: Optional[torch.Generator] = None,
+               carry: Optional[torch.Tensor] = None, *,
+               draws: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Forward + minibatch STDP. Returns (new_weights, out_times, winners).
+
+    The forward runs at the pre-step weights; per-volley STDP deltas are
+    evaluated at those weights and accumulated across the batch
+    (``cfg.stdp_reduction``), every column at once, each learning only
+    from its own receptive-field slice and WTA outcome. For a recurrent
+    layer the STDP slice includes the carry lines, so the recurrent weight
+    columns learn under the same rule as the feedforward ones. A 1-D
+    volley is promoted to a batch of one (outputs keep that batch dim).
+
+    ``key`` (a ``torch.Generator`` on the weights' device) selects the
+    stochastic rule and draws its uniforms in one ``torch.rand`` of shape
+    ``(C, B, Q, rf_total)``; ``draws`` hands in that tensor instead;
+    neither selects the expectation rule.
+    """
+    if carry is not None and not cfg.recurrent:
+        raise ValueError("carry given for a non-recurrent layer")
+    if volleys.dim() == 1:
+        volleys = volleys[None, :]
+        if carry is not None and carry.dim() == 1:
+            carry = carry[None, :]
+    times_rf = _gather_rf(volleys.to(_I32), cfg, carry)      # (C, B, rft)
+    out_times, winners = _fire_and_inhibit(weights, times_rf, cfg)
+    new_w = stdp.stdp_update_column_minibatch(
+        weights, times_rf, out_times.transpose(0, 1),
+        winners.transpose(0, 1), cfg.stdp, key,
+        reduction=cfg.stdp_reduction, draws=draws)
+    return new_w, out_times, winners
+
+
+def scan_minibatches(step_fn: Callable, carry, volleys: torch.Tensor,
+                     batch_size: int, key: Optional[torch.Generator],
+                     draws: Optional[Sequence] = None):
+    """Stream-batching scaffold shared by train_layer / train_network.
+
+    Splits a (M, n) volley stream into M // batch_size sequential
+    minibatches (M must be divisible) and runs
+    ``step_fn(carry, batch, key, step_draws) -> (carry, ys)`` over them in
+    order; returns ``(carry, ys stacked over steps)`` (a tuple ``ys`` is
+    stacked entry by entry). A generator ``key`` is handed to every step,
+    which draws from it in turn; ``draws[i]`` are step i's uniforms.
+    """
+    m = volleys.shape[0]
+    if m % batch_size != 0:
+        raise ValueError(f"stream length {m} not divisible by "
+                         f"batch_size {batch_size}")
+    steps = m // batch_size
+    if draws is not None and len(draws) != steps:
+        raise ValueError(f"draws for {len(draws)} steps, stream of "
+                         f"{steps} minibatches")
+    batches = volleys.reshape(steps, batch_size, volleys.shape[-1])
+    ys = []
+    for i in range(steps):
+        carry, y = step_fn(carry, batches[i], key,
+                           None if draws is None else draws[i])
+        ys.append(y)
+    if ys and isinstance(ys[0], tuple):
+        return carry, tuple(torch.stack(col) for col in zip(*ys))
+    return carry, torch.stack(ys)
+
+
+# repro-lint: unplaced (single-device layer; multi-GPU columns come later)
+def train_layer(weights: torch.Tensor, volleys: torch.Tensor, cfg: TNNLayer,
+                batch_size: int = 1, key: Optional[torch.Generator] = None,
+                *, draws: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Train over a stream of volleys (M, n_inputs).
+
+    The stream is processed as M // batch_size sequential minibatches
+    (M must be divisible); batch_size=1 is the classic online rule.
+    ``draws`` ((M // batch_size, C, batch_size, Q, rf_total)) hands in the
+    stochastic rule's uniforms for the whole stream.
+
+    Returns (final_weights, winners (M, C)).
+    """
+
+    def step(w, batch, sk, sd):
+        new_w, _, winners = layer_step(w, batch, cfg, sk, draws=sd)
+        return new_w, winners
+
+    final_w, winners = scan_minibatches(step, weights, volleys, batch_size,
+                                        key, draws)
+    return final_w, winners.reshape(volleys.shape[0], cfg.n_columns)

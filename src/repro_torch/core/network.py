@@ -9,6 +9,10 @@ layer l+1's ``n_inputs`` (checked at construction). Weights are a tuple of
 A recurrent layer (``TNNLayer.recurrent``) also sees its own previous-cycle
 output volley, so :func:`forward` threads an explicit per-layer ``carry``
 (previous outputs in, this cycle's outputs out).
+
+:func:`step` is the learning cycle: the forward plus every layer's
+minibatch STDP, weights in and weights out; :func:`train_network` runs it
+over a stream.
 """
 
 from __future__ import annotations
@@ -273,3 +277,131 @@ def sparse_widths(cfg: TNNNetwork, first: int) -> Tuple[int, ...]:
         bound = 1 if rf <= 1 else min(rf, (rf - 2) // q + 2, prev.n_columns)
         widths.append(max(bound, 1) + (1 if cur.recurrent else 0))
     return tuple(widths)
+
+
+class StepResult(NamedTuple):
+    """Everything one *learning* gamma cycle produces (:func:`step`).
+
+    ``params``: per-layer post-STDP weights — the explicit weight state a
+    learning service threads from step to step. ``out`` / ``winners`` /
+    ``carry`` mirror :class:`ForwardResult`: they are computed at the
+    PRE-update weights (learning is applied after the cycle, like the
+    hardware's post-WTA STDP datapath), so ``out`` is bit-exact with
+    :func:`forward` at the same weights.
+    """
+
+    params: Tuple[torch.Tensor, ...]
+    out: torch.Tensor
+    winners: Tuple[torch.Tensor, ...]
+    carry: Tuple[Optional[torch.Tensor], ...]
+
+
+# repro-lint: unplaced (single-device stack; multi-GPU columns come later)
+def step(params: Sequence[torch.Tensor], volleys: torch.Tensor,
+         cfg: TNNNetwork, *, key: Optional[torch.Generator] = None,
+         carry: Optional[Sequence[Optional[torch.Tensor]]] = None,
+         draws: Optional[Sequence[torch.Tensor]] = None) -> StepResult:
+    """Forward + layer-local minibatch STDP — THE learning entry point.
+
+    One gamma cycle through the stack with every layer applying its own
+    STDP update (:func:`repro_torch.core.layer.layer_step`): layer l learns
+    from the volley it actually saw this cycle (the previous layer's
+    PRE-update output), so a single sweep advances the whole stack. ``carry``
+    threads recurrent state exactly like :func:`forward`; the returned
+    ``carry`` feeds the stream's next cycle.
+
+    The schedule is barriered: minibatch STDP reduces per-volley deltas
+    across the whole batch, so there are no micro-batches. All-``NO_SPIKE``
+    rows (a serving batch's free slots) contribute zero delta, so padding is
+    inert for learning too; with the default ``"mean"`` reduction the batch
+    size still sets the step scale.
+
+    ``key=None`` with no ``draws`` selects the deterministic expectation
+    rule; a ``torch.Generator`` the stochastic one, each layer drawing from
+    it in turn; ``draws`` hands in each layer's ``(C, B, Q, rf_total)``
+    uniforms instead. Returns :class:`StepResult`; a 1-D single volley
+    drops the batch dim from every field except ``params``.
+    """
+    n_layers = len(cfg.layers)
+    if carry is None:
+        carry_in: Tuple[Optional[torch.Tensor], ...] = (None,) * n_layers
+    else:
+        if len(carry) != n_layers:
+            raise ValueError(f"carry has {len(carry)} entries for "
+                             f"{n_layers} layers")
+        carry_in = tuple(carry)
+    if draws is not None and len(draws) != n_layers:
+        raise ValueError(f"draws has {len(draws)} entries for {n_layers} "
+                         f"layers")
+    single = volleys.dim() == 1
+    x = (volleys[None, :] if single else volleys).to(torch.int32)
+    if single:
+        carry_in = tuple(c[None, :] if c is not None and c.dim() == 1 else c
+                         for c in carry_in)
+    layer_draws = draws if draws is not None else (None,) * n_layers
+    new_params, winners_all, carry_out = [], [], []
+    out = None
+    for w, lc, c, d in zip(params, cfg.layers, carry_in, layer_draws):
+        new_w, out, winners = layer_mod.layer_step(w, x, lc, key, c,
+                                                   draws=d)
+        new_params.append(new_w)
+        winners_all.append(winners)
+        x = out.reshape(out.shape[0], lc.n_outputs)
+        carry_out.append(x if lc.recurrent else None)
+    res = StepResult(tuple(new_params), out, tuple(winners_all),
+                     tuple(carry_out))
+    if single:
+        res = StepResult(
+            params=res.params,
+            out=res.out[0],
+            winners=tuple(w[0] for w in res.winners),
+            carry=tuple(c if c is None else c[0] for c in res.carry))
+    return res
+
+
+# repro-lint: unplaced (single-device stack; multi-GPU columns come later)
+def network_step(params: Sequence[torch.Tensor], volleys: torch.Tensor,
+                 cfg: TNNNetwork, key: Optional[torch.Generator] = None, *,
+                 draws: Optional[Sequence[torch.Tensor]] = None
+                 ) -> Tuple[Tuple[torch.Tensor, ...], torch.Tensor,
+                            Tuple[torch.Tensor, ...]]:
+    """Feedforward wrapper over :func:`step` (no carry threading; a 1-D
+    volley keeps its promoted batch dim).
+    Returns (new_params, last_out_times, per_layer_winners).
+    """
+    x = volleys[None, :] if volleys.dim() == 1 else volleys
+    res = step(params, x, cfg, key=key, draws=draws)
+    return res.params, res.out, res.winners
+
+
+# repro-lint: unplaced (single-device stack; multi-GPU columns come later)
+def train_network(params: Sequence[torch.Tensor], volleys: torch.Tensor,
+                  cfg: TNNNetwork, batch_size: int = 1,
+                  key: Optional[torch.Generator] = None, *,
+                  draws: Optional[Sequence[torch.Tensor]] = None
+                  ) -> Tuple[Tuple[torch.Tensor, ...],
+                             Tuple[torch.Tensor, ...]]:
+    """Greedy simultaneous training over a stream (M, n_inputs) of volleys.
+
+    ``draws`` hands in the stochastic rule's uniforms for the whole
+    stream, one tensor per layer shaped
+    ``(M // batch_size, C_l, batch_size, Q_l, rf_total_l)``.
+
+    Returns (final_params, per-layer winners (M, C_l)).
+    """
+    per_step = None
+    if draws is not None:
+        if len(draws) != len(cfg.layers):
+            raise ValueError(f"draws has {len(draws)} entries for "
+                             f"{len(cfg.layers)} layers")
+        per_step = [tuple(d[i] for d in draws)
+                    for i in range(draws[0].shape[0])]
+
+    def one(ps, batch, sk, sd):
+        new_ps, _, winners = network_step(ps, batch, cfg, sk, draws=sd)
+        return new_ps, winners
+
+    final, winners = layer_mod.scan_minibatches(one, tuple(params), volleys,
+                                                batch_size, key, per_step)
+    return final, tuple(w.reshape(volleys.shape[0], lc.n_columns)
+                        for w, lc in zip(winners, cfg.layers))

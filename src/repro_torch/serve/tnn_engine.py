@@ -24,6 +24,15 @@ engines run with per-layer compaction widths (``network.sparse_widths``).
 Every (engine, width) pair gets a network with its layers pinned to it,
 kept in a bounded LRU (``max_jit_variants``). All engines are bit-exact, so
 the choice never changes outputs.
+
+Learning while serving (``TNNServeConfig.learn``): on the steps the learn
+gate opens, the engine runs ``network.step`` in place of
+``network.forward`` — the same pinned network, outputs at the pre-update
+weights, then layer-local minibatch STDP over the whole slot batch — and
+its weight state advances. A persistent ``step_id`` drives the cadence
+(``stdp_every``) and seeds the stochastic rule's draws, and learning
+pauses (inference never does) while the pending queue or the previous
+step's wall clock is over its threshold.
 """
 
 from __future__ import annotations
@@ -66,6 +75,40 @@ class TNNServeConfig:
     max_jit_variants: int = 8
     #: admission control: cap on the pending queue (None = unbounded).
     max_pending: Optional[int] = None
+    # ----------------------------------------------- learning while serving
+    #: apply per-gamma-cycle layer-local STDP to the live slot batch: a
+    #: learning step runs ``network.step`` (forward + minibatch STDP over
+    #: the whole batch at the pre-step weights, recurrent carries threaded)
+    #: and the engine's weight state advances. Outputs are computed at the
+    #: pre-update weights, so a learning step's spike times are bit-exact
+    #: with the same step served learning-off.
+    learn: bool = False
+    #: learning cadence: STDP fires on steps where ``step_id % stdp_every
+    #: == 0``. Learning steps run the barriered schedule (minibatch STDP
+    #: reduces across the whole batch); the steps in between keep the
+    #: configured micro-batches.
+    stdp_every: int = 1
+    #: None selects the deterministic expectation rule (replayable); an int
+    #: seeds the stochastic rule, its generator re-seeded every step with
+    #: ``stdp_step_seed(stdp_seed, step_id)``.
+    stdp_seed: Optional[int] = None
+    #: pause learning while the pending queue holds at least this fraction
+    #: of ``max_pending`` (requires ``max_pending``); learning resumes the
+    #: step the pressure clears.
+    learn_pause_queue_frac: Optional[float] = None
+    #: pause learning while the previous step's wall clock exceeded this
+    #: many seconds.
+    learn_pause_step_s: Optional[float] = None
+
+
+def stdp_step_seed(seed: int, step_id: int) -> int:
+    """The stochastic STDP rule's generator seed for one engine step:
+    ``numpy.random.SeedSequence((seed mod 2**64, step_id))
+    .generate_state(1)[0]``, a 32-bit hash of the pair (the CPU generator
+    reads only 32 bits of its seed). A generator on one device seeded with
+    it redraws the same uniforms for the same pair."""
+    return int(np.random.SeedSequence(
+        (seed % 2**64, step_id)).generate_state(1)[0])
 
 
 #: a slot's persistent memory: per-layer recurrent carries, ``None`` entries
@@ -186,6 +229,65 @@ class TNNEngine:
         self._backend_steps: Dict[str, int] = {}
         self._predicted_steps: Dict[str, int] = {}
         self._predicted_us_sum: Dict[str, float] = {}
+        # ----------------------------------------- learning while serving
+        if scfg.stdp_every < 1:
+            raise ValueError(f"stdp_every must be >= 1, got "
+                             f"{scfg.stdp_every}")
+        if scfg.learn_pause_queue_frac is not None:
+            if scfg.max_pending is None:
+                raise ValueError("learn_pause_queue_frac measures "
+                                 "max_pending occupancy — set max_pending")
+            if scfg.learn_pause_queue_frac <= 0.0:
+                raise ValueError("learn_pause_queue_frac must be > 0")
+        #: persistent engine-step counter: unlike ``n_steps`` it survives
+        #: ``reset_stats``; the STDP cadence and the stochastic rule's
+        #: seeds key off it, so a replay from a step redraws identically.
+        self.step_id = 0
+        self.n_stdp_updates = 0
+        self.learning_paused = False
+        self.n_learn_pauses = 0
+        self._last_step_s = 0.0
+        self._stdp_gen: Optional[torch.Generator] = None
+        # the weights this instance came up with, on the host: the
+        # reference of the per-layer drift norms, read only in stats()
+        self._params_host0 = tuple(p.detach().cpu().numpy().copy()
+                                   for p in self.params)
+
+    def _stdp_key(self) -> Optional[torch.Generator]:
+        """This step's STDP generator: ``None`` (the expectation rule)
+        unless ``stdp_seed`` is set; then the engine's generator on its
+        device, seeded with :func:`stdp_step_seed` of ``(stdp_seed,
+        step_id)``, so a replay of a step redraws the same uniforms."""
+        if self.scfg.stdp_seed is None:
+            return None
+        if self._stdp_gen is None:
+            self._stdp_gen = torch.Generator(device=self.device)
+        return self._stdp_gen.manual_seed(
+            stdp_step_seed(self.scfg.stdp_seed, self.step_id))
+
+    def _learn_gate(self) -> bool:
+        """Should THIS step apply STDP? Learning pauses (inference never
+        does) while the pending queue's occupancy or the previous step's
+        wall clock sits above its threshold, and resumes the step the
+        pressure clears; pause transitions are counted. Otherwise it learns
+        when ``step_id % stdp_every == 0``."""
+        scfg = self.scfg
+        if not scfg.learn:
+            return False
+        pressured = (
+            scfg.learn_pause_queue_frac is not None
+            and self.pool.pending_occupancy >= scfg.learn_pause_queue_frac
+        ) or (
+            scfg.learn_pause_step_s is not None
+            and self._last_step_s > scfg.learn_pause_step_s
+        )
+        if pressured:
+            if not self.learning_paused:
+                self.learning_paused = True
+                self.n_learn_pauses += 1
+            return False
+        self.learning_paused = False
+        return self.step_id % scfg.stdp_every == 0
 
     def _on_admit(self, idx: int, entry: slots.SlotEntry) -> None:
         """Pool lifecycle hook: initialise the slot's per-layer recurrent
@@ -342,9 +444,18 @@ class TNNEngine:
         dev = torch.from_numpy(packed).to(self.device)
         carry_in = tuple(None if cols is None else dev[:, cols[0]:cols[1]]
                          for cols in self._carry_cols)
-        result = network.forward(
-            self.params, dev[:, :n_in], self._net_for(engine, width),
-            microbatches=self.n_stages, carry=carry_in)
+        net = self._net_for(engine, width)
+        if self._learn_gate():
+            # outputs at the pre-update weights (bit-exact with the
+            # inference path); the new weights advance the engine's state
+            result = network.step(self.params, dev[:, :n_in], net,
+                                  key=self._stdp_key(), carry=carry_in)
+            self.params = result.params
+            self.n_stdp_updates += 1
+        else:
+            result = network.forward(self.params, dev[:, :n_in], net,
+                                     microbatches=self.n_stages,
+                                     carry=carry_in)
         # outputs and new carries side by side: one device-to-host copy
         flat_out = result.out.reshape(self.scfg.n_slots, -1)
         parts = [flat_out] + [c for c in result.carry if c is not None]
@@ -375,7 +486,11 @@ class TNNEngine:
                 retired.append(req)
         self.n_steps += 1
         self.n_volleys += len(live)
-        self._run_s += time.perf_counter() - t0
+        # the persistent counter advances after the step's retirements
+        self.step_id += 1
+        dt = time.perf_counter() - t0
+        self._last_step_s = dt
+        self._run_s += dt
         return retired
 
     def run(self) -> List[TNNRequest]:
@@ -421,6 +536,18 @@ class TNNEngine:
         # pinned-network cache: live entries + total drops
         out["jit_variants"] = float(len(self._net_alt))
         out["jit_evictions"] = float(self._evictions)
+        out["step_id"] = float(self.step_id)
+        out["n_stdp_updates"] = float(self.n_stdp_updates)
+        out["learning_paused"] = float(self.learning_paused)
+        out["n_learn_pauses"] = float(self.n_learn_pauses)
+        if self.scfg.learn:
+            # per-layer L2 drift against the weights this instance came up
+            # with: how far live traffic has moved each stack
+            for i, (p, p0) in enumerate(zip(self.params,
+                                            self._params_host0)):
+                out[f"weight_drift_l{i}"] = float(np.linalg.norm(
+                    p.detach().cpu().numpy().astype(np.float64)
+                    - p0.astype(np.float64)))
         out.update(slots.latency_summary(self._retired))
         return out
 
