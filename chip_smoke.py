@@ -14,7 +14,12 @@ through ``unary_topk_count``, the bit-plane kernel), learning while
 serving (``TNNEngine(learn=True)`` on benchmarks/bench_serve_learn.py's
 workload: learning off, STDP every step, every 4th step, seeded, on
 ``fused_compact``, and at 64 slots; each held against a manual
-``network.step`` loop on the card and one step against the CPU), the
+``network.step`` loop on the card and one step against the CPU),
+durability (``serve_resilient`` through an injected worker failure on the
+serve population and on the learning workload with and without the seeded
+rule, held against the uninterrupted paths and against a fresh engine
+built from the restored snapshot; ``TNNEngine(..., resume=True)`` on that
+snapshot; ``AsyncTNNEngine`` serving the 256 clients at once), the
 column trainer ``train_column`` on the clustering example's stream (one
 single-bank launch a volley, held bit-exact against the CPU),
 mamba2-780m inference at full width and depth with random weights (the
@@ -35,8 +40,9 @@ bounds, beside the launch floor (a one-element ``fill_``). The measured pass run
 path with the launch counts set to 0 just before it and read just after,
 and checks its outputs (TNN requests against the CPU reference, the
 gate-level paths against the ``fused`` engine and the CPU closed form,
-served MoE requests against each request served alone). The profile
-phase adds a learning step at 4 and 64 slots with its STDP ops named. The
+served MoE requests against each request served alone). The
+learning-cost phase also reports the overhead of async snapshots every 50
+steps. The profile phase adds a learning step at 4 and 64 slots with its STDP ops named. The
 LM phase then holds each layer's Mamba2 block (the kernel) against
 token-by-token decode (the recurrence), greedy generation against the
 forward's argmax, and the card's float32 forward against the CPU's
@@ -52,6 +58,7 @@ Run from the repository root:  python3 chip_smoke.py
 
 from __future__ import annotations
 
+import asyncio
 import dataclasses
 import json
 import math
@@ -59,6 +66,7 @@ import pathlib
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -82,6 +90,8 @@ from repro_torch.kernels import unary_topk as ut  # noqa: E402
 from repro_torch.models import transformer as lm  # noqa: E402
 from repro_torch.serve import tnn_engine  # noqa: E402
 from repro_torch.serve.engine import Engine, ServeConfig  # noqa: E402
+from repro_torch.train import checkpoint as ckpt  # noqa: E402
+from repro_torch.train import fault_tolerance  # noqa: E402
 
 from examples import tnn_clustering_torch as clustering  # noqa: E402
 
@@ -111,6 +121,14 @@ N_SLOTS, N_CLIENTS = 64, 256
 LEARN_CLIENTS, LEARN_CYCLES, LEARN_SLOTS = 64, 8, 4
 #: one-step weight tolerance, card against the CPU
 STDP_ATOL = 2e-6
+#: durability: the serve run snapshots every 4 steps (synchronous saves)
+#: and loses a worker at the first step_id >= 10, so it restores step 8;
+#: the learning runs snapshot every 50 steps off the serve thread
+#: (bench_serve_learn's cadence) and lose one at step_id 75 (restore 50);
+#: the resumed engine then serves this many more clients
+SERVE_SNAPSHOT_EVERY, SERVE_FAIL_AT = 4, 10
+LEARN_SNAPSHOT_EVERY, LEARN_FAIL_AT = 50, 75
+RESUME_CLIENTS = 8
 #: the clustering example's stream (examples/tnn_clustering_torch.py)
 CLUSTER_VOLLEYS = 600
 
@@ -323,6 +341,12 @@ def launch_counts() -> Dict[str, int]:
     return {**rn.LAUNCHES, **ut.LAUNCHES, **ss.LAUNCHES, **mg.LAUNCHES}
 
 
+def engine_steps(st) -> Dict[str, int]:
+    """Steps per neuron-bank engine, from a ``TNNEngine.stats()``."""
+    return {k[6:]: int(v) for k, v in st.items()
+            if k.startswith("steps_") and not k.startswith("steps_predicted_")}
+
+
 @dataclasses.dataclass
 class Path:
     """One path of the main path: ``run()`` drives it once through the
@@ -339,13 +363,14 @@ class Path:
     launches: Any = None
 
 
-def main_paths(dev, streams, ff, p_ff) -> List[Path]:
+def main_paths(dev, streams, ff, p_ff, served) -> List[Path]:
     """Three ``TNNEngine`` serve runs at full width — ``auto`` (resolves to
     ``fused`` on CUDA), ``fused_compact``, and L1 recurrent with 4 pipeline
     micro-batches — the single-bank entry point ``fire_times_bank`` at
     bench_sparsity's full size, and the two gate-level paths
     (:func:`gate_level_paths`). Outputs are held against the CPU
-    closed-form reference."""
+    closed-form reference; each serve run's outputs are kept in
+    ``served`` under its name for later paths to be held against."""
     rec = serve_network(recurrent=True)
     p_rec = network.init_network(torch.Generator().manual_seed(1), rec,
                                  device=dev)
@@ -368,12 +393,11 @@ def main_paths(dev, streams, ff, p_ff) -> List[Path]:
                 tnn_engine.TNNServeConfig(n_slots=N_SLOTS, backend=backend,
                                           pipeline_microbatches=micro),
                 device=dev)
-            return eng.serve(streams), eng.stats()
+            served[name] = eng.serve(streams)
+            return served[name], eng.stats()
 
         def check(results, st):
-            engines = {k[6:]: int(v) for k, v in st.items()
-                       if k.startswith("steps_")
-                       and not k.startswith("steps_predicted_")}
+            engines = engine_steps(st)
             want_engine = "fused" if backend == "auto" else backend
             if engines != {want_engine: int(st["n_steps"])}:
                 raise AssertionError(f"{name}: engines {engines}, expected "
@@ -549,7 +573,36 @@ def check_one_step(dev, net, params, batch) -> Dict[str, Any]:
     return dict(batch=int(batch.shape[0]), **agree)
 
 
-def learn_paths(dev, streams, ff, p_ff) -> List[Path]:
+def manual_learning_run(dev, pop, net, params, every, seed,
+                        n_steps: Optional[int] = None):
+    """A learning engine's step sequence on ``pop`` by hand (groups of
+    ``LEARN_SLOTS`` clients fill the slots in order and retire together),
+    through ``network.step`` on the steps the cadence learns and
+    ``network.forward`` on the others, for ``n_steps`` steps (all when
+    None). Returns each client's outputs and the final weights."""
+    p, outs, step_id = params, [[] for _ in pop], 0
+    for g in range(0, len(pop), LEARN_SLOTS):
+        for c in range(LEARN_CYCLES):
+            if step_id == n_steps:
+                return [np.stack(o) for o in outs if o], p
+            x = torch.from_numpy(np.stack(
+                [s[c] for s in pop[g:g + LEARN_SLOTS]])).to(dev)
+            if step_id % every == 0:
+                key = (None if seed is None else
+                       torch.Generator(device=dev).manual_seed(
+                           tnn_engine.stdp_step_seed(seed, step_id)))
+                res = network.step(p, x, net, key=key)
+                p = res.params
+            else:
+                res = network.forward(p, x, net)
+            out = res.out.cpu().numpy()
+            for i in range(LEARN_SLOTS):
+                outs[g + i].append(out[i])
+            step_id += 1
+    return [np.stack(o) for o in outs], p
+
+
+def learn_paths(dev, streams, ff, p_ff, served) -> List[Path]:
     """Learning while serving at the served network's full width:
     bench_serve_learn's workload (64 clients x 8 cycles through 4 slots,
     128 steps) through ``TNNEngine`` on ``auto`` (→ ``fused``) with
@@ -563,39 +616,19 @@ def learn_paths(dev, streams, ff, p_ff) -> List[Path]:
     the CPU closed form (weights within ``STDP_ATOL``); the seeded run
     gives the same weights each time; the STDP update counts. Reported,
     not held: the whole run's weights and outputs against the same run on
-    the CPU (a B-way float32 sum on the card may round differently)."""
+    the CPU (a B-way float32 sum on the card may round differently).
+    Each run's outputs and final weights are kept in ``served`` under its
+    name."""
     pop = learn_population(streams, LEARN_CLIENTS, LEARN_CYCLES)
     cpu_net = network.make_network([
         dataclasses.replace(lc, backend="closed_form") for lc in ff.layers])
-    last: Dict[str, Any] = {}
+    last = served
     seeded: List[Tuple[torch.Tensor, ...]] = []
 
     def engine(n_slots, backend, dev_, params, net, **kw):
         return tnn_engine.TNNEngine(
             params, net, tnn_engine.TNNServeConfig(
                 n_slots=n_slots, backend=backend, **kw), device=dev_)
-
-    def replay(every, seed):
-        """The engine's step sequence by hand: groups of LEARN_SLOTS
-        clients fill the slots in order and retire together."""
-        p, outs, step_id = p_ff, [[] for _ in pop], 0
-        for g in range(0, len(pop), LEARN_SLOTS):
-            for c in range(LEARN_CYCLES):
-                x = torch.from_numpy(np.stack(
-                    [s[c] for s in pop[g:g + LEARN_SLOTS]])).to(dev)
-                if step_id % every == 0:
-                    key = (None if seed is None else
-                           torch.Generator(device=dev).manual_seed(
-                               tnn_engine.stdp_step_seed(seed, step_id)))
-                    res = network.step(p, x, ff, key=key)
-                    p = res.params
-                else:
-                    res = network.forward(p, x, ff)
-                out = res.out.cpu().numpy()
-                for i in range(LEARN_SLOTS):
-                    outs[g + i].append(out[i])
-                step_id += 1
-        return [np.stack(o) for o in outs], p
 
     def learn_path(name, population, n_slots, backend="auto", every=None,
                    seed=None):
@@ -616,9 +649,7 @@ def learn_paths(dev, streams, ff, p_ff) -> List[Path]:
 
         def check(outputs, st):
             results, params = outputs
-            engines = {k[6:]: int(v) for k, v in st.items()
-                       if k.startswith("steps_")
-                       and not k.startswith("steps_predicted_")}
+            engines = engine_steps(st)
             steps = int(st["n_steps"])
             if engines != {want_engine: steps}:
                 raise AssertionError(f"{name}: engines {engines}, expected "
@@ -663,7 +694,8 @@ def learn_paths(dev, streams, ff, p_ff) -> List[Path]:
                 if backend == "fused_compact":
                     want_out, want_p = last["learn_every1"]
                 else:
-                    want_out, want_p = replay(every, seed)
+                    want_out, want_p = manual_learning_run(
+                        dev, pop, ff, p_ff, every, seed)
                 if not all(np.array_equal(a, b)
                            for a, b in zip(results, want_out)) or not all(
                         torch.equal(a, b) for a, b in zip(params, want_p)):
@@ -705,6 +737,270 @@ def learn_paths(dev, streams, ff, p_ff) -> List[Path]:
             learn_path("learn_every1_compact", pop, LEARN_SLOTS,
                        backend="fused_compact", every=1),
             learn_path("learn_every1_64", streams, N_SLOTS, every=1)]
+
+
+def one_shot_failure(at_step: int):
+    """A ``serve_resilient`` failure injector: one ``WorkerFailure`` at the
+    first step whose ``step_id`` is at least ``at_step``."""
+    fired: List[int] = []
+
+    def injector(step_id: int) -> None:
+        if step_id >= at_step and not fired:
+            fired.append(step_id)
+            raise fault_tolerance.WorkerFailure(1, "(injected)")
+
+    return injector
+
+
+def same_outputs(got, want) -> bool:
+    return len(got) == len(want) and all(
+        a is not None and np.array_equal(a, b) for a, b in zip(got, want))
+
+
+def same_weights(got, want) -> bool:
+    return all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def snapshot(directory, step, like):
+    """The snapshot at ``step`` under ``directory``, its weights on the
+    device of ``like``'s; raises when it is not on disk."""
+    return ckpt.restore_checkpoint(
+        directory, {"params": tuple(like), "counters": np.zeros(2, np.int32)},
+        step=step)
+
+
+def durability_paths(dev, streams, ff, p_ff, served, root) -> List[Path]:
+    """Durability at the served network's full width, every path on the
+    RNL layer kernel, two launches a step, replayed steps included.
+
+    - ``resilient_serve``: ``serve_resilient`` over a 64-slot ``auto``
+      engine and the 256 clients, snapshots every ``SERVE_SNAPSHOT_EVERY``
+      steps (synchronous), one ``WorkerFailure`` at the first step_id >=
+      ``SERVE_FAIL_AT``. Held: every output equals the ``auto`` path's;
+      the restore went to the latest snapshot before the failure; exactly
+      the streams an uninterrupted run retires after it were resubmitted;
+      one restore; the monitor was beaten.
+    - ``resilient_learn`` / ``resilient_learn_seeded``: the learning
+      workload (4 slots, STDP every step; the second with ``stdp_seed=0``)
+      with async snapshots every ``LEARN_SNAPSHOT_EVERY`` steps and a
+      failure at step_id ``LEARN_FAIL_AT``. Held: the streams committed by
+      the restored snapshot equal the ``learn_every1`` / ``learn_seeded``
+      path's; that snapshot equals a manual ``network.step`` loop's
+      weights after as many steps (the async save is step-consistent);
+      the final weights, update count and replayed outputs equal a fresh
+      engine's built from the snapshot that serves the resubmitted
+      streams.
+    - ``resume_learn``: ``TNNEngine(..., resume=True)`` on the last
+      ``resilient_learn`` directory, then ``RESUME_CLIENTS`` more clients.
+      Held: it resumed at the latest snapshot's step with its weights, on
+      the card, one restore; what it then served and learned equals a
+      fresh engine's built from that snapshot.
+    - ``async_serve``: ``AsyncTNNEngine`` over a 64-slot ``auto`` engine,
+      the 256 clients submitted at once through ``asyncio.gather``. Held:
+      every output equals the ``auto`` path's.
+
+    Each snapshot is read back from disk after ``checkpoint_wait()``, so an
+    error in the async writer fails the path."""
+    pop = learn_population(streams, LEARN_CLIENTS, LEARN_CYCLES)
+    dirs: Dict[str, str] = {}
+    launches = (lambda st: 2 * int(st["n_steps"]))
+
+    def engine(n_slots, resume=False, **kw):
+        return tnn_engine.TNNEngine(p_ff, ff, tnn_engine.TNNServeConfig(
+            n_slots=n_slots, **kw), device=dev, resume=resume)
+
+    def retirement_steps(population, n_slots):
+        """The step_id after which each stream retires in an uninterrupted
+        run: a snapshot at step s commits the streams retired at or before
+        s."""
+        eng = engine(n_slots)
+        reqs = [eng.submit(s) for s in population]
+        at: Dict[int, int] = {}
+        while eng.pool.has_work:
+            for req in eng.step():
+                at[req.req_id] = eng.step_id
+        return [at[r.req_id] for r in reqs]
+
+    def check_engine_steps(name, st):
+        engines = engine_steps(st)
+        if engines != {"fused": int(st["n_steps"])}:
+            raise AssertionError(f"{name}: engines {engines}, expected every "
+                                 f"step on fused")
+        return engines
+
+    def resilient_check(name, report, st, restored, retired_at, directory,
+                        every):
+        """The checks every resilient run shares; returns its fields."""
+        resub = [i for i, s in enumerate(retired_at) if s > restored]
+        if (report["restarts"] != 1 or report["failed_hosts"] != [1]
+                or report["restored_steps"] != [restored]
+                or report["resubmitted"] != [resub]):
+            raise AssertionError(f"{name}: report {report}, expected one "
+                                 f"restore to step {restored} resubmitting "
+                                 f"{len(resub)} streams")
+        if int(st["n_restores"]) != 1 or int(st["n_snapshots"]) < 1:
+            raise AssertionError(f"{name}: {st['n_restores']} restores, "
+                                 f"{st['n_snapshots']} snapshots")
+        last = int(st["step_id"]) // every * every
+        if ckpt.latest_step(directory) != last:
+            raise AssertionError(f"{name}: latest snapshot on disk "
+                                 f"{ckpt.latest_step(directory)}, expected "
+                                 f"{last}")
+        return dict(requests=len(retired_at), steps=int(st["n_steps"]),
+                    step_id=int(st["step_id"]),
+                    snapshots=int(st["n_snapshots"]),
+                    restored_step=restored, resubmitted=len(resub),
+                    engine_steps=check_engine_steps(name, st),
+                    run_s=st["run_s"])
+
+    def serve_run():
+        directory = tempfile.mkdtemp(dir=root)
+        eng = engine(N_SLOTS, checkpoint_dir=directory,
+                     checkpoint_every=SERVE_SNAPSHOT_EVERY,
+                     checkpoint_async=False)
+        mon = fault_tolerance.HeartbeatMonitor(1)
+        results, report = tnn_engine.serve_resilient(
+            eng, streams, failure_injector=one_shot_failure(SERVE_FAIL_AT),
+            monitor=mon)
+        return (results, report, mon, directory), eng.stats()
+
+    def serve_check(out, st):
+        results, report, mon, directory = out
+        restored = SERVE_FAIL_AT // SERVE_SNAPSHOT_EVERY * SERVE_SNAPSHOT_EVERY
+        fields = resilient_check("resilient_serve", report, st, restored,
+                                 retirement_steps(streams, N_SLOTS),
+                                 directory, SERVE_SNAPSHOT_EVERY)
+        if not same_outputs(results, served["auto"]):
+            raise AssertionError("resilient_serve: outputs differ from the "
+                                 "auto path's")
+        if not mon.hosts[0].step_times:
+            raise AssertionError("resilient_serve: the monitor was not "
+                                 "beaten")
+        return dict(fields, monitor_beats=len(mon.hosts[0].step_times),
+                    bit_exact=True)
+
+    def learn_path(name, base, seed):
+        kw = dict(learn=True, stdp_every=1, stdp_seed=seed)
+
+        def run():
+            directory = dirs[name] = tempfile.mkdtemp(dir=root)
+            eng = engine(LEARN_SLOTS, checkpoint_dir=directory,
+                         checkpoint_every=LEARN_SNAPSHOT_EVERY,
+                         checkpoint_async=True, **kw)
+            results, report = tnn_engine.serve_resilient(
+                eng, pop, failure_injector=one_shot_failure(LEARN_FAIL_AT))
+            return (results, report, eng.params, directory), eng.stats()
+
+        def check(out, st):
+            results, report, params, directory = out
+            restored = LEARN_FAIL_AT // LEARN_SNAPSHOT_EVERY \
+                * LEARN_SNAPSHOT_EVERY
+            retired_at = [(i // LEARN_SLOTS + 1) * LEARN_CYCLES
+                          for i in range(len(pop))]
+            fields = resilient_check(name, report, st, restored, retired_at,
+                                     directory, LEARN_SNAPSHOT_EVERY)
+            committed = [i for i, s in enumerate(retired_at)
+                         if s <= restored]
+            if not same_outputs([results[i] for i in committed],
+                                [served[base][0][i] for i in committed]):
+                raise AssertionError(f"{name}: a committed stream differs "
+                                     f"from the {base} path's")
+            snap = snapshot(directory, restored, p_ff)
+            _, want_p = manual_learning_run(dev, pop, ff, p_ff, 1, seed,
+                                            n_steps=restored)
+            counters = [int(c) for c in snap["counters"]]
+            if counters != [restored, restored] or not same_weights(
+                    snap["params"], want_p):
+                raise AssertionError(f"{name}: the step-{restored} snapshot "
+                                     f"(counters {counters}) differs from "
+                                     f"a manual network.step loop")
+            fresh = tnn_engine.TNNEngine(
+                snap["params"], ff, tnn_engine.TNNServeConfig(
+                    n_slots=LEARN_SLOTS, **kw), device=dev)
+            fresh.step_id, fresh.n_stdp_updates = counters
+            resub = report["resubmitted"][0]
+            replayed = fresh.serve([pop[i] for i in resub])
+            if not same_weights(params, fresh.params) \
+                    or int(st["n_stdp_updates"]) != fresh.n_stdp_updates \
+                    or not same_outputs([results[i] for i in resub],
+                                        replayed):
+                raise AssertionError(f"{name}: weights, updates or replayed "
+                                     f"outputs differ from a fresh engine "
+                                     f"built from the snapshot")
+            return dict(fields, committed=len(committed),
+                        stdp_updates=int(st["n_stdp_updates"]),
+                        snapshot_equals_manual_loop=True,
+                        replay_bit_exact=True)
+
+        return Path(name, "rnl_fire_times_layer", run, check,
+                    launches=launches)
+
+    def resume_run():
+        directory = dirs["resilient_learn"]
+        latest = ckpt.latest_step(directory)
+        eng = engine(LEARN_SLOTS, resume=True, learn=True,
+                     checkpoint_dir=directory,
+                     checkpoint_every=LEARN_SNAPSHOT_EVERY)
+        at = dict(latest=latest, step_id=eng.step_id,
+                  updates=eng.n_stdp_updates, restores=eng.n_restores,
+                  params=tuple(p.clone() for p in eng.params))
+        results = eng.serve(pop[:RESUME_CLIENTS])
+        eng.checkpoint_wait()
+        return (at, results, eng.params, directory), eng.stats()
+
+    def resume_check(out, st):
+        at, results, params, directory = out
+        snap = snapshot(directory, at["latest"], p_ff)
+        counters = [int(c) for c in snap["counters"]]
+        if (at["step_id"] != at["latest"] or at["restores"] != 1
+                or at["updates"] != counters[1]
+                or not same_weights(at["params"], snap["params"])
+                or any(p.device.type != "cuda" for p in at["params"])):
+            raise AssertionError(f"resume_learn: resumed at step "
+                                 f"{at['step_id']} with {at['restores']} "
+                                 f"restores, expected the snapshot at "
+                                 f"{at['latest']} on the card")
+        fresh = tnn_engine.TNNEngine(snap["params"], ff,
+                                     tnn_engine.TNNServeConfig(
+                                         n_slots=LEARN_SLOTS, learn=True),
+                                     device=dev)
+        fresh.step_id, fresh.n_stdp_updates = counters
+        if not same_outputs(results, fresh.serve(pop[:RESUME_CLIENTS])) \
+                or not same_weights(params, fresh.params):
+            raise AssertionError("resume_learn: outputs or weights differ "
+                                 "from a fresh engine built from the "
+                                 "snapshot")
+        return dict(resumed_step=at["step_id"], requests=RESUME_CLIENTS,
+                    steps=int(st["n_steps"]),
+                    engine_steps=check_engine_steps("resume_learn", st),
+                    weights_on="cuda", bit_exact=True)
+
+    def async_run():
+        eng = engine(N_SLOTS)
+        front = tnn_engine.AsyncTNNEngine(eng)
+
+        async def clients():
+            return await asyncio.gather(*[front.submit(s) for s in streams])
+
+        return asyncio.run(clients()), eng.stats()
+
+    def async_check(results, st):
+        if not same_outputs(results, served["auto"]):
+            raise AssertionError("async_serve: outputs differ from the auto "
+                                 "path's")
+        return dict(requests=len(streams), steps=int(st["n_steps"]),
+                    volleys_per_s=st.get("volleys_per_s"),
+                    engine_steps=check_engine_steps("async_serve", st),
+                    bit_exact=True)
+
+    return [Path("resilient_serve", "rnl_fire_times_layer", serve_run,
+                 serve_check, launches=launches),
+            learn_path("resilient_learn", "learn_every1", None),
+            learn_path("resilient_learn_seeded", "learn_seeded", 0),
+            Path("resume_learn", "rnl_fire_times_layer", resume_run,
+                 resume_check, launches=launches),
+            Path("async_serve", "rnl_fire_times_layer", async_run,
+                 async_check, launches=launches)]
 
 
 def column_paths(dev) -> List[Path]:
@@ -1652,32 +1948,79 @@ def phase_serve(paths, captured) -> Dict[str, Dict[str, int]]:
 
 
 #: round-robin rounds of the learning-cost phase
-LEARN_ROUNDS = 5
+LEARN_ROUNDS = 9
+#: the interpreter's thread switch interval, seconds, while ``snap50_switch``
+#: serves (the default is 0.005)
+SNAPSHOT_SWITCH_S = 0.0002
 
 
-def phase_learn_ratio(dev, streams, ff, p_ff) -> None:
+def phase_learn_ratio(dev, streams, ff, p_ff, root) -> None:
     """Learning's cost end to end, as benchmarks/bench_serve_learn.py
-    measures it (that benchmark gates the every1/off ratio at 2x on a
-    CPU; here it is reported, not held): the learning workload drained by
-    engines with learning off, every step and every 4th step, warm, in
-    ``LEARN_ROUNDS`` round-robin rounds so that the host's drift lands on
-    every variant. Per variant the median volleys/s and latency p50 (host
-    clock; each step ends in a device-to-host copy); per learning variant
-    the median of its per-round time ratios to learning off."""
+    measures it (that benchmark gates the every1/off ratio at 2x and
+    snapshots every 50 steps at < 10 % over learning alone, on a CPU;
+    here both are reported, not held): the learning workload drained by
+    engines with learning off, every step, every 4th step, and every step
+    with async snapshots every ``LEARN_SNAPSHOT_EVERY`` steps (``snap50``,
+    to a directory under ``root``), warm, in ``LEARN_ROUNDS`` round-robin
+    rounds so that the host's drift lands on every variant. Per variant
+    the median volleys/s and latency p50 (host clock; each step ends in a
+    device-to-host copy); per learning variant the median of its
+    per-round time ratios to learning off. ``snap50_sync`` writes the same
+    snapshots on the serve thread; ``snap50_switch`` is ``snap50`` served
+    with the interpreter's thread switch interval cut to
+    ``SNAPSHOT_SWITCH_S``, which bounds how long the serve thread can wait
+    for the interpreter lock while the writer thread holds it. Per
+    snapshot variant: ``overhead``, the
+    median per-round ratio to ``every1`` minus 1 (``snapshot_overhead``
+    for ``snap50``), each round's, and ``save_ms_mean``, the serve
+    thread's mean host time in one ``CheckpointManager.maybe_save`` that
+    saved (``snapshot_ms_mean`` for ``snap50``: the host copy and the
+    writer thread's start). Each round starts at another variant."""
     pop = learn_population(streams, LEARN_CLIENTS, LEARN_CYCLES)
+    snap = dict(learn=True, stdp_every=1,
+                checkpoint_every=LEARN_SNAPSHOT_EVERY)
     variants = {"off": {}, "every1": dict(learn=True, stdp_every=1),
-                "every4": dict(learn=True, stdp_every=4)}
+                "every4": dict(learn=True, stdp_every=4),
+                "snap50": dict(snap, checkpoint_async=True),
+                "snap50_sync": dict(snap, checkpoint_async=False),
+                "snap50_switch": dict(snap, checkpoint_async=True)}
     engines = {}
+    save_ms: Dict[str, List[float]] = {}
     for name, kw in variants.items():
+        if "checkpoint_every" in kw:
+            kw["checkpoint_dir"] = tempfile.mkdtemp(dir=root)
         eng = tnn_engine.TNNEngine(p_ff, ff, tnn_engine.TNNServeConfig(
             n_slots=LEARN_SLOTS, **kw), device=dev)
         eng.serve(pop)                       # warm the path
+        eng.checkpoint_wait()
         engines[name] = eng
+        if eng._ckpt is not None:
+            save_ms[name] = []
+
+            def timed_save(step, state, save=eng._ckpt.maybe_save,
+                           times=save_ms[name]):
+                t0 = time.perf_counter()
+                saved = save(step, state)
+                if saved:
+                    times.append(1e3 * (time.perf_counter() - t0))
+                return saved
+
+            eng._ckpt.maybe_save = timed_save
     runs: Dict[str, List[Dict[str, float]]] = {name: [] for name in variants}
-    for _ in range(LEARN_ROUNDS):
-        for name, eng in engines.items():
+    order = list(engines)
+    switch = sys.getswitchinterval()
+    for r in range(LEARN_ROUNDS):
+        # each round starts at another variant: no variant keeps a place
+        for name in order[r % len(order):] + order[:r % len(order)]:
+            eng = engines[name]
             eng.reset_stats()
-            eng.serve(pop)
+            if name == "snap50_switch":
+                sys.setswitchinterval(SNAPSHOT_SWITCH_S)
+            try:
+                eng.serve(pop)
+                eng.checkpoint_wait()
+            finally:
+                sys.setswitchinterval(switch)
             runs[name].append(eng.stats())
     fields = {}
     for name, sts in runs.items():
@@ -1688,8 +2031,27 @@ def phase_learn_ratio(dev, streams, ff, p_ff) -> None:
         if name != "off":
             fields[name]["time_over_off"] = statistics.median(
                 s["run_s"] / o["run_s"] for s, o in zip(sts, runs["off"]))
+        if name not in save_ms:
+            continue
+        eng = engines[name]
+        on_disk = ckpt.latest_step(variants[name]["checkpoint_dir"])
+        if on_disk != eng.step_id // LEARN_SNAPSHOT_EVERY \
+                * LEARN_SNAPSHOT_EVERY or not save_ms[name]:
+            raise AssertionError(f"learn_cost {name}: snapshot {on_disk} on "
+                                 f"disk after step {eng.step_id}, "
+                                 f"{len(save_ms[name])} saves timed")
+        ratios = [s["run_s"] / e["run_s"] - 1.0
+                  for s, e in zip(sts, runs["every1"])]
+        fields[name].update(
+            overhead=statistics.median(ratios), overhead_rounds=ratios,
+            snapshots=eng.n_snapshots,
+            save_ms_mean=statistics.mean(save_ms[name]),
+            save_ms_max=max(save_ms[name]))
     emit("serve", run="learn_cost", rounds=LEARN_ROUNDS, n_slots=LEARN_SLOTS,
-         volleys=sum(s.shape[0] for s in pop), **fields)
+         volleys=sum(s.shape[0] for s in pop), **fields,
+         snapshot_overhead=fields["snap50"]["overhead"],
+         snapshot_ms_mean=fields["snap50"]["save_ms_mean"],
+         snapshot_gate=0.10)
 
 
 def device_events(prof):
@@ -2140,7 +2502,16 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
+    # the durability paths' snapshots, inside the checkout's build tree
+    # (ignored by git) and removed at the end
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="snapshots-",
+                                     dir=ROOT / "build") as root:
+        return smoke(root)
 
+
+def smoke(root: str) -> int:
+    """Every phase on the card; snapshot directories go under ``root``."""
     dev = torch.device("cuda")
     # full float32 products for the float32 cross-checks
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2176,8 +2547,10 @@ def main() -> int:
     moe_tokens = torch.from_numpy(np.random.default_rng(10).integers(
         0, moe_cfg.vocab_size, (MOE_PREFILL_B, MOE_PREFILL_S))).to(dev)
     moe_requests = moe_prompts(moe_cfg.vocab_size)
-    paths = main_paths(dev, streams, ff, p_ff) + learn_paths(
-        dev, streams, ff, p_ff) + column_paths(dev) + lm_paths(
+    served: Dict[str, Any] = {}
+    paths = main_paths(dev, streams, ff, p_ff, served) + learn_paths(
+        dev, streams, ff, p_ff, served) + durability_paths(
+        dev, streams, ff, p_ff, served, root) + column_paths(dev) + lm_paths(
         dev, lm_cfg, lm_params, lm_tokens, prompts) + moe_paths(
         dev, moe_cfg, moe_params, moe_tokens, moe_requests)
     # capture pass (also the warm-up): each path's calls and operands
@@ -2189,7 +2562,7 @@ def main() -> int:
          "element", ms=floor_ms, ms_source="profiler")
     main_rows = phase_kernels(dev, captured, floor_ms)
     launches = phase_serve(paths, captured)
-    phase_learn_ratio(dev, streams, ff, p_ff)
+    phase_learn_ratio(dev, streams, ff, p_ff, root)
     phase_profile(dev, streams, ff, p_ff)
     phase_profile_learn(dev, streams, ff, p_ff)
     for path in paths:

@@ -1,11 +1,19 @@
-"""Slot-based serving: the generic slot pool, the TNN volley engine and
-the LM engine (ssm family, static lockstep decoding)."""
+"""Slot-based serving: the generic slot pool, the TNN volley engine (with
+snapshots, :class:`AsyncTNNEngine` and :func:`serve_resilient`) and the LM
+engine (ssm family, static lockstep decoding)."""
 
 from repro_torch.serve.engine import Engine, LMRequest, ServeConfig
 from repro_torch.serve.slots import QueueFull, SlotEntry, SlotPool, latency_summary
-from repro_torch.serve.tnn_engine import TNNEngine, TNNRequest, TNNServeConfig
+from repro_torch.serve.tnn_engine import (
+    AsyncTNNEngine,
+    TNNEngine,
+    TNNRequest,
+    TNNServeConfig,
+    serve_resilient,
+)
 
 __all__ = [
+    "AsyncTNNEngine",
     "Engine",
     "LMRequest",
     "QueueFull",
@@ -16,4 +24,5 @@ __all__ = [
     "TNNRequest",
     "TNNServeConfig",
     "latency_summary",
+    "serve_resilient",
 ]

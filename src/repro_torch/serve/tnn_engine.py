@@ -33,15 +33,30 @@ its weight state advances. A persistent ``step_id`` drives the cadence
 (``stdp_every``) and seeds the stochastic rule's draws, and learning
 pauses (inference never does) while the pending queue or the previous
 step's wall clock is over its threshold.
+
+Durability: with ``checkpoint_dir`` / ``checkpoint_every`` set, the engine
+snapshots ``(weights, step_id, n_stdp_updates)`` through
+:class:`repro_torch.train.checkpoint.CheckpointManager` in the reference's
+on-disk format (the host copy is taken on the serve thread, the file
+written on the manager's own thread with ``checkpoint_async``);
+``TNNEngine(..., resume=True)`` restores the latest snapshot at
+construction, straight onto the engine's device; :meth:`TNNEngine.restore`
+rolls back to it. :func:`serve_resilient` drives the engine through
+(injected) worker failures: it restores and replays every stream the
+snapshot did not commit, so each retired stream is served exactly once,
+bit-exact with learning off. :class:`AsyncTNNEngine` is the ``asyncio``
+front door: clients ``await submit(stream)`` and one pump task steps the
+shared engine.
 """
 
 from __future__ import annotations
 
+import asyncio
 import collections
 import dataclasses
 import time
 import typing
-from typing import Dict, List, Optional, Sequence, Tuple, Union
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -50,6 +65,8 @@ from repro_torch.core import coding, network, neuron
 from repro_torch.core import policy as engine_policy
 from repro_torch.kernels.common import resolve_device
 from repro_torch.serve import slots
+from repro_torch.train import checkpoint as CKPT
+from repro_torch.train import fault_tolerance
 
 #: neuron-bank engines that take a compaction width
 SPARSE_ENGINES = engine_policy.SPARSE_ENGINES
@@ -92,6 +109,20 @@ class TNNServeConfig:
     #: seeds the stochastic rule, its generator re-seeded every step with
     #: ``stdp_step_seed(stdp_seed, step_id)``.
     stdp_seed: Optional[int] = None
+    # --------------------------------------------------------- durability
+    #: snapshot directory for the CheckpointManager; None disables
+    #: snapshots (and makes ``resume=True`` invalid).
+    checkpoint_dir: Optional[str] = None
+    #: snapshot every N engine steps (0 = never). A snapshot holds the
+    #: weights, ``step_id`` and ``n_stdp_updates``; a crash mid-save never
+    #: corrupts the previous snapshot (atomic publish).
+    checkpoint_every: int = 0
+    #: rotating snapshots kept on disk (CheckpointManager ``keep``).
+    checkpoint_keep: int = 3
+    #: write snapshots off the serve thread (the weights are copied to the
+    #: host on the serve thread first, so a later STDP update can never
+    #: reach an in-flight save).
+    checkpoint_async: bool = True
     #: pause learning while the pending queue holds at least this fraction
     #: of ``max_pending`` (requires ``max_pending``); learning resumes the
     #: step the pressure clears.
@@ -151,6 +182,8 @@ class TNNEngine:
 
     Admission → batch → fire → retire, one gamma cycle per step. Runs on
     ``device`` (``None`` = ``cuda``, which raises when CUDA is absent).
+    ``resume=True`` restores the latest snapshot under
+    ``scfg.checkpoint_dir``, if there is one.
     """
 
     def __init__(
@@ -159,6 +192,7 @@ class TNNEngine:
         net: network.TNNNetwork,
         scfg: Optional[TNNServeConfig] = None,
         device: Union[str, torch.device, None] = None,
+        resume: bool = False,
     ):
         scfg = scfg or TNNServeConfig()
         self.device = resolve_device(device)
@@ -178,9 +212,7 @@ class TNNEngine:
                 for lc in net.layers])
         self.net = net
         self.scfg = scfg
-        self.params = tuple(
-            torch.as_tensor(p, dtype=torch.float32).to(self.device)
-            for p in params)
+        self.params = self._place_params(params)
         self.stateful = any(lc.recurrent for lc in net.layers)
         self.pool: slots.SlotPool[TNNRequest, CarryState] = slots.SlotPool(
             scfg.n_slots, on_admit=self._on_admit,
@@ -233,6 +265,11 @@ class TNNEngine:
         if scfg.stdp_every < 1:
             raise ValueError(f"stdp_every must be >= 1, got "
                              f"{scfg.stdp_every}")
+        if scfg.checkpoint_every < 0:
+            raise ValueError(f"checkpoint_every must be >= 0, got "
+                             f"{scfg.checkpoint_every}")
+        if scfg.checkpoint_every and scfg.checkpoint_dir is None:
+            raise ValueError("checkpoint_every > 0 needs checkpoint_dir")
         if scfg.learn_pause_queue_frac is not None:
             if scfg.max_pending is None:
                 raise ValueError("learn_pause_queue_frac measures "
@@ -240,18 +277,40 @@ class TNNEngine:
             if scfg.learn_pause_queue_frac <= 0.0:
                 raise ValueError("learn_pause_queue_frac must be > 0")
         #: persistent engine-step counter: unlike ``n_steps`` it survives
-        #: ``reset_stats``; the STDP cadence and the stochastic rule's
-        #: seeds key off it, so a replay from a step redraws identically.
+        #: ``reset_stats`` and restores with snapshots; the STDP cadence,
+        #: the snapshot schedule and the stochastic rule's seeds key off
+        #: it, so a restored engine replays the same decisions.
         self.step_id = 0
         self.n_stdp_updates = 0
+        self.n_snapshots = 0
+        self.n_restores = 0
         self.learning_paused = False
         self.n_learn_pauses = 0
         self._last_step_s = 0.0
         self._stdp_gen: Optional[torch.Generator] = None
-        # the weights this instance came up with, on the host: the
-        # reference of the per-layer drift norms, read only in stats()
+        self._ckpt: Optional[CKPT.CheckpointManager] = None
+        if scfg.checkpoint_dir is not None and scfg.checkpoint_every > 0:
+            self._ckpt = CKPT.CheckpointManager(
+                scfg.checkpoint_dir, keep=scfg.checkpoint_keep,
+                every=scfg.checkpoint_every,
+                async_save=scfg.checkpoint_async)
+        if resume:
+            if self._ckpt is None:
+                raise ValueError("resume=True needs checkpoint_dir and "
+                                 "checkpoint_every > 0")
+            if CKPT.latest_step(self._ckpt.dir) is not None:
+                self.restore()
+        # the weights this instance came up with (after a resume), on the
+        # host: the reference of the per-layer drift norms in stats(), and
+        # what restore() rolls back to while no snapshot is on disk
         self._params_host0 = tuple(p.detach().cpu().numpy().copy()
                                    for p in self.params)
+
+    def _place_params(self, params: Sequence) -> Tuple[torch.Tensor, ...]:
+        """Weight stacks -> float32 tensors on the engine's device; shared
+        by construction and :meth:`restore`."""
+        return tuple(torch.as_tensor(p, dtype=torch.float32).to(self.device)
+                     for p in params)
 
     def _stdp_key(self) -> Optional[torch.Generator]:
         """This step's STDP generator: ``None`` (the expectation rule)
@@ -288,6 +347,66 @@ class TNNEngine:
             return False
         self.learning_paused = False
         return self.step_id % scfg.stdp_every == 0
+
+    def _snapshot_state(self) -> Dict[str, object]:
+        """What a snapshot holds: the weight stacks and the persistent
+        counters (``step_id``, ``n_stdp_updates``), enough for a restored
+        engine to make the original run's cadence, seed and snapshot
+        decisions."""
+        return {
+            "params": tuple(self.params),
+            "counters": np.asarray(
+                [self.step_id, self.n_stdp_updates], np.int32),
+        }
+
+    def _maybe_snapshot(self) -> None:
+        """Hand the step's state to the CheckpointManager on the
+        ``checkpoint_every`` cadence. The manager copies it to the host
+        here, on the serve thread (a device-to-host copy, so a sync), and
+        with ``checkpoint_async`` writes it on its own thread."""
+        if self._ckpt is None:
+            return
+        if self._ckpt.maybe_save(self.step_id, self._snapshot_state()):
+            self.n_snapshots += 1
+
+    def checkpoint_wait(self) -> None:
+        """Block until any in-flight async snapshot has published."""
+        if self._ckpt is not None:
+            self._ckpt.wait()
+
+    def restore(self) -> int:
+        """Roll the engine back to the latest snapshot, or, with none on
+        disk yet, to the weights it came up with (construction is the
+        implicit step-0 commit point). Restores the weights, onto the
+        engine's device as float32, and the persistent counters, then
+        drops every live and pending stream (``pool.clear()``): their
+        partial progress was computed at weights that no longer exist, so
+        the caller (:func:`serve_resilient`) resubmits every stream the
+        snapshot did not commit, from its beginning. Returns the restored
+        step id."""
+        if self._ckpt is None:
+            raise ValueError(
+                "restore() needs checkpoint_dir and checkpoint_every > 0")
+        self.checkpoint_wait()
+        step = CKPT.latest_step(self._ckpt.dir)
+        if step is None:
+            self.params = self._place_params(self._params_host0)
+            self.step_id = 0
+            self.n_stdp_updates = 0
+        else:
+            template = {
+                "params": tuple(self.params),
+                "counters": np.zeros(2, np.int32),
+            }
+            state = CKPT.restore_checkpoint(self._ckpt.dir, template, step)
+            self.params = tuple(state["params"])
+            self.step_id = int(state["counters"][0])
+            self.n_stdp_updates = int(state["counters"][1])
+        self.pool.clear()
+        self.learning_paused = False
+        self._last_step_s = 0.0
+        self.n_restores += 1
+        return self.step_id
 
     def _on_admit(self, idx: int, entry: slots.SlotEntry) -> None:
         """Pool lifecycle hook: initialise the slot's per-layer recurrent
@@ -486,8 +605,12 @@ class TNNEngine:
                 retired.append(req)
         self.n_steps += 1
         self.n_volleys += len(live)
-        # the persistent counter advances after the step's retirements
+        # the persistent counter advances after the step's retirements and
+        # before the snapshot, so a snapshot at step s commits every stream
+        # retired at or before s (serve_resilient's commit rule), and no
+        # snapshot is taken at step 0
         self.step_id += 1
+        self._maybe_snapshot()
         dt = time.perf_counter() - t0
         self._last_step_s = dt
         self._run_s += dt
@@ -538,11 +661,14 @@ class TNNEngine:
         out["jit_evictions"] = float(self._evictions)
         out["step_id"] = float(self.step_id)
         out["n_stdp_updates"] = float(self.n_stdp_updates)
+        out["n_snapshots"] = float(self.n_snapshots)
+        out["n_restores"] = float(self.n_restores)
         out["learning_paused"] = float(self.learning_paused)
         out["n_learn_pauses"] = float(self.n_learn_pauses)
         if self.scfg.learn:
             # per-layer L2 drift against the weights this instance came up
-            # with: how far live traffic has moved each stack
+            # with (after a resume): how far live traffic has moved each
+            # stack
             for i, (p, p0) in enumerate(zip(self.params,
                                             self._params_host0)):
                 out[f"weight_drift_l{i}"] = float(np.linalg.norm(
@@ -550,6 +676,182 @@ class TNNEngine:
                     - p0.astype(np.float64)))
         out.update(slots.latency_summary(self._retired))
         return out
+
+
+class AsyncTNNEngine:
+    """``asyncio`` front door over a shared :class:`TNNEngine`.
+
+    Clients ``await submit(stream)`` concurrently; a single pump task steps
+    the engine while work remains, resolving each request's future when it
+    retires. A step is synchronous (it ends in its device-to-host copy), so
+    the pump's ``await asyncio.sleep(0)`` between steps is where other
+    clients run: admission stays continuous under bursts of submissions.
+
+    Admission rejections (``max_pending`` hit, :class:`slots.QueueFull`)
+    are absorbed by a bounded retry: the submitter backs off
+    ``submit_retry_delay_s`` (with the pump kept running, so each backoff
+    gives the engine a chance to drain the queue) up to ``submit_retries``
+    times before the exception reaches the caller.
+    """
+
+    def __init__(
+        self,
+        engine: TNNEngine,
+        *,
+        submit_retries: int = 3,
+        submit_retry_delay_s: float = 0.02,
+    ):
+        if submit_retries < 0:
+            raise ValueError(
+                f"submit_retries must be >= 0, got {submit_retries}")
+        if submit_retry_delay_s < 0:
+            raise ValueError(f"submit_retry_delay_s must be >= 0, got "
+                             f"{submit_retry_delay_s}")
+        self.engine = engine
+        self.submit_retries = submit_retries
+        self.submit_retry_delay_s = submit_retry_delay_s
+        self._futures: Dict[int, asyncio.Future] = {}
+        self._pump_task: Optional[asyncio.Task] = None
+
+    async def submit(self, volleys: np.ndarray) -> np.ndarray:
+        """Submit one stream; resolves to its (n_cycles, C, Q) output.
+
+        A full pending queue is retried ``submit_retries`` times with
+        ``submit_retry_delay_s`` backoff; :class:`slots.QueueFull`
+        propagates once the budget is spent (each rejected attempt still
+        counts in ``stats()["n_rejected"]``)."""
+        for attempt in range(self.submit_retries + 1):
+            try:
+                req = self.engine.submit(volleys)
+                break
+            except slots.QueueFull:
+                if attempt == self.submit_retries:
+                    raise
+                # keep the pump stepping so the queue can drain while this
+                # submitter backs off
+                self._ensure_pump()
+                await asyncio.sleep(self.submit_retry_delay_s)
+        fut = asyncio.get_running_loop().create_future()
+        self._futures[req.req_id] = fut
+        self._ensure_pump()
+        return await fut
+
+    def _ensure_pump(self) -> None:
+        if self._pump_task is None or self._pump_task.done():
+            self._pump_task = asyncio.get_running_loop().create_task(
+                self._pump())
+
+    async def _pump(self) -> None:
+        try:
+            while self.engine.pool.has_work:
+                for req in self.engine.step():
+                    fut = self._futures.pop(req.req_id, None)
+                    if fut is not None and not fut.done():
+                        fut.set_result(req.result())
+                # yield so freshly woken clients can enqueue before the
+                # next admission
+                await asyncio.sleep(0)
+        except Exception as exc:
+            # a dead pump must not strand waiting clients: fail them all.
+            # No re-raise: every request holds a future, so the error is
+            # delivered; the pump task itself is never awaited.
+            for fut in self._futures.values():
+                if not fut.done():
+                    fut.set_exception(exc)
+            self._futures.clear()
+
+
+def serve_resilient(
+    engine: TNNEngine,
+    streams: Sequence[np.ndarray],
+    *,
+    failure_injector: Optional[Callable[[int], None]] = None,
+    max_restarts: int = 3,
+    monitor: Optional[fault_tolerance.HeartbeatMonitor] = None,
+) -> Tuple[List[np.ndarray], dict]:
+    """Serving that survives worker failures: the ``run_resilient`` idiom
+    for the serve path.
+
+    Feeds ``streams`` through the engine (incrementally, so a bounded
+    pending queue never rejects the batch), stepping until everything
+    retires. ``failure_injector(step_id)``, called before each step, may
+    raise :class:`~repro_torch.train.fault_tolerance.WorkerFailure`; the
+    loop then rolls the engine back to its latest snapshot
+    (:meth:`TNNEngine.restore`: weights and counters, pool cleared) and
+    replays every stream the snapshot did not commit, from its beginning.
+    A snapshot at step ``s`` commits exactly the streams retired at or
+    before ``s`` (``step_id`` advances after a step's retirements, before
+    its snapshot), so each retired stream is served exactly once. With
+    learning off the replayed outputs equal the uninterrupted run's bit for
+    bit (slot outputs do not depend on the batch's composition); with
+    learning on, the restored counters make the replay from the snapshot
+    take the same STDP decisions and seeds.
+
+    Each step beats ``monitor`` (host 0) with its wall clock when one is
+    given. Returns ``(results, report)``: results in submission order, the
+    report with ``restarts``, ``failed_hosts``, ``restored_steps`` and
+    ``resubmitted`` (one list of stream indices per restore). Re-raises the
+    failure once ``max_restarts`` is spent.
+    """
+    n = len(streams)
+    results: List[Optional[np.ndarray]] = [None] * n
+    retired_step: List[Optional[int]] = [None] * n
+    report = {
+        "restarts": 0,
+        "failed_hosts": [],
+        "restored_steps": [],
+        "resubmitted": [],
+    }
+    todo = collections.deque(range(n))
+    inflight: Dict[int, int] = {}
+    restarts = 0
+
+    def _feed() -> None:
+        # fill the queue as far as admission control allows; the rest
+        # waits in `todo` for freed capacity
+        while todo:
+            try:
+                req = engine.submit(streams[todo[0]])
+            except slots.QueueFull:
+                break
+            inflight[req.req_id] = todo.popleft()
+
+    while True:
+        try:
+            _feed()
+            while inflight or todo or engine.pool.has_work:
+                t0 = time.perf_counter()
+                if failure_injector is not None:
+                    failure_injector(engine.step_id)
+                for req in engine.step():
+                    i = inflight.pop(req.req_id, None)
+                    if i is None:
+                        continue  # not ours (the caller submitted it)
+                    results[i] = req.result()
+                    retired_step[i] = engine.step_id
+                if monitor is not None:
+                    monitor.beat(0, time.perf_counter() - t0)
+                _feed()
+            engine.checkpoint_wait()
+            return results, report
+        except fault_tolerance.WorkerFailure as f:
+            restarts += 1
+            report["restarts"] = restarts
+            report["failed_hosts"].append(f.host_id)
+            if restarts > max_restarts:
+                raise
+            s = engine.restore()
+            report["restored_steps"].append(s)
+            # results recorded after step s were computed at weights that
+            # no longer exist: drop them and replay those streams
+            inflight.clear()
+            replay = [i for i in range(n)
+                      if retired_step[i] is None or retired_step[i] > s]
+            for i in replay:
+                results[i] = None
+                retired_step[i] = None
+            todo = collections.deque(replay)
+            report["resubmitted"].append(replay)
 
 
 def reference_outputs(params: Sequence[torch.Tensor],

@@ -1,0 +1,3 @@
+"""Durability: checkpoints in the reference's on-disk format
+(:mod:`repro_torch.train.checkpoint`) and failure recovery
+(:mod:`repro_torch.train.fault_tolerance`)."""
