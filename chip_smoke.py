@@ -28,7 +28,19 @@ kernel once per layer, and ``Engine.generate``, whose decode is the
 one-token recurrence: no kernel), and deepseek-v2-lite-16b (MLA + MoE)
 inference at full width and depth with random weights (the prefill forward
 and continuous and wave ``Engine.serve`` through 6 slots, the MoE gate
-kernel once per layer per forward and per decode step). A first pass
+kernel once per layer per forward and per decode step), and LM training
+through the launcher ``repro_torch.launch.train`` once those models are
+freed: internlm2-1.8b and mamba2-780m (with top-k gradient compression) at
+full width and depth, bf16, remat on, 3 steps of 8 x 4,096 tokens in 4
+microbatches (the SSD kernel in every layer's forward and recompute), and
+deepseek-v2-lite-16b at the smoke size (the MoE gate under autograd),
+each with its launch counts (the full-width two with a profiled step);
+beside them a float32
+step of each family on the card against the CPU, remat on against off,
+the task gradient reaching every mamba2 leaf and the router, a launcher
+run restarted from its checkpoint against the uninterrupted run, and the
+kernels' autograd functions against plain autograd at the training
+shapes. A first pass
 records every call each path makes to the kernel wrappers (RNL, unary
 top-k, gate level, SSD scan, MoE gate), with its operands; those calls, and the
 repository's benchmark shapes and edge cases (for the RNL kernels also
@@ -60,6 +72,7 @@ from __future__ import annotations
 
 import asyncio
 import dataclasses
+import gc
 import json
 import math
 import pathlib
@@ -81,17 +94,23 @@ from repro_torch.core import coding, column, compaction, layer  # noqa: E402
 from repro_torch.core import network, neuron, stdp  # noqa: E402
 from repro_torch.core import sorting_networks, topk_prune  # noqa: E402
 from repro_torch.configs import registry as lm_registry  # noqa: E402
+from repro_torch.data import pipeline as DP  # noqa: E402
 from repro_torch.data import tokenizer  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import moe_gate as mg  # noqa: E402
 from repro_torch.kernels import rnl_neuron as rn  # noqa: E402
 from repro_torch.kernels import ssd_scan as ss  # noqa: E402
 from repro_torch.kernels import unary_topk as ut  # noqa: E402
+from repro_torch.launch import train as train_launcher  # noqa: E402
 from repro_torch.models import transformer as lm  # noqa: E402
+from repro_torch.optim import grad_compression as GC  # noqa: E402
+from repro_torch.optim import optimizers as O  # noqa: E402
+from repro_torch.optim.tree import tree_leaves, tree_unflatten  # noqa: E402
 from repro_torch.serve import tnn_engine  # noqa: E402
 from repro_torch.serve.engine import Engine, ServeConfig  # noqa: E402
 from repro_torch.train import checkpoint as ckpt  # noqa: E402
 from repro_torch.train import fault_tolerance  # noqa: E402
+from repro_torch.train import train_loop as TL  # noqa: E402
 
 from examples import tnn_clustering_torch as clustering  # noqa: E402
 
@@ -1196,7 +1215,8 @@ def moe_paths(dev, cfg, params, tokens, prompts) -> List[Path]:
                  launches=serve_launches)]
 
 
-def capture(run) -> List[Dict[str, Any]]:
+def capture(run, ssd_copies: Optional[int] = None,
+            result: Optional[list] = None) -> List[Dict[str, Any]]:
     """Drives ``run()`` with the three RNL wrappers, the unary top-k entry,
     the gate-level entry, the SSD scan entry and the MoE gate entry spied
     on. Returns, for each
@@ -1205,7 +1225,9 @@ def capture(run) -> List[Dict[str, Any]]:
     busiest call — the one with the most in-cycle spikes (hot bits for
     unary top-k), so that a pipeline's all-silent fill and drain ticks do
     not stand for the path; for the SSD scan, a copy of the operands of
-    every call; for the gate, of the first call."""
+    every call (of the first ``ssd_copies`` calls, when given); for the
+    gate, of the first call. ``run()``'s return value is appended to
+    ``result`` when given."""
     cases: Dict[tuple, Dict[str, Any]] = {}
     originals = {name: getattr(rn, name) for name in RNL_WRAPPERS}
     topk = ut._unary_topk
@@ -1260,8 +1282,9 @@ def capture(run) -> List[Dict[str, Any]]:
         case = cases.setdefault(key, dict(wrapper="ssd_scan", chunk=chunk,
                                           heads=heads, calls=0, operands=[]))
         case["calls"] += 1
-        case["operands"].append(tuple(t.clone()
-                                      for t in (u, log_decay, b, c)))
+        if ssd_copies is None or len(case["operands"]) < ssd_copies:
+            case["operands"].append(tuple(t.clone()
+                                          for t in (u, log_decay, b, c)))
         return ssd(u, log_decay, b, c, chunk, heads)
 
     def spy_gate(logits, k, renorm):
@@ -1279,7 +1302,9 @@ def capture(run) -> List[Dict[str, Any]]:
     ss._ssd_scan = spy_ssd
     mg._moe_gate = spy_gate
     try:
-        run()
+        out = run()
+        if result is not None:
+            result.append(out)
     finally:
         for name, fn in originals.items():
             setattr(rn, name, fn)
@@ -1910,6 +1935,25 @@ def phase_kernels(dev, captured, floor_ms) -> Dict[str, Dict[str, Any]]:
     return main_rows
 
 
+def check_launches(path, counts, cases, st) -> None:
+    """Raise unless ``path``'s run launched its kernel (as often as
+    ``path.launches`` says, where it says), launched no other, and made
+    exactly the calls the capture ``cases`` saw."""
+    seen = {name: 0 for name in REPLACES}
+    for case in cases:
+        seen[case["wrapper"]] += case["calls"]
+    if path.kernel is not None and counts[path.kernel] <= 0:
+        raise AssertionError(f"{path.name}: {path.kernel} was not launched")
+    want = path.launches(st) if callable(path.launches) else path.launches
+    if want is not None and counts[path.kernel] != want:
+        raise AssertionError(f"{path.name}: {counts[path.kernel]} launches "
+                             f"of {path.kernel}, expected {want}")
+    if counts != seen or any(n for name, n in counts.items()
+                             if name != path.kernel):
+        raise AssertionError(f"{path.name}: launches {counts}, calls "
+                             f"{seen}, expected only {path.kernel}")
+
+
 def phase_serve(paths, captured) -> Dict[str, Dict[str, int]]:
     """The main path, path by path: every launch count set to 0 just before
     the path runs and read just after. Each path must launch its kernel,
@@ -1928,22 +1972,7 @@ def phase_serve(paths, captured) -> Dict[str, Dict[str, int]]:
         fields = path.check(out, st)
         emit("serve", run=path.name, **fields, run_ms=run_ms,
              launches=counts)
-        seen = {name: 0 for name in REPLACES}
-        for case in captured[path.name]:
-            seen[case["wrapper"]] += case["calls"]
-        if path.kernel is not None and counts[path.kernel] <= 0:
-            raise AssertionError(f"{path.name}: {path.kernel} was not "
-                                 f"launched")
-        want = path.launches(st) if callable(path.launches) \
-            else path.launches
-        if want is not None and counts[path.kernel] != want:
-            raise AssertionError(f"{path.name}: {counts[path.kernel]} "
-                                 f"launches of {path.kernel}, expected "
-                                 f"{want}")
-        if counts != seen or any(n for name, n in counts.items()
-                                 if name != path.kernel):
-            raise AssertionError(f"{path.name}: launches {counts}, calls "
-                                 f"{seen}, expected only {path.kernel}")
+        check_launches(path, counts, captured[path.name], st)
     return launches
 
 
@@ -2498,6 +2527,412 @@ def phase_moe_checks(dev, cfg, params):
                           tol=MOE_CARD_CPU_TOL))
 
 
+# ================================================================ training
+
+#: LM training through the launcher (``repro_torch.launch.train``) at full
+#: width and depth, random weights: the train_4k length (configs/base.py
+#: SHAPES), a global batch of 8 in 4 microbatches of 2, bf16, remat on
+#: (the configs' own), 3 steps; mamba2-780m with top-k gradient
+#: compression at the launcher's rho (0.01). internlm2-1.8b is the dense
+#: decoder the reference's own training tests train (tests/test_runtime.py).
+TRAIN_DENSE, TRAIN_SSM, TRAIN_MOE = ("internlm2-1.8b", "mamba2-780m",
+                                     "deepseek-v2-lite-16b")
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_ACCUM, TRAIN_STEPS = 4096, 8, 4, 3
+#: deepseek-v2-lite-16b's 16 B parameters with f32 moments do not fit one
+#: card: the MoE gate trains at the smoke size (the launcher's --smoke
+#: batch and length), in 2 microbatches
+MOE_TRAIN_ACCUM = 2
+#: copies of a training path's SSD operands held against the plain version
+TRAIN_SSD_COPIES = 2
+#: the launcher's learning rate, and the smoke checks': float32 card
+#: against CPU (loss and grad norm, relative) and the updated leaves
+#: (within 1e-5 (1 + |p|) except near-zero-gradient elements, which
+#: AdamW's first step turns into +-lr: at most 0.2 % of a leaf, within
+#: 1e-4 of its largest gradient, moved by at most 2 lr)
+TRAIN_LR, CHECK_LR = 3e-4, 1e-2
+TRAIN_CARD_CPU_TOL, TRAIN_LEAF_TOL = 1e-4, 1e-5
+
+
+def launcher_argv(arch: str, ckpt_dir, *, smoke=False, steps=TRAIN_STEPS,
+                  seq=None, batch=None, accum=TRAIN_ACCUM,
+                  compress=False, every=1_000_000) -> List[str]:
+    return ["--arch", arch, *(["--smoke"] if smoke else []),
+            "--steps", str(steps), "--grad-accum", str(accum),
+            *(["--seq-len", str(seq)] if seq else []),
+            *(["--global-batch", str(batch)] if batch else []),
+            *(["--compress"] if compress else []),
+            "--lr", str(TRAIN_LR), "--ckpt-dir", str(ckpt_dir),
+            "--ckpt-every", str(every), "--device", "cuda"]
+
+
+def launcher_step_fn(argv: List[str]):
+    """The train step the launcher builds for ``argv`` (its config and
+    train config), and its data."""
+    cfg, tcfg, data = train_launcher.setup(
+        train_launcher.parser().parse_args(argv))
+    return cfg, TL.make_train_step(cfg, tcfg), data
+
+
+def train_paths(root, smi) -> List[Tuple[Path, List[str]]]:
+    """The training paths, each one launcher run (``launch.train.main``):
+    internlm2-1.8b (no kernel), mamba2-780m with compression (the SSD scan
+    in each layer's forward and again in its recompute: 2 x 48 launches a
+    microbatch) and deepseek-v2-lite-16b at the smoke size (the MoE gate,
+    2 x 2 launches a microbatch). Each run returns its losses, step times
+    and final state; the check holds the losses and parameters finite and
+    reports ms per step (the median of the steps after the first), tokens
+    per second and the peak of ``torch.cuda.max_memory_allocated``.
+    Returns each path with its launcher arguments."""
+    def path(name, arch, kernel, **kw):
+        argv = launcher_argv(arch, pathlib.Path(root) / name, **kw)
+        args = train_launcher.parser().parse_args(argv)
+        cfg, _, data = train_launcher.setup(args)
+        seq, batch = data.cfg.seq_len, data.cfg.global_batch
+        accum = args.grad_accum
+
+        def run():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            out = train_launcher.main(argv)
+            torch.cuda.synchronize()
+            return out, dict(max_memory_allocated=
+                             torch.cuda.max_memory_allocated())
+
+        def check(out, st):
+            state, losses = out["state"], out["losses"]
+            finite = all(bool(torch.isfinite(t).all())
+                         for t in tree_leaves(state.params))
+            if len(losses) != TRAIN_STEPS or int(state.step) != TRAIN_STEPS \
+                    or not all(map(math.isfinite, losses)) or not finite:
+                raise AssertionError(f"{name}: losses {losses}, step "
+                                     f"{int(state.step)}, finite params "
+                                     f"{finite}")
+            ms = 1e3 * statistics.median(out["step_s"][1:])
+            return dict(arch=cfg.name, layers=cfg.n_layers, dtype=cfg.dtype,
+                        remat=cfg.remat, seq=seq, global_batch=batch,
+                        grad_accum=accum, microbatch=batch // accum,
+                        compress=args.compress, lr=args.lr,
+                        steps=TRAIN_STEPS, losses=losses,
+                        step_ms_all=[1e3 * t for t in out["step_s"]],
+                        ms_per_step=ms,
+                        tokens_per_s=batch * seq / (ms / 1e3),
+                        max_memory_allocated_gb=st["max_memory_allocated"]
+                        / 2 ** 30, params=cfg.param_count(),
+                        nvidia_smi=smi)
+
+        # one launch a layer, and one more in its recompute under remat
+        per_layer = 2 if cfg.remat == "block" else 1
+        launches = None if kernel is None \
+            else per_layer * cfg.n_layers * accum * TRAIN_STEPS
+        return Path(name, kernel, run, check, launches=launches), argv
+
+    return [
+        path("train_internlm2", TRAIN_DENSE, None, seq=TRAIN_SEQ,
+             batch=TRAIN_BATCH),
+        path("train_mamba2", TRAIN_SSM, "ssd_scan", seq=TRAIN_SEQ,
+             batch=TRAIN_BATCH, compress=True),
+        path("train_moe_smoke", TRAIN_MOE, "moe_gate_topk", smoke=True,
+             accum=MOE_TRAIN_ACCUM)]
+
+
+def phase_train(paths_argv, smi) -> Tuple[Dict[str, Dict[str, int]],
+                                           Dict[str, list]]:
+    """The training paths, each run once with the launch counts set to 0
+    just before it and read just after, its kernel calls captured on the
+    way (the first TRAIN_SSD_COPIES SSD operand copies of a path); each
+    must launch its kernel as often as its config says and no other. A
+    step of each full-width path is then profiled from the state the run
+    ended in: device busy time, idle share and top device ops."""
+    launches, captured = {}, {}
+    for path, argv in paths_argv:
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        got: list = []
+        cases = capture(path.run, TRAIN_SSD_COPIES, got)
+        torch.cuda.synchronize()
+        run_ms = 1e3 * (time.perf_counter() - t0)
+        counts = launch_counts()
+        out, st = got[0]
+        fields = path.check(out, st)
+        per_step = {k: v / TRAIN_STEPS for k, v in counts.items() if v}
+        emit("train", run=path.name, **fields, run_ms=run_ms,
+             launches=counts, launches_per_step=per_step)
+        check_launches(path, counts, cases, st)
+        launches[path.name], captured[path.name] = counts, cases
+        if path.name != "train_moe_smoke":
+            phase_profile_train(path.name, argv, out["state"], smi)
+        del out, got
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches, captured
+
+
+def phase_profile_train(name, argv, state, smi) -> None:
+    """One more launcher step (its 4 microbatches, compression and AdamW)
+    from ``state`` under the profiler (device activity only), ended by a
+    synchronise: device busy time, idle share (an upper estimate: the
+    profiler's host cost), device ops and the top ones; the SSD launches
+    in it."""
+    cfg, step_fn, data = launcher_step_fn(argv)
+    batch = data.batch(TRAIN_STEPS)
+    torch.cuda.synchronize()
+    reset_launches()
+    # device activity only: a step makes 30k-150k device ops, and host op
+    # records would add to the wall time and to the profile's reading
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        new, metrics = step_fn(state, batch)
+        loss = float(metrics["loss"])
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    del new
+    emit("profile", run=name, steps=1, loss=loss,
+         launches=launch_counts(), nvidia_smi=smi,
+         **device_share(device_events(prof), wall_ms))
+
+
+def _check_update(want, got, grads, lr, label) -> int:
+    """Updated leaves ``got`` against ``want`` (module constants); returns
+    the elements moved by a near-zero gradient."""
+    moved = 0
+    for w, g_, grad in zip(tree_leaves(want), tree_leaves(got),
+                           tree_leaves(grads)):
+        w, g_, grad = w.double(), g_.double().to(w.device), \
+            grad.double().abs().to(w.device)
+        diff = (g_ - w).abs()
+        off = diff > TRAIN_LEAF_TOL * (1 + w.abs())
+        n = int(off.sum())
+        if n and (n > 0.002 * off.numel()
+                  or float(grad[off].max()) > 1e-4 * float(grad.max())
+                  or float(diff[off].max()) > 2 * lr * (1 + 1e-3)):
+            raise AssertionError(f"{label}: {n} elements of a leaf of "
+                                 f"{off.numel()} off by up to "
+                                 f"{float(diff.max())}")
+        moved += n
+    return moved
+
+
+def _smoke_step(arch, dev, *, remat="block"):
+    """One float32 compressed train step of ``arch``'s smoke config on
+    ``dev`` from the same state (made on the CPU) and batch; returns the
+    new state, the metrics and the gradients."""
+    cfg = dataclasses.replace(lm_registry.get_config(arch + "-smoke"),
+                              dtype="float32", remat=remat)
+    tcfg = TL.TrainConfig(optimizer=O.AdamWConfig(lr=CHECK_LR,
+                                                  warmup_steps=2,
+                                                  total_steps=50),
+                          compression=GC.CompressionConfig(rho=0.1))
+    state = TL.init_train_state(torch.Generator().manual_seed(2), cfg, tcfg,
+                                device="cpu")
+    state = TL.TrainState(*(ckpt._map_with_path(x, lambda _, t: t.to(dev))
+                            for x in state))
+    batch = DP.SyntheticLM(DP.DataConfig(
+        seq_len=70, global_batch=2, vocab_size=cfg.vocab_size)).batch(0)
+    grads = TL.grads_of(state.params, cfg, batch)[2]
+    new, metrics = TL.make_train_step(cfg, tcfg)(state, batch)
+    return cfg, new, metrics, grads, batch
+
+
+def phase_train_checks(dev, root) -> None:
+    """Training cross-checks at the smoke size, TF32 off. (1) One float32
+    compressed step of internlm2, mamba2 and deepseek-v2-lite (SSD and gate
+    kernels on the card) against the CPU's plain step: loss and grad norm
+    within 1e-4 (relative), every updated leaf as TRAIN_LEAF_TOL says.
+    (2) Remat on (``torch.utils.checkpoint``) against remat off on the
+    card: loss, gradients and updated leaves bit for bit. (3) On the card,
+    every leaf of every mamba2 layer and every layer's MoE router gets a
+    non-zero gradient from the cross-entropy alone (before this slice the
+    SSD kernel and the gate returned none). (4) A launcher run
+    (mamba2-780m smoke, compression, 2 microbatches, 6 steps, checkpoints
+    every 3) that fails after its 4th step and is started again equals the
+    run that did not fail: losses and every leaf of the final state bit for
+    bit."""
+    steps = {}
+    for arch in (TRAIN_DENSE, TRAIN_SSM, TRAIN_MOE):
+        ss.reset_launches()
+        mg.reset_launches()
+        cfg, card, cm, cgrads, batch = _smoke_step(arch, dev)
+        kernel_calls = ss.LAUNCHES["ssd_scan"] + mg.LAUNCHES["moe_gate_topk"]
+        _, host, hm, hgrads, _ = _smoke_step(arch, torch.device("cpu"))
+        rel = {k: abs(float(cm[k]) - float(hm[k])) / abs(float(hm[k]))
+               for k in ("loss", "grad_norm")}
+        if max(rel.values()) > TRAIN_CARD_CPU_TOL:
+            raise AssertionError(f"train {arch}: card vs CPU {rel}")
+        moved = _check_update(host.params, card.params, hgrads,
+                              float(hm["lr"]), f"train {arch} card vs CPU")
+        _, off, om, ograds, _ = _smoke_step(arch, dev, remat="none")
+        remat_equal = float(om["loss"]) == float(cm["loss"]) and all(
+            torch.equal(a, b) for a, b in
+            zip(tree_leaves(off.params) + tree_leaves(ograds),
+                tree_leaves(card.params) + tree_leaves(cgrads)))
+        if not remat_equal:
+            raise AssertionError(f"train {arch}: remat on differs from off")
+        leaves = [p.detach().requires_grad_()
+                  for p in tree_leaves(card.params)]
+        logits, _ = lm.forward(tree_unflatten(card.params, leaves), cfg,
+                               batch["tokens"])
+        ce = lm.L.cross_entropy(logits, torch.as_tensor(batch["labels"],
+                                                        device=dev))
+        grads = torch.autograd.grad(ce, leaves, allow_unused=True)
+        named = dict(zip(tree_paths(card.params), grads))
+        wanted = [k for k in named if k[0] == "layers" and (
+            arch != TRAIN_MOE or k[-1] == "router")]
+        dead = [k for k in wanted if named[k] is None or any(
+            not bool((named[k][i] != 0).any()) for i in range(cfg.n_layers))]
+        if dead:
+            raise AssertionError(f"train {arch}: no gradient reaches {dead}")
+        steps[arch] = dict(card_vs_cpu=rel, tol=TRAIN_CARD_CPU_TOL,
+                           near_zero_grad_elements_moved=moved,
+                           kernel_launches=kernel_calls,
+                           remat_equals_no_remat=remat_equal,
+                           leaves_with_task_gradient=len(wanted))
+
+    def argv(name):
+        return launcher_argv(TRAIN_SSM, pathlib.Path(root) / name,
+                             smoke=True, steps=6, accum=2, compress=True,
+                             every=3)
+    whole = train_launcher.main(argv("resume-whole"))
+
+    class Failure(RuntimeError):
+        pass
+
+    def fail(i, state, metrics):
+        if i == 3:
+            raise Failure
+    split_argv = argv("resume-split")
+    try:
+        train_launcher.main(split_argv, hooks=[fail])
+        raise AssertionError("train resume: the failure was not raised")
+    except Failure:
+        pass
+    resumed = train_launcher.main(split_argv)
+    same = resumed["start"] == 3 and resumed["losses"] == \
+        whole["losses"][3:] and all(
+            np.array_equal(a, b) for a, b in zip(
+                ckpt._flatten(resumed["state"]).values(),
+                ckpt._flatten(whole["state"]).values()))
+    if not same:
+        raise AssertionError(f"train resume: resumed at {resumed['start']}, "
+                             f"losses {resumed['losses']} vs "
+                             f"{whole['losses']}")
+    emit("train_checks", tf32_matmul=torch.backends.cuda.matmul.allow_tf32,
+         steps=steps, resume=dict(arch=TRAIN_SSM + "-smoke", steps=6,
+                                  failed_after=4, restored=3,
+                                  losses=whole["losses"], bit_exact=True))
+
+
+def tree_paths(tree, prefix=()) -> List[tuple]:
+    """Key paths of a parameter tree, in ``tree_leaves``' order."""
+    return [p for k in sorted(tree) for p in (
+        tree_paths(tree[k], prefix + (k,)) if isinstance(tree[k], dict)
+        else [prefix + (k,)])]
+
+
+def _events_ms(fn, reps: int = 3) -> float:
+    """Median ms of ``fn()`` by CUDA events (after one warm call)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def phase_train_autograd(dev, smi) -> None:
+    """The kernels' autograd functions on the card at the training
+    shapes. SSD: one mamba2-780m layer of a training microbatch (B = 2,
+    48 heads, L = 4,096, P = 64, N = 128, chunk 128; bf16 u, b, c, f32
+    log decay): the forward must be the kernel (one launch) within
+    ``check_ssd``'s tolerance of the plain chunked form; its gradients
+    (the plain chunked form's VJP, recomputed) against plain autograd
+    through the chunked form, within 1e-5 of each gradient's scale, and
+    against the float64 VJP within 2e-2 (bf16 gradients); every gradient
+    non-zero; the
+    backward's ms (one layer) by CUDA events. Gate: deepseek's prefill call
+    (T = 8,192, E = 64, k = 6, renormalised): ids and probabilities as the
+    plain version's, the gradient against autograd through the plain
+    version within 1e-6, and the backward's ms."""
+    rng = np.random.default_rng(12)
+    cfg = lm_registry.get_config(TRAIN_SSM)
+    h = cfg.ssm.n_heads(cfg.d_model)
+    bsz, L, p, n = TRAIN_BATCH // TRAIN_ACCUM, TRAIN_SEQ, cfg.ssm.head_dim, \
+        cfg.ssm.d_state
+
+    def t(shape, scale=1.0, dtype=torch.bfloat16):
+        return (scale * torch.from_numpy(rng.standard_normal(
+            shape, dtype=np.float32))).to(dev, dtype)
+
+    u, b, c = t((bsz * h, L, p)), t((bsz, L, n), 0.3), t((bsz, L, n), 0.3)
+    ld = -torch.nn.functional.softplus(t((bsz * h, L), dtype=torch.float32))
+    gy = t((bsz * h, L, p))
+    ops = (u, ld, b, c)
+
+    def grads(fn, dtype=None):
+        ins = [x.detach().to(dtype or x.dtype).requires_grad_() for x in ops]
+        y = fn(*ins, cfg.ssm.chunk, h)
+        return y, torch.autograd.grad(y, ins, gy.to(y.dtype))
+
+    ss.reset_launches()
+    y, got = grads(ss._SSDScan.apply)
+    if ss.LAUNCHES["ssd_scan"] != 1:
+        raise AssertionError("ssd autograd: the forward is not one launch")
+    row = check_ssd("train_layer_autograd", *ops, cfg.ssm.chunk, h,
+                    timed=False)
+    _, plain = grads(ss._ssd_scan_plain)
+    _, exact = grads(ss._ssd_scan_plain, torch.float64)
+    vs_plain, vs_f64 = [], []
+    for g, gp, ge in zip(got, plain, exact):
+        scale = float(ge.abs().max())
+        vs_plain.append(float((g.float() - gp.float()).abs().max()) / scale)
+        vs_f64.append(float((g.double() - ge).abs().max()) / scale)
+        if scale == 0 or vs_plain[-1] > 1e-5 or vs_f64[-1] > 2e-2:
+            raise AssertionError(f"ssd autograd: gradient off the plain VJP "
+                                 f"by {vs_plain[-1]}, off the float64 VJP "
+                                 f"by {vs_f64[-1]} of scale {scale}")
+    ins = [x.detach().requires_grad_() for x in ops]
+    y = ss._SSDScan.apply(*ins, cfg.ssm.chunk, h)
+    backward_ms = _events_ms(lambda: torch.autograd.grad(
+        y, ins, gy, retain_graph=True))
+    forward_ms = _events_ms(lambda: ss._SSDScan.apply(*ops, cfg.ssm.chunk, h))
+    del y, got, plain, exact, ins
+
+    logits = t((MOE_PREFILL_B * MOE_PREFILL_S, 64), dtype=torch.float32)
+    gp = t((logits.shape[0], 6), dtype=torch.float32)
+    out = {}
+    for name, fn in (("kernel", mg.moe_gate_topk),
+                     ("plain", mg.moe_gate_topk_plain)):
+        x = logits.clone().requires_grad_()
+        probs, ids = fn(x, 6, True)
+        out[name] = (probs.detach(), ids, torch.autograd.grad(probs, x, gp)[0])
+    gate_err = float((out["kernel"][2] - out["plain"][2]).abs().max())
+    if not torch.equal(out["kernel"][1], out["plain"][1]) or gate_err > 1e-6 \
+            or float((out["kernel"][0] - out["plain"][0]).abs().max()) > 1e-6:
+        raise AssertionError(f"gate autograd: off its plain version by "
+                             f"{gate_err}")
+    x = logits.clone().requires_grad_()
+    probs, _ = mg.moe_gate_topk(x, 6, True)
+    gate_backward_ms = _events_ms(lambda: torch.autograd.grad(
+        probs, x, gp, retain_graph=True))
+    emit("train_autograd", nvidia_smi=smi,
+         ssd=dict(u=list(u.shape), b=list(b.shape), chunk=cfg.ssm.chunk,
+                  heads=h, dtype="bfloat16",
+                  forward_max_err_over_scale=row["max_err_over_scale"],
+                  grads=["u", "log_decay", "b", "c"],
+                  vs_plain_autograd_over_scale=vs_plain,
+                  vs_float64_vjp_over_scale=vs_f64,
+                  forward_ms=forward_ms, plain_backward_ms=backward_ms,
+                  backward_is="plain chunked VJP (reference _ssd_bwd_rule)"),
+         gate=dict(logits=list(logits.shape), k=6, renorm=True,
+                   ids_equal=True, grad_max_abs_err=gate_err,
+                   plain_backward_ms=gate_backward_ms,
+                   backward_is="moe_gate_vjp (plain PyTorch)"))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2583,10 +3018,36 @@ def smoke(root: str) -> int:
             ("smem_bytes", "blocks_per_sm"),
             ss.kernel_occupancy(ssd["chunk"], ssd["n"], dt)))
         for dt in (torch.bfloat16, torch.float32)})
+    kernel_of = {path.name: path.kernel for path in paths}
+
+    # training: the inference models and the captured operands go first
+    # (deepseek's parameters alone hold 32 GB)
+    del paths, path, captured, lm_params, moe_params, lm_tokens, moe_tokens
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_train_checks(dev, root)
+    phase_train_autograd(dev, smi)
+    train = train_paths(root, smi)
+    train_launches, train_captured = phase_train(train, smi)
+    launches.update(train_launches)
+    kernel_of.update({path.name: path.kernel for path, _ in train})
+    for path, cases in train_captured.items():
+        for i, case in enumerate(cases):
+            if case["wrapper"] == "ssd_scan":
+                for k, ops in enumerate(case["operands"]):
+                    check_ssd(f"{path}#{i}/call{k}", *ops, case["chunk"],
+                              case["heads"], timed=k == 0, path=path,
+                              calls=case["calls"])
+            elif case["wrapper"] == "moe_gate_topk":
+                check_gate(f"{path}#{i}", case["logits"], case["k"],
+                           case["renorm"], path=path, calls=case["calls"],
+                           floor_ms=floor_ms)
+    del train_captured
+
     kernels = []
     for name, row in main_rows.items():
-        by_run = {path.name: launches[path.name][name] for path in paths
-                  if path.kernel == name}
+        by_run = {run: launches[run][name] for run, kernel in
+                  kernel_of.items() if kernel == name}
         source = SOURCES[SOURCE_OF[name]]
         kernels.append(dict(
             name=name, route="cuda", source=source,

@@ -1,7 +1,8 @@
-"""Carry weights across from the reference package.
+"""Carry weights and training states across from the reference package.
 
 The reference initialises weights with its own random generator, which
-PyTorch cannot reproduce; weights cross as numpy arrays instead.
+PyTorch cannot reproduce; weights and states cross as numpy arrays
+instead.
 """
 
 from __future__ import annotations
@@ -13,6 +14,9 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.common import resolve_device
+from repro_torch.optim import grad_compression as GC
+from repro_torch.optim import optimizers as O
+from repro_torch.train import train_loop as TL
 
 
 def params_from_numpy(params: Sequence[np.ndarray],
@@ -72,3 +76,39 @@ def lm_params_from_numpy(tree: Mapping[str, Any], cfg: ModelConfig,
         return torch.from_numpy(arr).to(device=dev, dtype=dtype)
 
     return convert(tree, "")
+
+
+def _float_tree(tree: Any, dev: torch.device) -> Any:
+    """A tree of numpy arrays -> tensors on ``dev``, bfloat16 leaves (the
+    ``ml_dtypes`` dtype) as bfloat16 and every other leaf as float32."""
+    if isinstance(tree, Mapping):
+        return {k: _float_tree(v, dev) for k, v in tree.items()}
+    arr = np.asarray(tree)
+    dtype = torch.bfloat16 if arr.dtype.name == "bfloat16" else torch.float32
+    return torch.from_numpy(np.array(arr, dtype=np.float32)).to(
+        device=dev, dtype=dtype)
+
+
+def train_state_from_numpy(state: Any, cfg: ModelConfig,
+                           device: Union[str, torch.device, None] = None
+                           ) -> TL.TrainState:
+    """The reference's whole ``TrainState`` with numpy leaves
+    (``jax.tree.map(np.asarray, state)``) -> the port's
+    :class:`repro_torch.train.train_loop.TrainState` on ``device``
+    (``None`` = ``cuda``; raises when CUDA is absent): the parameters
+    through :func:`lm_params_from_numpy`, the AdamW moments in their dtype
+    (float32, or bfloat16 moments) and step, the error-feedback buffer
+    (float32) when there is one, and the step. Both packages can then take
+    the same step from the same state."""
+    dev = resolve_device(device)
+
+    def step(x) -> torch.Tensor:
+        return torch.tensor(int(np.asarray(x)), dtype=torch.int32,
+                            device=dev)
+
+    opt = O.AdamWState(_float_tree(state.opt.m, dev),
+                       _float_tree(state.opt.v, dev), step(state.opt.step))
+    ef = None if state.ef is None else GC.EFState(
+        _float_tree(state.ef.error, dev))
+    return TL.TrainState(lm_params_from_numpy(state.params, cfg, dev), opt,
+                         ef, step(state.step))

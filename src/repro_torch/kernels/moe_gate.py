@@ -17,6 +17,14 @@ would not do, as its order among equal values is not specified.
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel on the current stream or raises: it never falls back.
 Each launch adds one to ``LAUNCHES["moe_gate_topk"]``.
+
+Gradients: on CPU tensors autograd runs through the plain version. On
+CUDA tensors :func:`moe_gate_topk` is an autograd function whose forward
+is the kernel and whose backward (:func:`moe_gate_vjp`, plain PyTorch)
+gives the gradient of the probabilities with respect to the logits at the
+chosen ids, from the saved logits, probabilities and ids: the gradient of
+the reference's differentiable gate (``kernels/ref.py`` ``moe_gate_topk``,
+which its model calls). No gradient flows to the ids.
 """
 
 from __future__ import annotations
@@ -73,13 +81,14 @@ def moe_gate_topk_plain(logits: torch.Tensor, k: int, renorm: bool = True
     x = logits.to(torch.promote_types(logits.dtype, torch.float32))
     m = torch.amax(x, dim=-1, keepdim=True)
     denom = torch.sum(torch.exp(x - m), dim=-1, keepdim=True)
-    work = x.clone()
+    work = x
     vals, idxs = [], []
     for _ in range(k):
         arg = torch.argmax(work, dim=-1, keepdim=True)
         vals.append(torch.gather(work, -1, arg))
         idxs.append(arg)
-        work.scatter_(-1, arg, NEG)
+        # out of place: the gather above keeps ``work`` for its backward
+        work = work.scatter(-1, arg, NEG)
     tv = torch.cat(vals, dim=-1)
     probs = torch.exp(tv - m) / denom
     if renorm:
@@ -134,9 +143,53 @@ def _moe_gate(logits: torch.Tensor, k: int, renorm: bool
     return probs, ids
 
 
+def moe_gate_vjp(logits: torch.Tensor, probs: torch.Tensor,
+                 ids: torch.Tensor, grad_probs: torch.Tensor,
+                 renorm: bool) -> torch.Tensor:
+    """The gradient with respect to ``logits`` (T, E) of the gate's
+    probabilities ``probs`` (T, k) at ``ids`` (T, k), given the gradient
+    ``grad_probs`` of the probabilities, in float32 (float64 for float64
+    logits). With ``renorm`` the probabilities are the softmax of the
+    chosen logits, so only those get a gradient, p (g - sum(p g)); without
+    it they are the full softmax s at the chosen ids, and every logit gets
+    scatter(p g) - s sum(p g)."""
+    f = torch.promote_types(logits.dtype, torch.float32)
+    p, g = probs.to(f), grad_probs.to(f)
+    pg = p * g
+    dot = torch.sum(pg, dim=-1, keepdim=True)
+    idx = ids.to(torch.int64)
+    if renorm:
+        base = torch.zeros(logits.shape, dtype=f, device=logits.device)
+        return base.scatter_add(-1, idx, pg - p * dot)
+    x = logits.to(f)
+    z = torch.exp(x - torch.amax(x, dim=-1, keepdim=True))
+    s = z / torch.sum(z, dim=-1, keepdim=True)
+    return (-s * dot).scatter_add(-1, idx, pg)
+
+
+class _MoEGate(torch.autograd.Function):
+    """The kernel's forward (:func:`_moe_gate`) with
+    :func:`moe_gate_vjp` as its backward."""
+
+    @staticmethod
+    def forward(ctx, logits, k, renorm):
+        probs, ids = _moe_gate(logits, k, renorm)
+        ctx.renorm = renorm
+        ctx.mark_non_differentiable(ids)
+        ctx.save_for_backward(logits, probs, ids)
+        return probs, ids
+
+    @staticmethod
+    def backward(ctx, grad_probs, grad_ids):
+        del grad_ids
+        logits, probs, ids = ctx.saved_tensors
+        grad = moe_gate_vjp(logits, probs, ids, grad_probs, ctx.renorm)
+        return grad.to(logits.dtype), None, None
+
+
 def moe_gate_topk(logits: torch.Tensor, k: int, renorm: bool = True
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Fused router.
+    """Fused router, differentiable with respect to ``logits``.
 
     Args:
       logits: (T, E) router scores (float32 on CUDA).
@@ -148,4 +201,6 @@ def moe_gate_topk(logits: torch.Tensor, k: int, renorm: bool = True
       (probs (T, k) float32, ids (T, k) int32), in descending-probability
       order (ties to the lowest expert id first).
     """
-    return _moe_gate(logits, k, renorm)
+    if logits.device.type == "cpu":
+        return _moe_gate(logits, k, renorm)
+    return _MoEGate.apply(logits, k, renorm)

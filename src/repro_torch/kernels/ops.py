@@ -2,7 +2,10 @@
 with heads sharing B and C, and the MoE router gate.
 
 The device of the tensors decides: CUDA tensors launch the hand-written
-kernel, CPU tensors run its plain version.
+kernel, CPU tensors run its plain version. Both are differentiable: on
+CUDA through autograd functions whose backward is plain PyTorch (the SSD
+scan's the plain chunked form's vector-Jacobian product, the gate's that
+of its top-k softmax), on the CPU through the plain versions.
 """
 
 from __future__ import annotations
@@ -29,9 +32,9 @@ def ssd_scan_mh(u: torch.Tensor, log_decay: torch.Tensor, b: torch.Tensor,
     path repeats them H times).
     """
     bsz, h, L, p = u.shape
-    y = _ssd._ssd_scan(u.reshape(bsz * h, L, p).contiguous(),
-                       log_decay.reshape(bsz * h, L).contiguous(),
-                       b.contiguous(), c.contiguous(), chunk, heads=h)
+    y = _ssd.ssd_scan_rows(u.reshape(bsz * h, L, p).contiguous(),
+                           log_decay.reshape(bsz * h, L).contiguous(),
+                           b.contiguous(), c.contiguous(), chunk, heads=h)
     return y.reshape(bsz, h, L, p)
 
 

@@ -33,6 +33,14 @@ bounds the error the kernel's split adds.
 A wrapper given CPU tensors runs the plain chunked form; given CUDA
 tensors it launches the kernel on the current stream or raises: it never
 falls back. Each launch adds one to ``LAUNCHES["ssd_scan"]``.
+
+Gradients (:func:`ssd_scan`, :func:`ssd_scan_rows`): on CPU tensors
+autograd runs through the plain chunked form. On CUDA tensors the scan is
+an autograd function whose forward is the kernel and whose backward
+recomputes the plain chunked form from the saved inputs and returns its
+vector-Jacobian product, as the reference's custom VJP does
+(``_ssd_bwd_rule``, plain ``jnp``): there is no backward kernel. B and C,
+shared by the heads, get the sum of the heads' gradients.
 """
 
 from __future__ import annotations
@@ -355,9 +363,44 @@ def _ssd_scan(u: torch.Tensor, log_decay: torch.Tensor, b: torch.Tensor,
     return y
 
 
+class _SSDScan(torch.autograd.Function):
+    """The kernel's forward (:func:`_ssd_scan`); the backward is the
+    vector-Jacobian product of the plain chunked form, recomputed from the
+    saved inputs."""
+
+    @staticmethod
+    def forward(ctx, u, log_decay, b, c, chunk, heads):
+        ctx.chunk, ctx.heads = chunk, heads
+        ctx.save_for_backward(u, log_decay, b, c)
+        return _ssd_scan(u, log_decay, b, c, chunk, heads)
+
+    @staticmethod
+    def backward(ctx, grad_y):
+        ins = [t.detach().requires_grad_(need) for t, need in
+               zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        with torch.enable_grad():
+            y = _ssd_scan_plain(*ins, ctx.chunk, ctx.heads)
+        wanted = [t for t in ins if t.requires_grad]
+        grads = iter(torch.autograd.grad(y, wanted, grad_y))
+        return (*(next(grads) if t.requires_grad else None for t in ins),
+                None, None)
+
+
+def ssd_scan_rows(u: torch.Tensor, log_decay: torch.Tensor, b: torch.Tensor,
+                  c: torch.Tensor, chunk: int = CHUNK,
+                  heads: int = 1) -> torch.Tensor:
+    """:func:`_ssd_scan` (rows ``u`` (R, L, P), B and C (R / heads, L, N)
+    shared by each run of ``heads`` rows), differentiable: CPU tensors run
+    the plain chunked form under autograd; CUDA tensors launch the kernel,
+    with the plain form's vector-Jacobian product as the backward."""
+    if u.device.type == "cpu":
+        return _ssd_scan(u, log_decay, b, c, chunk, heads)
+    return _SSDScan.apply(u, log_decay, b, c, chunk, heads)
+
+
 def ssd_scan(u: torch.Tensor, log_decay: torch.Tensor, b: torch.Tensor,
              c: torch.Tensor, chunk: int = CHUNK) -> torch.Tensor:
-    """Chunked SSD scan.
+    """Chunked SSD scan, differentiable (:func:`ssd_scan_rows`).
 
     Args:
       u:         (BH, L, P) dt-scaled inputs (bfloat16 or float32 on CUDA).
@@ -371,4 +414,4 @@ def ssd_scan(u: torch.Tensor, log_decay: torch.Tensor, b: torch.Tensor,
     Returns:
       y: (BH, L, P), same dtype as u.
     """
-    return _ssd_scan(u, log_decay, b, c, chunk, heads=1)
+    return ssd_scan_rows(u, log_decay, b, c, chunk, heads=1)

@@ -118,3 +118,19 @@ def mlp_apply(p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
     rounds it."""
     g = silu(x @ p["w_gate"])
     return (g * (x @ p["w_up"])) @ p["w_down"]
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean token cross-entropy in float32 (float64 for float64 logits):
+    ``logsumexp`` minus the gold logit, averaged over the tokens, or over
+    the tokens where ``mask`` is set (divided by ``max(sum(mask), 1)``).
+    logits (..., V), labels (...) integer ids in the vocabulary."""
+    logits = _f32(logits)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = logz - gold
+    if mask is None:
+        return torch.mean(nll)
+    mask = mask.to(nll.dtype)
+    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)

@@ -1,13 +1,16 @@
-"""Model assembly for the ssm family (Mamba2, attention-free) and the moe
-family (GQA or MLA attention + MoE FFN, with shared experts or a dense
-residual branch).
+"""Model assembly for the dense family (GQA decoder with a SwiGLU MLP),
+the ssm family (Mamba2, attention-free) and the moe family (GQA or MLA
+attention + MoE FFN, with shared experts or a dense residual branch).
 
 The parameter tree keeps the reference's layout: ``embed``, ``final_norm``,
 ``lm_head`` (unless tied) and ``layers``, whose leaves stack the layers on
 a leading axis; dense weights are ``(d_in, d_out)`` and used as
-``x @ W``. The reference scans the stacked layers with ``lax.scan``; here a
-Python loop indexes them. ``cfg.remat`` only matters for training and is
-ignored.
+``x @ W``. The reference scans the stacked layers with ``lax.scan``; here
+each stacked leaf is split once per call (``torch.unbind``, whose backward
+is one ``stack``) and a Python loop runs the layers. With
+``cfg.remat == "block"`` and gradients wanted, each block runs under
+``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``): its
+activations are recomputed in the backward instead of kept.
 
 Other families raise ``NotImplementedError`` naming the slice of the port
 that brings them (ROADMAP, Queue 1).
@@ -15,9 +18,10 @@ that brings them (ROADMAP, Queue 1).
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, NamedTuple, Tuple, Union
+from typing import Any, Callable, Dict, List, NamedTuple, Tuple, Union
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.common import resolve_device
@@ -28,15 +32,12 @@ from repro_torch.models import ssm as S
 
 #: where each family not ported yet comes from (ROADMAP, Queue 1)
 _LATER_SLICE = {
-    "dense": "the dense, vlm and audio slice (GQA decoders, the patch and "
-             "frame frontends, cross-attention)",
-    "vlm": "the dense, vlm and audio slice (GQA decoders, the patch and "
-           "frame frontends, cross-attention)",
-    "audio": "the dense, vlm and audio slice (GQA decoders, the patch and "
-             "frame frontends, cross-attention)",
+    "vlm": "the vlm slice (the patch frontend)",
+    "audio": "the audio slice (the frame frontend, the encoder and "
+             "cross-attention)",
     "hybrid": "the zamba2 hybrid-block slice",
 }
-_PORTED = ("ssm", "moe")
+_PORTED = ("dense", "ssm", "moe")
 
 
 def _require_ported(cfg: ModelConfig) -> None:
@@ -45,12 +46,46 @@ def _require_ported(cfg: ModelConfig) -> None:
                                  "served by repro_torch.serve.tnn_engine)")
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported yet; it "
-            f"comes with {where}. The port runs the ssm and moe families.")
+            f"comes with {where}. The port runs the dense, ssm and moe "
+            f"families.")
 
 
 def _layer(tree: Dict[str, Any], i: int) -> Dict[str, Any]:
+    """Layer ``i`` of a stacked tree (one leaf at a time: use
+    :func:`_unstack` for every layer)."""
     return {k: _layer(v, i) if isinstance(v, dict) else v[i]
             for k, v in tree.items()}
+
+
+def _unstack(tree: Dict[str, Any]) -> List[Dict[str, Any]]:
+    """Every layer of a stacked tree, each leaf split once with
+    ``torch.unbind``. Under autograd the split's backward is one ``stack``
+    per leaf; indexing each layer would give each layer's index a backward
+    that fills and adds a zero gradient the size of the whole stack."""
+    keys = list(tree)
+    cols = [_unstack(v) if isinstance(v, dict) else torch.unbind(v, 0)
+            for v in tree.values()]
+    return [dict(zip(keys, layer)) for layer in zip(*cols)]
+
+
+def _needs_grad(tree: Dict[str, Any], x: torch.Tensor) -> bool:
+    if not torch.is_grad_enabled():
+        return False
+    return x.requires_grad or any(
+        _needs_grad(v, x) if isinstance(v, dict) else v.requires_grad
+        for v in tree.values())
+
+
+def _maybe_remat(fn: Callable, cfg: ModelConfig, lp: Dict[str, Any],
+                 x: torch.Tensor):
+    """``fn(x, lp)``, under activation checkpointing when ``cfg.remat`` is
+    ``"block"`` and a gradient is wanted (the block's forward runs again
+    in the backward; the model draws no random numbers, so no generator
+    state is kept)."""
+    if cfg.remat != "block" or not _needs_grad(lp, x):
+        return fn(x, lp)
+    return torch.utils.checkpoint.checkpoint(fn, x, lp, use_reentrant=False,
+                                             preserve_rng_state=False)
 
 
 def _stacked(n: int, make: Callable[[], Dict[str, Any]]) -> Dict[str, Any]:
@@ -163,16 +198,23 @@ def _block_apply(p, x: torch.Tensor, cfg: ModelConfig,
     return x + out, aux, new_cache
 
 
+def _ssm_block(x: torch.Tensor, lp, cfg: ModelConfig) -> torch.Tensor:
+    h = L.rmsnorm(lp["norm1"], x, cfg.norm_eps)
+    out, _ = S.ssm_apply(lp["ssm"], h, cfg)
+    return x + out
+
+
 def forward(params, cfg: ModelConfig, tokens, *,
             logits_mode: str = "all") -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward. Returns (logits, aux_loss).
 
     tokens (B, S) on the parameters' device (or host ids, copied there).
     ``logits_mode='last'`` projects only the final position (prefill and
-    scoring: avoids the (B, S, V) logits tensor). ssm: each layer runs the
-    SSD scan once over the whole sequence and aux_loss is 0; moe: each
-    layer runs the router gate once over all B*S tokens and aux_loss sums
-    the layers' load-balancing losses.
+    scoring: avoids the (B, S, V) logits tensor). dense: aux_loss is 0;
+    ssm: each layer runs the SSD scan once over the whole sequence (again
+    in the backward under remat) and aux_loss is 0; moe: each layer runs
+    the router gate once over all B*S tokens and aux_loss sums the layers'
+    load-balancing losses.
     """
     _require_ported(cfg)
     if logits_mode not in ("all", "last"):
@@ -181,14 +223,12 @@ def forward(params, cfg: ModelConfig, tokens, *,
     dev = params["embed"].device
     x = L.embed_lookup(params["embed"], _tokens(tokens, dev))
     aux = torch.zeros((), dtype=torch.float32, device=dev)
-    for i in range(cfg.n_layers):
-        lp = _layer(params["layers"], i)
+    for lp in _unstack(params["layers"])[:cfg.n_layers]:
         if cfg.family == "ssm":
-            h = L.rmsnorm(lp["norm1"], x, cfg.norm_eps)
-            out, _ = S.ssm_apply(lp["ssm"], h, cfg)
-            x = x + out
+            x = _maybe_remat(lambda h, p: _ssm_block(h, p, cfg), cfg, lp, x)
         else:
-            x, layer_aux, _ = _block_apply(lp, x, cfg)
+            x, layer_aux = _maybe_remat(
+                lambda h, p: _block_apply(p, h, cfg)[:2], cfg, lp, x)
             aux = aux + layer_aux
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     if logits_mode == "last":
@@ -208,8 +248,9 @@ def init_serve_state(params, cfg: ModelConfig, batch: int,
                      max_len: int) -> ServeState:
     """Zero caches for ``batch`` rows, stacked on a leading layer axis:
     ssm, the conv window and the SSD state (``max_len`` does not bound a
-    recurrent cache); moe, the MLA latent and rotary key or the GQA K/V,
-    ``max_len`` positions each, with one scalar position per layer."""
+    recurrent cache); dense and moe, the GQA K/V or the MLA latent and
+    rotary key, ``max_len`` positions each, with one scalar position per
+    layer."""
     _require_ported(cfg)
     dev = params["embed"].device
     dtype = L._dtype(cfg.dtype)
@@ -280,16 +321,16 @@ def reset_slots(state: ServeState, free) -> ServeState:
 def decode_step(params, cfg: ModelConfig, state: ServeState,
                 tokens) -> Tuple[torch.Tensor, ServeState]:
     """One decode step. tokens (B, 1) -> logits (B, V), new state. ssm:
-    each layer runs the exact one-token recurrence (no kernel launch); moe:
-    each layer attends over its cache and runs the router gate once."""
+    each layer runs the exact one-token recurrence (no kernel launch);
+    dense and moe: each layer attends over its cache (moe: and runs the
+    router gate once)."""
     _require_ported(cfg)
     dev = params["embed"].device
     x = L.embed_lookup(params["embed"], _tokens(tokens, dev))
     caches = state.layer_caches
     if cfg.family == "ssm":
         convs, states = [], []
-        for i in range(cfg.n_layers):
-            lp = _layer(params["layers"], i)
+        for i, lp in enumerate(_unstack(params["layers"])[:cfg.n_layers]):
             hn = L.rmsnorm(lp["norm1"], x, cfg.norm_eps)
             out, new = S.ssm_apply(lp["ssm"], hn, cfg,
                                    cache=S.SSMCache(caches.conv[i],
@@ -300,8 +341,7 @@ def decode_step(params, cfg: ModelConfig, state: ServeState,
         new_caches = S.SSMCache(torch.stack(convs), torch.stack(states))
     else:
         ks, vs, ps = [], [], []
-        for i in range(cfg.n_layers):
-            lp = _layer(params["layers"], i)
+        for i, lp in enumerate(_unstack(params["layers"])[:cfg.n_layers]):
             x, _, new = _block_apply(
                 lp, x, cfg, cache=A.KVCache(caches.k[i], caches.v[i],
                                             caches.pos[i]))

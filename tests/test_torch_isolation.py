@@ -1,6 +1,7 @@
-"""The port stands alone: no file of ``src/repro_torch/`` and not
-``chip_smoke.py`` imports ``jax`` or the reference package, and importing
-every port module leaves ``jax`` out of ``sys.modules``."""
+"""The port stands alone: no file of ``src/repro_torch/``, not
+``chip_smoke.py`` and no ``examples/*_torch.py`` imports ``jax`` or the
+reference package, and importing every port module leaves ``jax`` out of
+``sys.modules``."""
 
 import ast
 import pathlib
@@ -17,7 +18,8 @@ FORBIDDEN = {"jax", "jaxlib", "repro"}
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + sorted(
+        (ROOT / "examples").glob("*_torch.py"))
 
 
 def _imported_roots(path):
@@ -55,7 +57,12 @@ def test_importing_every_port_module_leaves_jax_out(monkeypatch):
                      "repro_torch.kernels.ssd_scan",
                      "repro_torch.models.attention",
                      "repro_torch.models.moe",
-                     "repro_torch.kernels.moe_gate"):
+                     "repro_torch.kernels.moe_gate",
+                     "repro_torch.data.pipeline",
+                     "repro_torch.optim.optimizers",
+                     "repro_torch.optim.grad_compression",
+                     "repro_torch.train.train_loop",
+                     "repro_torch.launch.train"):
         assert required in modules
     code = ("import importlib, sys\n"
             f"for m in {modules!r}:\n"

@@ -1,6 +1,7 @@
-"""The port's LM path (mamba2-780m, ssm family) vs the reference: configs,
-tokenizer, weight conversion, the Mamba2 block, the full-sequence forward,
-token-by-token decode and the serving engine.
+"""The port's LM path (mamba2-780m, ssm family; internlm2-1.8b, dense
+family) vs the reference: configs, tokenizer, weight conversion, the Mamba2
+block, the full-sequence forward, token-by-token decode and the serving
+engine.
 
 Weights come from the reference's ``init_params`` and cross through
 ``convert.lm_params_from_numpy``; token ids are made with numpy from fixed
@@ -29,6 +30,14 @@ from repro_torch.models import transformer as tT  # noqa: E402
 from repro_torch.serve import Engine, ServeConfig  # noqa: E402
 
 ARCH = "mamba2-780m"
+DENSE = "internlm2-1.8b"
+#: (arch, dtype) of the ``model`` fixture, and the ids its tests keep
+MODELS = [(ARCH, "float32"), (ARCH, "bfloat16"), (DENSE, "float32"),
+          (DENSE, "bfloat16")]
+MODEL_IDS = ["float32", "bfloat16", "dense-float32", "dense-bfloat16"]
+#: leaves of the reference trees: embed, final_norm, lm_head, norm1 and 6
+#: ssm leaves; or norm1, norm2, 4 GQA and 3 MLP weights
+LEAVES = {ARCH: 10, DENSE: 12}
 TOL = {"float32": dict(atol=1e-4, rtol=1e-4),
        "bfloat16": dict(atol=0.06, rtol=0.05)}
 L_SEQ = 70          # two chunks of 32 and a ragged third at the smoke size
@@ -48,14 +57,17 @@ def ref():
                                  eng=jeng)
 
 
-@pytest.fixture(scope="module", params=["float32", "bfloat16"])
-def model(request, ref):
+_BUILT = {}
+
+
+def _build(ref, arch, dtype):
     """Both packages' smoke model with the same weights and token ids, and
-    the reference's forward logits."""
-    dtype = request.param
-    jcfg = dataclasses.replace(ref.reg.get_config(ARCH + "-smoke"),
+    the reference's forward logits (built once per module)."""
+    if (arch, dtype) in _BUILT:
+        return _BUILT[arch, dtype]
+    jcfg = dataclasses.replace(ref.reg.get_config(arch + "-smoke"),
                                dtype=dtype)
-    tcfg = dataclasses.replace(treg.get_config(ARCH + "-smoke"), dtype=dtype)
+    tcfg = dataclasses.replace(treg.get_config(arch + "-smoke"), dtype=dtype)
     jp = ref.T.init_params(ref.jax.random.PRNGKey(0), jcfg)
     tree = ref.jax.tree.map(np.asarray, jp)
     tp = convert.lm_params_from_numpy(tree, tcfg, device="cpu")
@@ -63,8 +75,22 @@ def model(request, ref):
         0, tcfg.vocab_size, (2, L_SEQ)).astype(np.int32)
     fwd = ref.jax.jit(lambda p, t: ref.T.forward(p, jcfg, t)[0])
     want = np.asarray(fwd(jp, ref.jnp.asarray(toks)), np.float32)
-    return types.SimpleNamespace(dtype=dtype, jcfg=jcfg, tcfg=tcfg, jp=jp,
-                                 tree=tree, tp=tp, toks=toks, want=want)
+    _BUILT[arch, dtype] = types.SimpleNamespace(
+        arch=arch, dtype=dtype, jcfg=jcfg, tcfg=tcfg, jp=jp, tree=tree,
+        tp=tp, toks=toks, want=want)
+    return _BUILT[arch, dtype]
+
+
+@pytest.fixture(scope="module", params=MODELS, ids=MODEL_IDS)
+def model(request, ref):
+    """mamba2-780m's and internlm2-1.8b's smoke models in both dtypes."""
+    return _build(ref, *request.param)
+
+
+@pytest.fixture(scope="module", params=MODELS[:2], ids=MODEL_IDS[:2])
+def ssm_model(request, ref):
+    """mamba2-780m's smoke model in both dtypes."""
+    return _build(ref, *request.param)
 
 
 def _np(x):
@@ -146,10 +172,11 @@ def _moe_configs(ref, dtype):
 
 def test_lm_params_from_numpy_round_trips_every_leaf(ref, model):
     """Every leaf, bf16 ones included, arrives exactly, in the dtype the
-    reference keeps it in: mamba2's tree, and the moe family's (the router
-    and the norms stay float32)."""
-    # embed, final_norm, lm_head, norm1 and 6 ssm leaves
-    assert _round_trip(ref, model.jp, model.tp) == 10
+    reference keeps it in: mamba2's and internlm2's trees, and the moe
+    family's (the router and the norms stay float32)."""
+    assert _round_trip(ref, model.jp, model.tp) == LEAVES[model.arch]
+    if model.arch != ARCH:
+        return
     for n, jcfg, tcfg in _moe_configs(ref, model.dtype):
         jp = ref.T.init_params(ref.jax.random.PRNGKey(1), jcfg)
         tp = convert.lm_params_from_numpy(ref.jax.tree.map(np.asarray, jp),
@@ -179,7 +206,12 @@ def test_init_params_matches_reference_layout(ref, model):
     """Same tree, shapes and dtypes as the reference's ``init_params``
     (the draws differ: another generator), for mamba2 and the moe family;
     the stacked layers hold independent draws."""
-    _same_layout(ref, model.jcfg, model.tcfg)
+    tp = _same_layout(ref, model.jcfg, model.tcfg)
+    w = next(iter(tp["layers"]["ssm" if model.arch == ARCH
+                               else "mlp"].values())).float()
+    assert not torch.equal(w[0], w[1])
+    if model.arch != ARCH:
+        return
     for _, jcfg, tcfg in _moe_configs(ref, model.dtype):
         tp = _same_layout(ref, jcfg, tcfg)
         w = tp["layers"]["moe"]["w_up"].float()
@@ -211,7 +243,8 @@ def _block_input(model, seed):
     return t, t.float().numpy()
 
 
-def test_ssm_apply_full_sequence(ref, model):
+def test_ssm_apply_full_sequence(ref, ssm_model):
+    model = ssm_model
     jlp = ref.jax.tree.map(lambda a: a[1], model.jp["layers"])["ssm"]
     tlp = tT._layer(model.tp["layers"], 1)["ssm"]
     t, x = _block_input(model, 2)
@@ -223,9 +256,10 @@ def test_ssm_apply_full_sequence(ref, model):
     _close(got, want, model.dtype)
 
 
-def test_ssm_apply_one_token_cache(ref, model):
+def test_ssm_apply_one_token_cache(ref, ssm_model):
     """The decode branch, token by token from empty caches: outputs and
     both cache parts against the reference."""
+    model = ssm_model
     jlp = ref.jax.tree.map(lambda a: a[0], model.jp["layers"])["ssm"]
     tlp = tT._layer(model.tp["layers"], 0)["ssm"]
     t, x = _block_input(model, 3)
@@ -302,8 +336,27 @@ def test_decode_step_matches_reference_and_forward(ref, model):
         _close(got, want, model.dtype)
         _close(got, fwd[:, i], model.dtype)
     assert int(state.pos) == L_SEQ
-    assert tuple(state.layer_caches.state.shape) == \
-        tuple(jstate.layer_caches.state.shape)
+    for got, want in zip(state.layer_caches, jstate.layer_caches):
+        assert tuple(got.shape) == tuple(want.shape)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ["glm4-9b", "llama3.2-3b", "stablelm-3b"])
+def test_other_dense_configs_match_reference(ref, arch, dtype):
+    """The rest of the dense family at the smoke size: the forward and 12
+    decode steps against the reference's (internlm2 is the ``model``
+    fixture's)."""
+    m = _build(ref, arch, dtype)
+    got, aux = tT.forward(m.tp, m.tcfg, m.toks)
+    assert float(aux) == 0.0
+    _close(got, m.want, dtype)
+    jstate = ref.T.init_serve_state(m.jp, m.jcfg, 2, 16)
+    jstep = ref.jax.jit(lambda p, s, t: ref.T.decode_step(p, m.jcfg, s, t))
+    state = tT.init_serve_state(m.tp, m.tcfg, 2, 16)
+    for i in range(12):
+        want, jstate = jstep(m.jp, jstate, ref.jnp.asarray(m.toks[:, i:i + 1]))
+        logits, state = tT.decode_step(m.tp, m.tcfg, state, m.toks[:, i:i + 1])
+        _close(logits, want, dtype)
 
 
 # ------------------------------------------------------------------ engine
@@ -346,20 +399,21 @@ def test_engine_temperature_is_deterministic_and_valid(model):
     assert any(not np.array_equal(x, y) for x, y in zip(a, other))
 
 
-def test_engine_refusals(model):
+def test_engine_refusals(ssm_model):
+    model = ssm_model
     eng = Engine(model.tp, model.tcfg, ServeConfig(), device="cpu")
     with pytest.raises(ValueError):         # ssm caches are served statically
         eng.serve(_prompts(model.tcfg.vocab_size))
     with pytest.raises(ValueError):
         eng.generate([np.zeros((0,), np.int32)])
-    dense = treg.get_config("internlm2-1.8b-smoke")
+    vlm = treg.get_config("phi-3-vision-4.2b-smoke")
     with pytest.raises(NotImplementedError):
-        Engine({}, dense, ServeConfig(), device="cpu").generate(
-            _prompts(dense.vocab_size))
+        Engine({}, vlm, ServeConfig(), device="cpu").generate(
+            _prompts(vlm.vocab_size))
 
 
-@pytest.mark.parametrize("arch", ["internlm2-1.8b", "phi-3-vision-4.2b",
-                                  "zamba2-1.2b", "seamless-m4t-medium"])
+@pytest.mark.parametrize("arch", ["phi-3-vision-4.2b", "zamba2-1.2b",
+                                  "seamless-m4t-medium"])
 def test_other_families_name_their_slice(arch):
     cfg = treg.get_config(arch + "-smoke")
     with pytest.raises(NotImplementedError, match="slice"):
@@ -378,6 +432,18 @@ def test_entry_points_default_to_cuda():
         Engine({}, cfg, ServeConfig())
     with pytest.raises(RuntimeError, match="CUDA"):
         convert.lm_params_from_numpy({}, cfg)
+    # the training entry points
+    from repro_torch.launch import train as tlaunch
+    from repro_torch.train import train_loop as tTL
+    dense = treg.get_config(DENSE + "-smoke")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tT.init_params(torch.Generator(), dense)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tTL.init_train_state(torch.Generator(), dense, tTL.TrainConfig())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        convert.train_state_from_numpy(types.SimpleNamespace(), dense)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tlaunch.main(["--arch", DENSE, "--smoke", "--steps", "1"])
 
 
 @pytest.mark.cuda
