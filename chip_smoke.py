@@ -28,15 +28,25 @@ kernel once per layer, and ``Engine.generate``, whose decode is the
 one-token recurrence: no kernel), and deepseek-v2-lite-16b (MLA + MoE)
 inference at full width and depth with random weights (the prefill forward
 and continuous and wave ``Engine.serve`` through 6 slots, the MoE gate
-kernel once per layer per forward and per decode step), and LM training
-through the launcher ``repro_torch.launch.train`` once those models are
-freed: internlm2-1.8b and mamba2-780m (with top-k gradient compression) at
-full width and depth, bf16, remat on, 3 steps of 8 x 4,096 tokens in 4
-microbatches (the SSD kernel in every layer's forward and recompute), and
-deepseek-v2-lite-16b at the smoke size (the MoE gate under autograd),
-each with its launch counts (the full-width two with a profiled step);
-beside them a float32
-step of each family on the card against the CPU, remat on against off,
+kernel once per layer per forward and per decode step); once those
+models are freed, the last three LM families at full width and depth with
+random weights, one model at a time: phi-3-vision-4.2b (the prefill
+forward after 1,024 patch embeddings, and continuous ``Engine.serve``
+through 4 slots, each request held equal to itself served alone),
+seamless-m4t-medium (the prefill forward over 1,024 frames, and
+``Engine.generate(frames=)``) and zamba2-1.2b (the prefill forward, the
+SSD kernel once in each of its 38 layers, and ``Engine.generate``, whose
+decode launches no kernel), each with its prefill time, a profiled prefill
+and decode step, and float32 checks against the CPU's float64 forward and
+its own cached decode; and LM training through the launcher
+``repro_torch.launch.train``: internlm2-1.8b, mamba2-780m (with top-k
+gradient compression) and zamba2-1.2b at full width and depth, bf16,
+remat on, 3 steps of 8 x 4,096 tokens in 4 microbatches (the SSD kernel
+in every layer's forward and recompute), and deepseek-v2-lite-16b at the
+smoke size (the MoE gate under autograd), each with its launch counts
+(the full-width three with a profiled step); beside them a float32
+step of each of the six families on the card against the CPU (and
+deepseek's under ``--opt``), remat on against off,
 the task gradient reaching every mamba2 leaf and the router, a launcher
 run restarted from its checkpoint against the uninterrupted run, and the
 kernels' autograd functions against plain autograd at the training
@@ -101,6 +111,7 @@ from repro_torch.kernels import moe_gate as mg  # noqa: E402
 from repro_torch.kernels import rnl_neuron as rn  # noqa: E402
 from repro_torch.kernels import ssd_scan as ss  # noqa: E402
 from repro_torch.kernels import unary_topk as ut  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch import train as train_launcher  # noqa: E402
 from repro_torch.models import transformer as lm  # noqa: E402
 from repro_torch.optim import grad_compression as GC  # noqa: E402
@@ -168,6 +179,25 @@ N_PROMPTS, NEW_TOKENS = 8, 32
 MOE_ARCH = "deepseek-v2-lite-16b"
 MOE_PREFILL_B, MOE_PREFILL_S = 4, 2048
 MOE_REQUESTS, MOE_MAX_PROMPT, MOE_NEW_TOKENS, MOE_SLOTS = 24, 24, 16, 6
+
+#: the last three LM families at full width and depth, bf16, random
+#: weights, one model alive at a time. vlm: phi-3-vision-4.2b
+#: (configs/phi3_vision_4_2b.py), prefill of B x (the config's 1,024 patch
+#: embeddings + S text tokens) and continuous serving of 12 requests of
+#: 1-24 tokens through 4 slots. audio: seamless-m4t-medium
+#: (configs/seamless_m4t_medium.py), B x the config's 1,024 frames with S
+#: text tokens, and Engine.generate(frames=) on B prompts of up to 24
+#: tokens. hybrid: zamba2-1.2b (configs/zamba2_1_2b.py), prefill of B x L
+#: tokens (the SSD kernel in each of its 38 layers) and the static
+#: Engine.generate on B prompts (the recurrence: no kernel).
+VLM_ARCH, AUDIO_ARCH, HYBRID_ARCH = ("phi-3-vision-4.2b",
+                                     "seamless-m4t-medium", "zamba2-1.2b")
+VLM_B, VLM_S = 4, 512
+VLM_REQUESTS, VLM_MAX_PROMPT, VLM_NEW_TOKENS, VLM_SLOTS = 12, 24, 16, 4
+AUDIO_B, AUDIO_S = 4, 64
+AUDIO_MAX_PROMPT, AUDIO_NEW_TOKENS = 24, 16
+HYBRID_B, HYBRID_L = 4, 2048
+HYBRID_NEW_TOKENS = 16
 
 
 def ptxas_report(name: str) -> List[Dict[str, Any]]:
@@ -1076,6 +1106,60 @@ def lm_prompts() -> List[np.ndarray]:
             for _ in range(N_PROMPTS)]
 
 
+def requests(vocab: int, n: int, max_prompt: int, seed: int
+             ) -> List[np.ndarray]:
+    """``n`` prompts of 1-``max_prompt`` random in-vocab ids, drawn as the
+    request population of benchmarks/bench_serve_lm.py (``_population``)
+    draws them; the MoE path serves that population, halved."""
+    rng = np.random.RandomState(seed)
+    lengths = rng.randint(1, max_prompt + 1, size=n)
+    return [rng.randint(3, vocab, (int(k),)).astype(np.int32)
+            for k in lengths]
+
+
+def frontend(cfg, b: int, n: int, seed: int) -> np.ndarray:
+    """``b`` x ``n`` precomputed patch or frame embeddings of the config's
+    width (float32, a numpy seed): the frontends are stubs in the
+    reference too."""
+    return np.random.default_rng(seed).standard_normal(
+        (b, n, cfg.frontend.d_embed), dtype=np.float32)
+
+
+def _prefill_check(name, cfg, tokens, out, **fields) -> Dict[str, Any]:
+    logits, aux = out
+    want = (tokens.shape[0], 1, cfg.vocab_size)
+    if tuple(logits.shape) != want or logits.dtype != torch.bfloat16 \
+            or not bool(torch.isfinite(logits).all()) \
+            or not bool(torch.isfinite(aux)):
+        raise AssertionError(f"{name}: logits {tuple(logits.shape)} "
+                             f"{logits.dtype}, expected finite {want}")
+    return dict(arch=cfg.name, layers=cfg.n_layers, dtype=cfg.dtype,
+                batch=int(tokens.shape[0]), seq=int(tokens.shape[1]),
+                finite=True, **fields)
+
+
+def _generate_check(name, cfg, prompts, new_tokens, outs, st):
+    if len(outs) != len(prompts) or any(
+            not 1 <= len(o) <= new_tokens or o.min() < 0
+            or o.max() >= cfg.vocab_size for o in outs):
+        raise AssertionError(f"{name}: outputs out of range")
+    new = sum(len(o) for o in outs)
+    return dict(arch=cfg.name, layers=cfg.n_layers, dtype=cfg.dtype,
+                requests=len(prompts),
+                prompt_tokens=[len(p) for p in prompts],
+                new_tokens=new, steps=st["steps"],
+                tokens_per_s=new / st["wall_s"],
+                steps_per_s=st["steps"] / st["wall_s"])
+
+
+def _timed_generate(eng, *args, **kw):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = eng.generate(*args, **kw)
+    wall_s = time.perf_counter() - t0
+    return outs, dict(steps=eng.n_steps, wall_s=wall_s)
+
+
 def lm_paths(dev, cfg, params, tokens, prompts) -> List[Path]:
     """mamba2-780m inference at full width and depth: the prefill forward
     on ``tokens`` (B sequences of L tokens, ``logits_mode="last"``), one
@@ -1083,52 +1167,22 @@ def lm_paths(dev, cfg, params, tokens, prompts) -> List[Path]:
     (greedy), whose decode is the one-token recurrence and launches no
     kernel."""
     def prefill_run():
-        logits, _ = lm.forward(params, cfg, tokens, logits_mode="last")
-        return logits, None
+        return lm.forward(params, cfg, tokens, logits_mode="last"), None
 
-    def prefill_check(logits, _):
-        want = (tokens.shape[0], 1, cfg.vocab_size)
-        if tuple(logits.shape) != want or logits.dtype != torch.bfloat16 \
-                or not bool(torch.isfinite(logits).all()):
-            raise AssertionError(f"lm_prefill: logits {tuple(logits.shape)} "
-                                 f"{logits.dtype}, expected finite {want}")
-        return dict(arch=cfg.name, layers=cfg.n_layers, dtype=cfg.dtype,
-                    batch=int(tokens.shape[0]), seq=int(tokens.shape[1]),
-                    finite=True)
+    def prefill_check(out, _):
+        return _prefill_check("lm_prefill", cfg, tokens, out)
 
     def generate_run():
-        eng = Engine(params, cfg, ServeConfig(), device=dev)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        outs = eng.generate(prompts, max_new_tokens=NEW_TOKENS)
-        wall_s = time.perf_counter() - t0
-        return outs, dict(steps=eng.n_steps, wall_s=wall_s)
+        return _timed_generate(Engine(params, cfg, ServeConfig(), device=dev),
+                               prompts, NEW_TOKENS)
 
     def generate_check(outs, st):
-        new = sum(len(o) for o in outs)
-        if len(outs) != len(prompts) or any(
-                not 1 <= len(o) <= NEW_TOKENS or o.min() < 0
-                or o.max() >= cfg.vocab_size for o in outs):
-            raise AssertionError("lm_generate: outputs out of range")
-        return dict(requests=len(prompts),
-                    prompt_tokens=[len(p) for p in prompts],
-                    new_tokens=new, steps=st["steps"],
-                    tokens_per_s=new / st["wall_s"],
-                    steps_per_s=st["steps"] / st["wall_s"])
+        return _generate_check("lm_generate", cfg, prompts, NEW_TOKENS, outs,
+                               st)
 
     return [Path("lm_prefill", "ssd_scan", prefill_run, prefill_check,
                  launches=cfg.n_layers),
             Path("lm_generate", None, generate_run, generate_check)]
-
-
-def moe_prompts(vocab: int) -> List[np.ndarray]:
-    """The request population of benchmarks/bench_serve_lm.py
-    (``_population``), halved: MOE_REQUESTS prompts of 1-MOE_MAX_PROMPT
-    random in-vocab ids."""
-    rng = np.random.RandomState(0)
-    lengths = rng.randint(1, MOE_MAX_PROMPT + 1, size=MOE_REQUESTS)
-    return [rng.randint(3, vocab, (int(n),)).astype(np.int32)
-            for n in lengths]
 
 
 def moe_engine(dev, cfg, params) -> Engine:
@@ -1150,16 +1204,8 @@ def moe_paths(dev, cfg, params, tokens, prompts) -> List[Path]:
         return (logits, aux), None
 
     def prefill_check(out, _):
-        logits, aux = out
-        want = (tokens.shape[0], 1, cfg.vocab_size)
-        if tuple(logits.shape) != want or logits.dtype != torch.bfloat16 \
-                or not bool(torch.isfinite(logits).all()) \
-                or not bool(torch.isfinite(aux)):
-            raise AssertionError(f"moe_prefill: logits {tuple(logits.shape)}"
-                                 f" {logits.dtype}, expected finite {want}")
-        return dict(arch=cfg.name, layers=cfg.n_layers, dtype=cfg.dtype,
-                    batch=int(tokens.shape[0]), seq=int(tokens.shape[1]),
-                    aux_loss=float(aux), finite=True)
+        return _prefill_check("moe_prefill", cfg, tokens, out,
+                              aux_loss=float(out[1]))
 
     def serve_run():
         eng = moe_engine(dev, cfg, params)
@@ -1213,6 +1259,117 @@ def moe_paths(dev, cfg, params, tokens, prompts) -> List[Path]:
                  launches=cfg.n_layers),
             Path("moe_serve", "moe_gate_topk", serve_run, serve_check,
                  launches=serve_launches)]
+
+
+def vlm_paths(dev, cfg, params, tokens, patches, prompts) -> List[Path]:
+    """phi-3-vision-4.2b at full width and depth: the prefill forward on
+    ``tokens`` after the ``patches`` prefix (``logits_mode="last"``; the
+    check also runs ``"all"``, whose logits leave the prefix out), and
+    ``Engine.serve`` of ``prompts`` through VLM_SLOTS slots, continuous:
+    each request's tokens must equal its own ``serve([p],
+    n_slots=VLM_SLOTS)`` (the same batch shape, so the card's products
+    round alike). No kernel: the family is GQA attention."""
+    def prefill_run():
+        return lm.forward(params, cfg, tokens, patches=patches,
+                          logits_mode="last"), None
+
+    def prefill_check(out, _):
+        every, _ = lm.forward(params, cfg, tokens, patches=patches)
+        want = (tokens.shape[0], tokens.shape[1], cfg.vocab_size)
+        if tuple(every.shape) != want \
+                or not bool(torch.isfinite(every).all()):
+            raise AssertionError(f"vlm_prefill: logits_mode='all' gave "
+                                 f"{tuple(every.shape)}, expected finite "
+                                 f"{want} (the prefix left out)")
+        return _prefill_check(
+            "vlm_prefill", cfg, tokens, out, patches=int(patches.shape[1]),
+            all_logits=list(every.shape),
+            last_vs_all_over_scale=_over_scale(out[0][:, 0],
+                                               every[:, -1]))
+
+    def engine():
+        return Engine(params, cfg, ServeConfig(
+            max_len=VLM_MAX_PROMPT + VLM_NEW_TOKENS + 2), device=dev)
+
+    def serve_run():
+        eng = engine()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = eng.serve(prompts, VLM_NEW_TOKENS, n_slots=VLM_SLOTS)
+        torch.cuda.synchronize()
+        return outs, dict(steps=eng.n_steps, wall_s=time.perf_counter() - t0)
+
+    def serve_check(outs, st):
+        eng = engine()
+        for i, (o, p) in enumerate(zip(outs, prompts)):
+            alone = eng.serve([p], VLM_NEW_TOKENS, n_slots=VLM_SLOTS)[0]
+            if not np.array_equal(o, alone):
+                raise AssertionError(
+                    f"vlm_serve: request {i}'s tokens differ from its own "
+                    f"serve([p], n_slots={VLM_SLOTS})")
+        return dict(_generate_check("vlm_serve", cfg, prompts,
+                                    VLM_NEW_TOKENS, outs, st),
+                    slots=VLM_SLOTS, equal_to_own_serve=len(prompts))
+
+    return [Path("vlm_prefill", None, prefill_run, prefill_check),
+            Path("vlm_serve", None, serve_run, serve_check)]
+
+
+def audio_paths(dev, cfg, params, tokens, frames, prompts) -> List[Path]:
+    """seamless-m4t-medium at full width and depth: the prefill forward on
+    ``tokens`` with ``frames`` (the 12-layer encoder, then the decoder
+    cross-attending to its output; ``logits_mode="last"``), and
+    ``Engine.generate(prompts, frames=)`` on the static path (the encoder
+    once, in ``init_serve_state``; each decode step recomputes the cross
+    K/V of the 1,024 frames in every layer, as the reference does). No
+    kernel."""
+    def prefill_run():
+        return lm.forward(params, cfg, tokens, frames=frames,
+                          logits_mode="last"), None
+
+    def prefill_check(out, _):
+        return _prefill_check("audio_prefill", cfg, tokens, out,
+                              frames=int(frames.shape[1]),
+                              encoder_layers=cfg.encdec.n_encoder_layers)
+
+    def generate_run():
+        eng = Engine(params, cfg, ServeConfig(
+            max_len=AUDIO_MAX_PROMPT + AUDIO_NEW_TOKENS + 2), device=dev)
+        return _timed_generate(eng, prompts, AUDIO_NEW_TOKENS, frames=frames)
+
+    def generate_check(outs, st):
+        return _generate_check("audio_generate", cfg, prompts,
+                               AUDIO_NEW_TOKENS, outs, st)
+
+    return [Path("audio_prefill", None, prefill_run, prefill_check),
+            Path("audio_generate", None, generate_run, generate_check)]
+
+
+def hybrid_paths(dev, cfg, params, tokens, prompts) -> List[Path]:
+    """zamba2-1.2b at full width and depth: the prefill forward on
+    ``tokens`` (``logits_mode="last"``; one SSD launch in each of the 38
+    layers, the shared attention block after every 6th), and the static
+    ``Engine.generate`` on ``prompts``, whose decode is the one-token
+    recurrence and the shared block over each site's cache: no launch."""
+    def prefill_run():
+        return lm.forward(params, cfg, tokens, logits_mode="last"), None
+
+    def prefill_check(out, _):
+        return _prefill_check("hybrid_prefill", cfg, tokens, out,
+                              period=cfg.hybrid.period,
+                              sites=cfg.n_layers // cfg.hybrid.period)
+
+    def generate_run():
+        eng = Engine(params, cfg, ServeConfig(), device=dev)
+        return _timed_generate(eng, prompts, HYBRID_NEW_TOKENS)
+
+    def generate_check(outs, st):
+        return _generate_check("hybrid_generate", cfg, prompts,
+                               HYBRID_NEW_TOKENS, outs, st)
+
+    return [Path("hybrid_prefill", "ssd_scan", prefill_run, prefill_check,
+                 launches=cfg.n_layers),
+            Path("hybrid_generate", None, generate_run, generate_check)]
 
 
 def capture(run, ssd_copies: Optional[int] = None,
@@ -2106,10 +2263,10 @@ def device_share(dev_events, wall_ms):
 PROFILE_MIN_MS = 20.0
 #: marker kernels (``spin_kernel``, from ``torch.cuda._sleep``) launched
 #: inside a path profile before and after its runs: late in the script a
-#: profile can drop a dozen or so device records at one end (runs 1 and
-#: 4-7 of this script's gate-level profiles), which the markers take
+#: profile can drop a dozen to 32 device records at one end (once all 32
+#: of the audio prefill's leading markers), which the markers take
 #: instead of the path's own
-PROFILE_MARKERS = 32
+PROFILE_MARKERS = 64
 
 
 def kernel_count(event) -> int:
@@ -2251,14 +2408,15 @@ def phase_profile_learn(dev, streams, ff, p_ff):
             stdp.stdp_update_column_minibatch = real
 
 
-def phase_lm_prefill(cfg, params, tokens, name="lm_prefill_time"):
+def phase_lm_prefill(cfg, params, tokens, name="lm_prefill_time", **extra):
     """Host clock around whole prefill forwards, each ended by a
-    synchronise: ms per forward (median of 3) and prefill tokens/s."""
+    synchronise: ms per forward (median of 3) and prefill tokens/s (text
+    tokens; ``extra``: the patches or frames, passed to ``forward``)."""
     times = []
     for _ in range(3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        lm.forward(params, cfg, tokens, logits_mode="last")
+        lm.forward(params, cfg, tokens, logits_mode="last", **extra)
         torch.cuda.synchronize()
         times.append(1e3 * (time.perf_counter() - t0))
     ms = statistics.median(times)
@@ -2268,12 +2426,14 @@ def phase_lm_prefill(cfg, params, tokens, name="lm_prefill_time"):
 
 
 def phase_profile_decode(cfg, params, prompts, run="lm_decode_step",
-                         per_slot=False):
+                         per_slot=False, frames=None):
     """Where a generation step's time goes: 4 warm ``decode_step`` calls
     for the prompts' batch under the profiler (busy, idle share, top
-    device ops), with per-slot cache positions when ``per_slot``."""
+    device ops), with per-slot cache positions when ``per_slot`` (and the
+    audio family's ``frames`` encoded first, outside the profile)."""
     steps = 4
-    state = lm.init_serve_state(params, cfg, len(prompts), 256)
+    state = lm.init_serve_state(params, cfg, len(prompts), 256,
+                                frames=frames)
     if per_slot:
         state = lm.per_slot_state(state, len(prompts))
     first = np.array([[p[0]] for p in prompts], np.int32)
@@ -2444,10 +2604,19 @@ def phase_lm_checks(dev, cfg, params, tokens, prompts):
 MLA_TOL_F32, MOE_LOGITS_TOL_F32, MOE_CARD_CPU_TOL = 1e-5, 1e-4, 1e-4
 
 
-def _f32_layers(params, n):
-    """The parameters in float32 with the first ``n`` layers."""
-    return {**{k: v.float() for k, v in params.items() if k != "layers"},
-            "layers": _map(params["layers"], lambda t: t[:n].float())}
+def _cut_f32(params, n_layers: int, n_encoder: int = 0):
+    """A float32 copy of ``params`` with the first ``n_layers`` layers
+    (and ``n_encoder`` encoder layers)."""
+    out = {}
+    for k, v in params.items():
+        if k in ("layers", "encoder"):
+            n = n_layers if k == "layers" else n_encoder
+            out[k] = _map(v, lambda t, n=n: t[:n].float())
+        elif isinstance(v, dict):
+            out[k] = _map(v, lambda t: t.float())
+        else:
+            out[k] = v.float()
+    return out
 
 
 def phase_moe_checks(dev, cfg, params):
@@ -2488,7 +2657,7 @@ def phase_moe_checks(dev, cfg, params):
     e, k = cfg.moe.n_experts, cfg.moe.top_k
     cfg2 = dataclasses.replace(cfg32, n_layers=2, moe=dataclasses.replace(
         cfg.moe, capacity_factor=e / k))
-    p2 = _f32_layers(params, 2)
+    p2 = _cut_f32(params, 2)
     toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 32))).to(dev)
     for t in (1, toks.shape[1]):
         if lm.M._capacity(t, cfg2.moe) != t:
@@ -2505,7 +2674,7 @@ def phase_moe_checks(dev, cfg, params):
         raise AssertionError(f"moe: 2-layer forward vs decode {fwd_dec}")
 
     cfg1 = dataclasses.replace(cfg32, n_layers=1)
-    p1 = _f32_layers(params, 1)
+    p1 = _cut_f32(params, 1)
     toks1 = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 64))).to(dev)
     card, _ = lm.forward(p1, cfg1, toks1, logits_mode="last")
     host, _ = lm.forward(_map(p1, lambda t: t.cpu().double()), cfg1,
@@ -2527,6 +2696,166 @@ def phase_moe_checks(dev, cfg, params):
                           tol=MOE_CARD_CPU_TOL))
 
 
+# ============================================= vlm, audio and hybrid
+
+#: family checks, as fractions of the logits' scale (float32, TF32 off):
+#: the card's forward against the CPU's float64 one, and the card's cached
+#: decode against its own forward. The hybrid's 7 random SSM layers
+#: amplify float32 rounding (a random 48-layer mamba2 reaches 1.1e-3;
+#: these 7 layers 1.26e-4 on an H100, with the kernel or with the SSD
+#: scan's plain version alike): its gates are the mamba2 checks'
+#: per-layer one, LAYER_TOL_F32, with the kernel and with the plain
+#: version on the card (reported beside it)
+FAMILY_TOL = {"vlm": 1e-4, "audio": 1e-4, "hybrid": LAYER_TOL_F32}
+
+
+def phase_family_checks(dev, cfg, params) -> None:
+    """Cross-checks of a vlm, audio or hybrid model at full width in
+    float32 (copies of the bf16 weights, upcast; TF32 off), depth cut: 2
+    layers (audio: 2 encoder and 2 decoder layers; hybrid: 7 layers with
+    the config's period 6, so one shared-block site and a tail layer run).
+    (1) The card's forward (vlm: after 64 patch embeddings; audio: over 128
+    frames) against the CPU's plain forward in float64, within FAMILY_TOL
+    of the logits' scale (hybrid: with the kernel and with the SSD scan's
+    plain version on the card). (2) The card's cached decode token by token (audio:
+    cross-attending to the encoder output held in the state; hybrid: the
+    shared block over its site's cache) against the card's own forward
+    (vlm: text only, as decode takes no patches), within FAMILY_TOL."""
+    family = cfg.family
+    rng = np.random.default_rng(13)
+    if family == "hybrid":
+        cut = dataclasses.replace(cfg, dtype="float32", n_layers=7)
+        seq = 256
+    elif family == "audio":
+        cut = dataclasses.replace(cfg, dtype="float32", n_layers=2,
+                                  encdec=dataclasses.replace(
+                                      cfg.encdec, n_encoder_layers=2))
+        seq = 32
+    else:
+        cut = dataclasses.replace(cfg, dtype="float32", n_layers=2)
+        seq = 64
+    p32 = _cut_f32(params, cut.n_layers, 2 if family == "audio" else 0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                         (1, seq))).to(dev)
+    extra = {}
+    if family == "vlm":
+        extra["patches"] = frontend(cfg, 1, 64, 14)
+    elif family == "audio":
+        extra["frames"] = frontend(cfg, 1, 128, 15)
+    ss.reset_launches()
+    card, _ = lm.forward(p32, cut, toks, **extra)
+    launches = ss.LAUNCHES["ssd_scan"]
+    host, _ = lm.forward(_map(p32, lambda t: t.cpu().double()), cut,
+                         toks.cpu(), **{k: v.astype(np.float64)
+                                        for k, v in extra.items()})
+    card_cpu = _over_scale(card.cpu(), host)
+    plain_cpu = card_cpu
+    if family == "hybrid":
+        kernel = ss._ssd_scan
+        ss._ssd_scan = ss._ssd_scan_plain
+        try:
+            plain, _ = lm.forward(p32, cut, toks)
+        finally:
+            ss._ssd_scan = kernel
+        plain_cpu = _over_scale(plain.cpu(), host)
+        del plain
+    want_launches = cut.n_layers if family == "hybrid" else 0
+    tol = FAMILY_TOL[family]
+    if host.dtype != torch.float64 or not max(card_cpu, plain_cpu) <= tol \
+            or launches != want_launches:
+        raise AssertionError(f"{cfg.name}: card vs CPU float64 forward "
+                             f"{card_cpu} (the plain SSD scan on the card: "
+                             f"{plain_cpu}), {launches} SSD launches")
+    del host
+    fwd = card if family != "vlm" else lm.forward(p32, cut, toks)[0]
+    frames = extra.get("frames")
+    state = lm.init_serve_state(p32, cut, 1, seq, frames=frames)
+    dec = []
+    for t in range(seq):
+        logits, state = lm.decode_step(p32, cut, state, toks[:, t:t + 1])
+        dec.append(logits)
+    fwd_dec = _over_scale(torch.stack(dec, dim=1), fwd)
+    if not fwd_dec <= tol:
+        raise AssertionError(f"{cfg.name}: forward vs decode {fwd_dec}")
+    emit("family_checks", arch=cfg.name, family=family,
+         tf32_matmul=torch.backends.cuda.matmul.allow_tf32,
+         layers=cut.n_layers, seq=seq,
+         **{k: int(v.shape[1]) for k, v in extra.items()},
+         card_vs_cpu=dict(card_dtype="float32", host_dtype="float64",
+                          logits_mode="all", max_err_over_scale=card_cpu,
+                          tol=tol, ssd_launches=launches,
+                          plain_scan_max_err_over_scale=plain_cpu),
+         forward_vs_decode=dict(max_err_over_scale=fwd_dec, tol=tol,
+                                shared_sites=len(state.shared_cache.k)
+                                if state.shared_cache is not None else 0,
+                                encoder_frames=int(state.enc_out.shape[1])
+                                if state.enc_out is not None else 0))
+
+
+def phase_family(dev, arch) -> Tuple[Dict[str, Dict[str, int]],
+                                     Dict[str, Optional[str]]]:
+    """One of the last three LM families at full width and depth, alone on
+    the card: random bf16 weights from a seeded generator, its two paths
+    (a capture pass that also warms them: every SSD call the prefill makes
+    held against the plain version, the first timed: row 5 at zamba2's
+    call; an engine path that must launch no kernel is not captured, as
+    for the earlier paths), the measured run of each path with its launch
+    counts, the
+    prefill's host-clock time, a profile of the prefill and of a decode
+    step, and :func:`phase_family_checks`. Returns each path's launch
+    counts and kernel."""
+    cfg = lm_registry.get_config(arch)
+    params = lm.init_params(torch.Generator(device=dev).manual_seed(0), cfg,
+                            device=dev)
+    extra: Dict[str, Any] = {}
+    per_slot = False
+    if cfg.family == "vlm":
+        tokens = torch.from_numpy(np.random.default_rng(16).integers(
+            0, cfg.vocab_size, (VLM_B, VLM_S))).to(dev)
+        extra["patches"] = torch.from_numpy(frontend(
+            cfg, VLM_B, cfg.frontend.n_tokens, 17)).to(dev)
+        prompts = requests(cfg.vocab_size, VLM_REQUESTS, VLM_MAX_PROMPT, 1)
+        paths = vlm_paths(dev, cfg, params, tokens, extra["patches"],
+                          prompts)
+        decode_prompts, per_slot = prompts[:VLM_SLOTS], True
+    elif cfg.family == "audio":
+        tokens = torch.from_numpy(np.random.default_rng(18).integers(
+            0, cfg.vocab_size, (AUDIO_B, AUDIO_S))).to(dev)
+        extra["frames"] = torch.from_numpy(frontend(
+            cfg, AUDIO_B, cfg.encdec.encoder_seq, 19)).to(dev)
+        prompts = requests(cfg.vocab_size, AUDIO_B, AUDIO_MAX_PROMPT, 2)
+        paths = audio_paths(dev, cfg, params, tokens, extra["frames"],
+                            prompts)
+        decode_prompts = prompts
+    else:
+        tokens = torch.from_numpy(np.random.default_rng(20).integers(
+            0, cfg.vocab_size, (HYBRID_B, HYBRID_L))).to(dev)
+        prompts = lm_prompts()[:HYBRID_B]
+        paths = hybrid_paths(dev, cfg, params, tokens, prompts)
+        decode_prompts = prompts
+    # the prefill (paths[0]) is captured, and so warmed, even without a
+    # kernel; an engine path without one (host-bound, seconds a run) is not
+    captured = {path.name: capture(path.run)
+                if path.kernel or path is paths[0] else [] for path in paths}
+    for name, cases in captured.items():
+        for i, case in enumerate(cases):
+            for k, ops in enumerate(case.get("operands", [])):
+                check_ssd(f"{name}#{i}/call{k}", *ops, case["chunk"],
+                          case["heads"], timed=k == 0, path=name,
+                          calls=case["calls"])
+    launches = phase_serve(paths, captured)
+    del captured
+    phase_lm_prefill(cfg, params, tokens, f"{cfg.family}_prefill_time",
+                     **extra)
+    phase_profile_path(paths[0])
+    phase_profile_decode(cfg, params, decode_prompts,
+                         f"{cfg.family}_decode_step", per_slot=per_slot,
+                         frames=None if "frames" not in extra
+                         else extra["frames"][:len(decode_prompts)])
+    phase_family_checks(dev, cfg, params)
+    return launches, {path.name: path.kernel for path in paths}
+
+
 # ================================================================ training
 
 #: LM training through the launcher (``repro_torch.launch.train``) at full
@@ -2537,6 +2866,10 @@ def phase_moe_checks(dev, cfg, params):
 #: decoder the reference's own training tests train (tests/test_runtime.py).
 TRAIN_DENSE, TRAIN_SSM, TRAIN_MOE = ("internlm2-1.8b", "mamba2-780m",
                                      "deepseek-v2-lite-16b")
+#: zamba2-1.2b trains the same way (the SSD kernel in each of its 38
+#: layers' forward and recompute, the shared block's 32 heads of f32
+#: scores at each of its 6 sites)
+TRAIN_HYBRID = HYBRID_ARCH
 TRAIN_SEQ, TRAIN_BATCH, TRAIN_ACCUM, TRAIN_STEPS = 4096, 8, 4, 3
 #: deepseek-v2-lite-16b's 16 B parameters with f32 moments do not fit one
 #: card: the MoE gate trains at the smoke size (the launcher's --smoke
@@ -2631,6 +2964,8 @@ def train_paths(root, smi) -> List[Tuple[Path, List[str]]]:
              batch=TRAIN_BATCH),
         path("train_mamba2", TRAIN_SSM, "ssd_scan", seq=TRAIN_SEQ,
              batch=TRAIN_BATCH, compress=True),
+        path("train_zamba2", TRAIN_HYBRID, "ssd_scan", seq=TRAIN_SEQ,
+             batch=TRAIN_BATCH),
         path("train_moe_smoke", TRAIN_MOE, "moe_gate_topk", smoke=True,
              accum=MOE_TRAIN_ACCUM)]
 
@@ -2713,12 +3048,15 @@ def _check_update(want, got, grads, lr, label) -> int:
     return moved
 
 
-def _smoke_step(arch, dev, *, remat="block"):
-    """One float32 compressed train step of ``arch``'s smoke config on
-    ``dev`` from the same state (made on the CPU) and batch; returns the
-    new state, the metrics and the gradients."""
+def _smoke_step(arch, dev, *, remat="block", opt=False):
+    """One float32 compressed train step of ``arch``'s smoke config (after
+    ``apply_opt`` with ``opt``) on ``dev`` from the same state (made on the
+    CPU) and batch (with patches or frames from a numpy seed for vlm and
+    audio); returns the new state, the metrics and the gradients."""
     cfg = dataclasses.replace(lm_registry.get_config(arch + "-smoke"),
                               dtype="float32", remat=remat)
+    if opt:
+        cfg = dryrun.apply_opt(cfg)
     tcfg = TL.TrainConfig(optimizer=O.AdamWConfig(lr=CHECK_LR,
                                                   warmup_steps=2,
                                                   total_steps=50),
@@ -2729,6 +3067,10 @@ def _smoke_step(arch, dev, *, remat="block"):
                             for x in state))
     batch = DP.SyntheticLM(DP.DataConfig(
         seq_len=70, global_batch=2, vocab_size=cfg.vocab_size)).batch(0)
+    if cfg.family == "vlm":
+        batch["patches"] = frontend(cfg, 2, cfg.frontend.n_tokens, 21)
+    if cfg.family == "audio":
+        batch["frames"] = frontend(cfg, 2, cfg.encdec.encoder_seq, 22)
     grads = TL.grads_of(state.params, cfg, batch)[2]
     new, metrics = TL.make_train_step(cfg, tcfg)(state, batch)
     return cfg, new, metrics, grads, batch
@@ -2736,20 +3078,24 @@ def _smoke_step(arch, dev, *, remat="block"):
 
 def phase_train_checks(dev, root) -> None:
     """Training cross-checks at the smoke size, TF32 off. (1) One float32
-    compressed step of internlm2, mamba2 and deepseek-v2-lite (SSD and gate
-    kernels on the card) against the CPU's plain step: loss and grad norm
-    within 1e-4 (relative), every updated leaf as TRAIN_LEAF_TOL says.
-    (2) Remat on (``torch.utils.checkpoint``) against remat off on the
-    card: loss, gradients and updated leaves bit for bit. (3) On the card,
-    every leaf of every mamba2 layer and every layer's MoE router gets a
-    non-zero gradient from the cross-entropy alone (before this slice the
-    SSD kernel and the gate returned none). (4) A launcher run
+    compressed step of internlm2, mamba2, deepseek-v2-lite (SSD and gate
+    kernels on the card), phi-3-vision (with patches), seamless-m4t (with
+    frames) and zamba2 (the SSD kernel and the shared block) against the
+    CPU's plain step: loss and grad norm within 1e-4 (relative), every
+    updated leaf as TRAIN_LEAF_TOL says; and deepseek-v2-lite's step under
+    ``apply_opt`` (``--opt``: capacity factor 1.0, so assignments drop)
+    the same way. (2) Remat on (``torch.utils.checkpoint``) against remat
+    off on the card: loss, gradients and updated leaves bit for bit. (3)
+    On the card, every leaf of every layer (deepseek: every layer's MoE
+    router) gets a non-zero gradient from the cross-entropy alone (the
+    SSD kernel and the gate once returned none). (4) A launcher run
     (mamba2-780m smoke, compression, 2 microbatches, 6 steps, checkpoints
     every 3) that fails after its 4th step and is started again equals the
     run that did not fail: losses and every leaf of the final state bit for
     bit."""
     steps = {}
-    for arch in (TRAIN_DENSE, TRAIN_SSM, TRAIN_MOE):
+    for arch in (TRAIN_DENSE, TRAIN_SSM, TRAIN_MOE, VLM_ARCH, AUDIO_ARCH,
+                 HYBRID_ARCH):
         ss.reset_launches()
         mg.reset_launches()
         cfg, card, cm, cgrads, batch = _smoke_step(arch, dev)
@@ -2770,8 +3116,9 @@ def phase_train_checks(dev, root) -> None:
             raise AssertionError(f"train {arch}: remat on differs from off")
         leaves = [p.detach().requires_grad_()
                   for p in tree_leaves(card.params)]
-        logits, _ = lm.forward(tree_unflatten(card.params, leaves), cfg,
-                               batch["tokens"])
+        logits, _ = lm.forward(
+            tree_unflatten(card.params, leaves), cfg, batch["tokens"],
+            **{k: batch[k] for k in ("patches", "frames") if k in batch})
         ce = lm.L.cross_entropy(logits, torch.as_tensor(batch["labels"],
                                                         device=dev))
         grads = torch.autograd.grad(ce, leaves, allow_unused=True)
@@ -2787,6 +3134,19 @@ def phase_train_checks(dev, root) -> None:
                            kernel_launches=kernel_calls,
                            remat_equals_no_remat=remat_equal,
                            leaves_with_task_gradient=len(wanted))
+    cfg, card, cm, _, _ = _smoke_step(TRAIN_MOE, dev, opt=True)
+    _, host, hm, hgrads, _ = _smoke_step(TRAIN_MOE, torch.device("cpu"),
+                                         opt=True)
+    rel = {k: abs(float(cm[k]) - float(hm[k])) / abs(float(hm[k]))
+           for k in ("loss", "grad_norm")}
+    if max(rel.values()) > TRAIN_CARD_CPU_TOL:
+        raise AssertionError(f"train {TRAIN_MOE} --opt: card vs CPU {rel}")
+    steps[TRAIN_MOE + " --opt"] = dict(
+        card_vs_cpu=rel, tol=TRAIN_CARD_CPU_TOL,
+        capacity_factor=cfg.moe.capacity_factor, dispatch=cfg.moe.dispatch,
+        near_zero_grad_elements_moved=_check_update(
+            host.params, card.params, hgrads, float(hm["lr"]),
+            f"train {TRAIN_MOE} --opt card vs CPU"))
 
     def argv(name):
         return launcher_argv(TRAIN_SSM, pathlib.Path(root) / name,
@@ -2981,7 +3341,8 @@ def smoke(root: str) -> int:
                                 moe_cfg, device=dev)
     moe_tokens = torch.from_numpy(np.random.default_rng(10).integers(
         0, moe_cfg.vocab_size, (MOE_PREFILL_B, MOE_PREFILL_S))).to(dev)
-    moe_requests = moe_prompts(moe_cfg.vocab_size)
+    moe_requests = requests(moe_cfg.vocab_size, MOE_REQUESTS, MOE_MAX_PROMPT,
+                            0)
     served: Dict[str, Any] = {}
     paths = main_paths(dev, streams, ff, p_ff, served) + learn_paths(
         dev, streams, ff, p_ff, served) + durability_paths(
@@ -2990,8 +3351,10 @@ def smoke(root: str) -> int:
         dev, moe_cfg, moe_params, moe_tokens, moe_requests)
     # capture pass (also the warm-up): each path's calls and operands
     # (the generation path launches no kernel: its measured run shows it)
-    captured = {path.name: capture(path.run) if path.kernel else []
-                for path in paths}
+    # the prefill (paths[0]) is captured, and so warmed, even without a
+    # kernel; an engine path without one (host-bound, seconds a run) is not
+    captured = {path.name: capture(path.run)
+                if path.kernel or path is paths[0] else [] for path in paths}
     floor_ms = launch_floor_ms()
     emit("kernels", variant="launch_floor", op="fill_ of one float32 "
          "element", ms=floor_ms, ms_source="profiler")
@@ -3020,11 +3383,18 @@ def smoke(root: str) -> int:
         for dt in (torch.bfloat16, torch.float32)})
     kernel_of = {path.name: path.kernel for path in paths}
 
-    # training: the inference models and the captured operands go first
-    # (deepseek's parameters alone hold 32 GB)
+    # the last three LM families and training: the inference models and
+    # the captured operands go first (deepseek's parameters alone hold
+    # 32 GB); then one family's model at a time
     del paths, path, captured, lm_params, moe_params, lm_tokens, moe_tokens
     gc.collect()
     torch.cuda.empty_cache()
+    for arch in (VLM_ARCH, AUDIO_ARCH, HYBRID_ARCH):
+        family_launches, family_kernels = phase_family(dev, arch)
+        launches.update(family_launches)
+        kernel_of.update(family_kernels)
+        gc.collect()
+        torch.cuda.empty_cache()
     phase_train_checks(dev, root)
     phase_train_autograd(dev, smi)
     train = train_paths(root, smi)

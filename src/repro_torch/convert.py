@@ -49,9 +49,10 @@ def column_from_numpy(weights: np.ndarray,
 
 
 #: LM leaves the reference keeps in float32 whatever the model dtype (norm
-#: scales, the SSD time-step bias and decay rate, the MoE router)
-F32_LEAVES = frozenset({"final_norm", "norm", "norm1", "norm2", "dt_bias",
-                        "a_log", "router"})
+#: scales, the audio decoder's cross-attention norm among them, the SSD
+#: time-step bias and decay rate, the MoE router)
+F32_LEAVES = frozenset({"final_norm", "norm", "norm1", "norm2", "norm_x",
+                        "dt_bias", "a_log", "router"})
 
 
 def lm_params_from_numpy(tree: Mapping[str, Any], cfg: ModelConfig,

@@ -7,15 +7,18 @@ and a small batch, which the CPU runs). A run restarted with the same
 flags resumes from the latest checkpoint under ``--ckpt-dir`` and takes
 the steps the uninterrupted run would have taken.
 
-The reference's layout options (``--opt``, the dry-run's ``apply_opt``)
-and its mesh branch (more than one device) come with the multi-GPU slice
-of the port and raise here.
+``--opt`` applies the reference's layout transform
+(:func:`repro_torch.launch.dryrun.apply_opt`); on one device only its MoE
+settings change what runs. The reference's mesh branch (more than one
+process) comes with the multi-GPU slice of the port and raises here.
 
 Usage:
   python -m repro_torch.launch.train --arch internlm2-1.8b --smoke \
       --steps 50 --device cpu
   python -m repro_torch.launch.train --arch mamba2-780m --steps 100 \
       --global-batch 8 --grad-accum 4 --compress
+  python -m repro_torch.launch.train --arch deepseek-v2-lite-16b --smoke \
+      --opt --steps 1 --device cpu
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.registry import ARCH_IDS, get_config
 from repro_torch.data import pipeline as DP
 from repro_torch.kernels.common import resolve_device
+from repro_torch.launch.dryrun import apply_opt
 from repro_torch.optim import grad_compression as GC
 from repro_torch.optim.optimizers import AdamWConfig
 from repro_torch.train import checkpoint as CK
@@ -40,7 +44,7 @@ from repro_torch.train import fault_tolerance as FT
 from repro_torch.train import train_loop as TL
 
 MULTI_GPU = ("the multi-GPU slice of the port (ROADMAP, Queue 1: sharding "
-             "specs, the mesh and the hillclimbed layouts)")
+             "specs and the mesh)")
 
 
 def parser() -> argparse.ArgumentParser:
@@ -56,7 +60,7 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--compress", action="store_true",
                     help="Catwalk top-k gradient compression (rho 0.01)")
     ap.add_argument("--opt", action="store_true",
-                    help="hillclimbed layout (multi-GPU slice; raises)")
+                    help="hillclimbed layout (see dryrun.apply_opt)")
     ap.add_argument("--ckpt-dir", default=str(
         pathlib.Path(tempfile.gettempdir()) / "repro_torch_launch_train"))
     ap.add_argument("--ckpt-every", type=int, default=50)
@@ -84,6 +88,8 @@ def setup(args: argparse.Namespace
     """The model config, train config and data stream that ``args`` (the
     launcher's parsed flags) ask for."""
     cfg = get_config(args.arch + ("-smoke" if args.smoke else ""))
+    if args.opt:
+        cfg = apply_opt(cfg)
     tcfg = TL.TrainConfig(
         optimizer=AdamWConfig(lr=args.lr, warmup_steps=min(20, args.steps),
                               total_steps=args.steps),
@@ -108,9 +114,6 @@ def main(argv: Optional[Sequence[str]] = None, *,
     each step's loss and seconds (host clock, ended by reading the
     loss)."""
     args = parser().parse_args(argv)
-    if args.opt:
-        raise NotImplementedError(f"--opt (dryrun.apply_opt) comes with "
-                                  f"{MULTI_GPU}")
     if _world_size() > 1:
         raise NotImplementedError(f"training over {_world_size()} processes "
                                   f"comes with {MULTI_GPU}")

@@ -1,19 +1,32 @@
-"""Model assembly for the dense family (GQA decoder with a SwiGLU MLP),
-the ssm family (Mamba2, attention-free) and the moe family (GQA or MLA
-attention + MoE FFN, with shared experts or a dense residual branch).
+"""Model assembly: every LM family of the reference from one set of blocks.
+
+Families (configs/base.py):
+  dense / vlm   GQA decoder with a SwiGLU MLP (vlm prepends projected
+                patch embeddings: the vision frontend is a stub, as in the
+                reference)
+  moe           GQA or MLA attention + MoE FFN (shared experts or a dense
+                residual branch)
+  ssm           Mamba2 (SSD) stack, attention-free
+  hybrid        Mamba2 backbone + ONE shared GQA block applied after every
+                ``period``-th layer (Zamba2); one KV cache per site
+  audio         encoder-decoder: a bidirectional GQA encoder over projected
+                frame embeddings (frontend stub), a causal decoder whose
+                blocks cross-attend to the encoder output
 
 The parameter tree keeps the reference's layout: ``embed``, ``final_norm``,
 ``lm_head`` (unless tied) and ``layers``, whose leaves stack the layers on
-a leading axis; dense weights are ``(d_in, d_out)`` and used as
-``x @ W``. The reference scans the stacked layers with ``lax.scan``; here
-each stacked leaf is split once per call (``torch.unbind``, whose backward
-is one ``stack``) and a Python loop runs the layers. With
-``cfg.remat == "block"`` and gradients wanted, each block runs under
-``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``): its
-activations are recomputed in the backward instead of kept.
+a leading axis (audio adds the stacked ``encoder`` and ``frame_proj``, vlm
+``patch_proj``, hybrid the unstacked ``shared`` block); dense weights are
+``(d_in, d_out)`` and used as ``x @ W``. The reference scans the stacked
+layers with ``lax.scan``; here each stacked leaf is split once per call
+(``torch.unbind``, whose backward is one ``stack``) and a Python loop runs
+the layers. With ``cfg.remat == "block"`` and gradients wanted, each block
+runs under ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``):
+its activations are recomputed in the backward instead of kept. A hybrid
+layer and the shared block applied after it are one checkpointed block.
 
-Other families raise ``NotImplementedError`` naming the slice of the port
-that brings them (ROADMAP, Queue 1).
+A family outside the six raises ``ValueError``; so does the audio family
+without ``frames=`` (the reference fails on ``None.astype`` there).
 """
 
 from __future__ import annotations
@@ -30,24 +43,16 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
 
-#: where each family not ported yet comes from (ROADMAP, Queue 1)
-_LATER_SLICE = {
-    "vlm": "the vlm slice (the patch frontend)",
-    "audio": "the audio slice (the frame frontend, the encoder and "
-             "cross-attention)",
-    "hybrid": "the zamba2 hybrid-block slice",
-}
-_PORTED = ("dense", "ssm", "moe")
+#: the LM families of the reference's model assembly
+FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "audio")
 
 
-def _require_ported(cfg: ModelConfig) -> None:
-    if cfg.family not in _PORTED:
-        where = _LATER_SLICE.get(cfg.family, "no LM slice (TNN models are "
-                                 "served by repro_torch.serve.tnn_engine)")
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported yet; it "
-            f"comes with {where}. The port runs the dense, ssm and moe "
-            f"families.")
+def _check_family(cfg: ModelConfig) -> None:
+    if cfg.family not in FAMILIES:
+        raise ValueError(
+            f"{cfg.name}: {cfg.family!r} is not an LM family (one of "
+            f"{', '.join(FAMILIES)}); TNN models are served by "
+            f"repro_torch.serve.tnn_engine")
 
 
 def _layer(tree: Dict[str, Any], i: int) -> Dict[str, Any]:
@@ -139,13 +144,37 @@ def _block_init(generator: torch.Generator, cfg: ModelConfig,
     return p
 
 
+def _enc_block_init(generator: torch.Generator, cfg: ModelConfig,
+                    dtype: torch.dtype, device: torch.device
+                    ) -> Dict[str, Any]:
+    """One encoder block (bidirectional GQA + SwiGLU MLP + norms)."""
+    return {"norm1": L.rmsnorm_init(cfg.d_model, device),
+            "norm2": L.rmsnorm_init(cfg.d_model, device),
+            "attn": A.gqa_init(generator, cfg, dtype, device),
+            "mlp": L.mlp_init(generator, cfg.d_model, cfg.d_ff, dtype,
+                              device)}
+
+
+def _dec_block_init(generator: torch.Generator, cfg: ModelConfig,
+                    dtype: torch.dtype, device: torch.device
+                    ) -> Dict[str, Any]:
+    """One decoder block with cross-attention (the audio family)."""
+    return {"norm1": L.rmsnorm_init(cfg.d_model, device),
+            "norm_x": L.rmsnorm_init(cfg.d_model, device),
+            "norm2": L.rmsnorm_init(cfg.d_model, device),
+            "attn": A.gqa_init(generator, cfg, dtype, device),
+            "xattn": A.gqa_init(generator, cfg, dtype, device),
+            "mlp": L.mlp_init(generator, cfg.d_model, cfg.d_ff, dtype,
+                              device)}
+
+
 def init_params(generator: torch.Generator, cfg: ModelConfig,
                 device: Union[str, torch.device, None] = None
                 ) -> Dict[str, Any]:
     """Random parameters from ``generator`` on ``device`` (``None`` =
     ``cuda``; raises when CUDA is absent), with the reference's
     distributions and dtypes."""
-    _require_ported(cfg)
+    _check_family(cfg)
     dev = resolve_device(device)
     dtype = L._dtype(cfg.dtype)
     params: Dict[str, Any] = {
@@ -156,13 +185,26 @@ def init_params(generator: torch.Generator, cfg: ModelConfig,
     if not cfg.tie_embeddings:
         params["lm_head"] = L.dense_init(generator, cfg.d_model,
                                          cfg.vocab_size, dtype, dev)
-    if cfg.family == "ssm":
+    if cfg.family in ("ssm", "hybrid"):
         params["layers"] = _stacked(cfg.n_layers, lambda: {
             "norm1": L.rmsnorm_init(cfg.d_model, dev),
             "ssm": S.ssm_init(generator, cfg, dtype, dev)})
+        if cfg.family == "hybrid":
+            params["shared"] = _block_init(generator, cfg, dtype, dev)
+    elif cfg.family == "audio":
+        params["layers"] = _stacked(
+            cfg.n_layers, lambda: _dec_block_init(generator, cfg, dtype, dev))
+        params["encoder"] = _stacked(
+            cfg.encdec.n_encoder_layers,
+            lambda: _enc_block_init(generator, cfg, dtype, dev))
+        params["frame_proj"] = L.dense_init(generator, cfg.frontend.d_embed,
+                                            cfg.d_model, dtype, dev)
     else:
         params["layers"] = _stacked(
             cfg.n_layers, lambda: _block_init(generator, cfg, dtype, dev))
+        if cfg.family == "vlm":
+            params["patch_proj"] = L.dense_init(
+                generator, cfg.frontend.d_embed, cfg.d_model, dtype, dev)
     return params
 
 
@@ -171,20 +213,33 @@ def _head(params, cfg: ModelConfig) -> torch.Tensor:
 
 
 # ======================================================== forward ========
+def _residual_norm(scale: torch.Tensor, x: torch.Tensor, a: torch.Tensor,
+                   cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(x + a, rmsnorm(x + a))``, both in x's dtype: the reference's
+    compiled block feeds the residual sum to the next norm unrounded, in
+    f32, and rounds it for the residual path."""
+    xa = L._f32(x) + L._f32(a)
+    return xa.to(x.dtype), L.rmsnorm(scale, xa, cfg.norm_eps).to(x.dtype)
+
+
 def _block_apply(p, x: torch.Tensor, cfg: ModelConfig,
-                 cache: A.KVCache | None = None
+                 cache: A.KVCache | None = None,
+                 enc_out: torch.Tensor | None = None
                  ) -> Tuple[torch.Tensor, torch.Tensor, A.KVCache | None]:
-    """Returns (x, aux_loss, new_cache)."""
+    """Returns (x, aux_loss, new_cache). With ``enc_out`` (the audio
+    decoder), a cross-attention over it follows the self-attention; its
+    K/V are computed from ``enc_out`` at every call, as the reference
+    does (no cross cache)."""
     h = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
     if cfg.mla is not None:
         a, new_cache = A.mla_apply(p["attn"], h, cfg, cache=cache)
     else:
         a, new_cache = A.gqa_apply(p["attn"], h, cfg, cache=cache)
-    # the reference's compiled block feeds the residual sum to the second
-    # norm unrounded, in f32, and rounds it for the residual path
-    xa = L._f32(x) + L._f32(a)
-    h = L.rmsnorm(p["norm2"], xa, cfg.norm_eps).to(x.dtype)
-    x = xa.to(x.dtype)
+    if enc_out is not None:
+        x, h = _residual_norm(p["norm_x"], x, a, cfg)
+        a, _ = A.gqa_apply(p["xattn"], h, cfg, kv_input=enc_out,
+                           causal=False)
+    x, h = _residual_norm(p["norm2"], x, a, cfg)
     if cfg.moe is not None:
         # "catwalk_ep" without a process group runs moe_apply, as the
         # reference does without a mesh
@@ -204,67 +259,133 @@ def _ssm_block(x: torch.Tensor, lp, cfg: ModelConfig) -> torch.Tensor:
     return x + out
 
 
-def forward(params, cfg: ModelConfig, tokens, *,
+def _hybrid_block(x: torch.Tensor, p, cfg: ModelConfig) -> torch.Tensor:
+    """A hybrid layer followed by the shared block (``p``: the layer's
+    parameters under ``"layer"``, the shared block's under ``"shared"``)."""
+    return _block_apply(p["shared"], _ssm_block(x, p["layer"], cfg), cfg)[0]
+
+
+def _shared_site(cfg: ModelConfig, i: int) -> int | None:
+    """The shared-block site after hybrid layer ``i`` (after every
+    ``period``-th layer; the tail past the last whole period has none), or
+    None."""
+    if cfg.family != "hybrid":
+        return None
+    period = cfg.hybrid.period
+    return i // period if i % period == period - 1 else None
+
+
+def _enc_block(h: torch.Tensor, lp, cfg: ModelConfig) -> torch.Tensor:
+    n = L.rmsnorm(lp["norm1"], h, cfg.norm_eps)
+    a, _ = A.gqa_apply(lp["attn"], n, cfg, causal=False)
+    h, n = _residual_norm(lp["norm2"], h, a, cfg)
+    return h + L.mlp_apply(lp["mlp"], n)
+
+
+def _encode(params, cfg: ModelConfig, frames) -> torch.Tensor:
+    """The audio encoder: ``frames`` (B, S_enc, d_embed) projected to the
+    model width, then the bidirectional encoder stack (under remat when a
+    gradient is wanted). Raises ``ValueError`` without frames."""
+    if frames is None:
+        raise ValueError(f"{cfg.name}: the audio family needs frames= "
+                         f"(B, S_enc, {cfg.frontend.d_embed}) frame "
+                         f"embeddings")
+    proj = params["frame_proj"]
+    h = torch.as_tensor(frames, device=proj.device).to(proj.dtype) @ proj
+    for lp in _unstack(params["encoder"])[:cfg.encdec.n_encoder_layers]:
+        h = _maybe_remat(lambda x, p: _enc_block(x, p, cfg), cfg, lp, h)
+    return h
+
+
+def forward(params, cfg: ModelConfig, tokens, *, patches=None, frames=None,
             logits_mode: str = "all") -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward. Returns (logits, aux_loss).
 
-    tokens (B, S) on the parameters' device (or host ids, copied there).
-    ``logits_mode='last'`` projects only the final position (prefill and
-    scoring: avoids the (B, S, V) logits tensor). dense: aux_loss is 0;
-    ssm: each layer runs the SSD scan once over the whole sequence (again
-    in the backward under remat) and aux_loss is 0; moe: each layer runs
-    the router gate once over all B*S tokens and aux_loss sums the layers'
-    load-balancing losses.
+    tokens (B, S) on the parameters' device (or host ids, copied there);
+    patches (B, Np, d_embed) for vlm, prepended after ``patch_proj`` (the
+    logits of ``"all"`` leave the prefix out); frames (B, S_enc, d_embed)
+    for audio, required (other families ignore both, as the reference
+    does). ``logits_mode='last'`` projects only the final position
+    (prefill and scoring: avoids the (B, S, V) logits tensor). dense, vlm,
+    audio: aux_loss is 0; ssm and hybrid: each layer runs the SSD scan
+    once over the whole sequence (again in the backward under remat) and
+    aux_loss is 0; moe: each layer runs the router gate once over all B*S
+    tokens and aux_loss sums the layers' load-balancing losses.
     """
-    _require_ported(cfg)
+    _check_family(cfg)
     if logits_mode not in ("all", "last"):
         raise ValueError(f"logits_mode must be 'all' or 'last', got "
                          f"{logits_mode!r}")
     dev = params["embed"].device
     x = L.embed_lookup(params["embed"], _tokens(tokens, dev))
+    n_prefix = 0
+    if cfg.family == "vlm" and patches is not None:
+        proj = params["patch_proj"]
+        px = torch.as_tensor(patches, device=dev).to(x.dtype) @ proj
+        x = torch.cat([px, x], dim=1)
+        n_prefix = px.shape[1]
+    enc_out = _encode(params, cfg, frames) if cfg.family == "audio" else None
     aux = torch.zeros((), dtype=torch.float32, device=dev)
-    for lp in _unstack(params["layers"])[:cfg.n_layers]:
-        if cfg.family == "ssm":
-            x = _maybe_remat(lambda h, p: _ssm_block(h, p, cfg), cfg, lp, x)
+    for i, lp in enumerate(_unstack(params["layers"])[:cfg.n_layers]):
+        if cfg.family in ("ssm", "hybrid"):
+            if _shared_site(cfg, i) is None:
+                x = _maybe_remat(lambda h, p: _ssm_block(h, p, cfg), cfg, lp,
+                                 x)
+            else:
+                x = _maybe_remat(lambda h, p: _hybrid_block(h, p, cfg), cfg,
+                                 {"layer": lp, "shared": params["shared"]}, x)
         else:
             x, layer_aux = _maybe_remat(
-                lambda h, p: _block_apply(p, h, cfg)[:2], cfg, lp, x)
+                lambda h, p: _block_apply(p, h, cfg, enc_out=enc_out)[:2],
+                cfg, lp, x)
             aux = aux + layer_aux
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     if logits_mode == "last":
         return x[:, -1:] @ _head(params, cfg), aux
-    return x @ _head(params, cfg), aux
+    return x[:, n_prefix:] @ _head(params, cfg), aux
 
 
 # ========================================================= serving =======
 class ServeState(NamedTuple):
     layer_caches: Any          # stacked per-layer caches (leading axis L)
-    shared_cache: Any          # hybrid shared block cache (None here)
-    enc_out: Any               # enc-dec encoder output (None here)
+    shared_cache: Any          # hybrid: KV caches on a leading site axis
+    enc_out: Any               # audio: the encoder output (B, S_enc, D)
     pos: torch.Tensor          # () int32, or (B,) per slot
 
 
-def init_serve_state(params, cfg: ModelConfig, batch: int,
-                     max_len: int) -> ServeState:
+def _stack_cache(one, n: int):
+    """``n`` zero copies of the cache ``one`` on a leading axis."""
+    return type(one)(*(t.expand((n,) + tuple(t.shape)).clone() for t in one))
+
+
+def init_serve_state(params, cfg: ModelConfig, batch: int, max_len: int, *,
+                     frames=None) -> ServeState:
     """Zero caches for ``batch`` rows, stacked on a leading layer axis:
-    ssm, the conv window and the SSD state (``max_len`` does not bound a
-    recurrent cache); dense and moe, the GQA K/V or the MLA latent and
-    rotary key, ``max_len`` positions each, with one scalar position per
-    layer."""
-    _require_ported(cfg)
+    ssm and hybrid, the conv window and the SSD state (``max_len`` does not
+    bound a recurrent cache), and for hybrid one GQA K/V cache of
+    ``max_len`` positions per shared-block site (``n_layers // period``
+    sites: the weights are shared, the KV streams are not); the attention
+    families, the GQA K/V or the MLA latent and rotary key, ``max_len``
+    positions each, with one scalar position per layer. audio also encodes
+    ``frames`` (required) once and holds the encoder output."""
+    _check_family(cfg)
     dev = params["embed"].device
     dtype = L._dtype(cfg.dtype)
-    n = cfg.n_layers
-    if cfg.family == "ssm":
-        one = S.ssm_cache_init(cfg, batch, dtype, dev)
-        caches = S.SSMCache(
-            *(t.expand((n,) + tuple(t.shape)).clone() for t in one))
+    shared_cache = enc_out = None
+    if cfg.family in ("ssm", "hybrid"):
+        caches = _stack_cache(S.ssm_cache_init(cfg, batch, dtype, dev),
+                              cfg.n_layers)
+        if cfg.family == "hybrid":
+            shared_cache = _stack_cache(
+                A.gqa_cache_init(cfg, batch, max_len, dtype, dev),
+                cfg.n_layers // cfg.hybrid.period)
     else:
         init = A.mla_cache_init if cfg.mla is not None else A.gqa_cache_init
-        one = init(cfg, batch, max_len, dtype, dev)
-        caches = A.KVCache(
-            *(t.expand((n,) + tuple(t.shape)).clone() for t in one))
-    return ServeState(caches, None, None,
+        caches = _stack_cache(init(cfg, batch, max_len, dtype, dev),
+                              cfg.n_layers)
+    if cfg.family == "audio":
+        enc_out = _encode(params, cfg, frames)
+    return ServeState(caches, shared_cache, enc_out,
                       torch.zeros((), dtype=torch.int32, device=dev))
 
 
@@ -318,18 +439,25 @@ def reset_slots(state: ServeState, free) -> ServeState:
         torch.where(free, zero, state.pos))
 
 
+def _kv(caches: A.KVCache, i: int) -> A.KVCache:
+    return A.KVCache(caches.k[i], caches.v[i], caches.pos[i])
+
+
 def decode_step(params, cfg: ModelConfig, state: ServeState,
                 tokens) -> Tuple[torch.Tensor, ServeState]:
-    """One decode step. tokens (B, 1) -> logits (B, V), new state. ssm:
-    each layer runs the exact one-token recurrence (no kernel launch);
-    dense and moe: each layer attends over its cache (moe: and runs the
-    router gate once)."""
-    _require_ported(cfg)
+    """One decode step. tokens (B, 1) -> logits (B, V), new state. ssm and
+    hybrid: each layer runs the exact one-token recurrence (no kernel
+    launch), and hybrid applies the shared block with its site's cache
+    after every ``period``-th layer; the attention families: each layer
+    attends over its cache (moe: and runs the router gate once; audio: and
+    cross-attends to ``state.enc_out``)."""
+    _check_family(cfg)
     dev = params["embed"].device
     x = L.embed_lookup(params["embed"], _tokens(tokens, dev))
     caches = state.layer_caches
-    if cfg.family == "ssm":
-        convs, states = [], []
+    shared = state.shared_cache
+    if cfg.family in ("ssm", "hybrid"):
+        convs, states, sites = [], [], []
         for i, lp in enumerate(_unstack(params["layers"])[:cfg.n_layers]):
             hn = L.rmsnorm(lp["norm1"], x, cfg.norm_eps)
             out, new = S.ssm_apply(lp["ssm"], hn, cfg,
@@ -338,18 +466,22 @@ def decode_step(params, cfg: ModelConfig, state: ServeState,
             x = x + out
             convs.append(new.conv)
             states.append(new.state)
+            site = _shared_site(cfg, i)
+            if site is not None:
+                x, _, new_site = _block_apply(
+                    params["shared"], x, cfg,
+                    cache=_kv(state.shared_cache, site))
+                sites.append(new_site)
         new_caches = S.SSMCache(torch.stack(convs), torch.stack(states))
+        if sites:
+            shared = A.KVCache(*(torch.stack(t) for t in zip(*sites)))
     else:
-        ks, vs, ps = [], [], []
+        layers = []
         for i, lp in enumerate(_unstack(params["layers"])[:cfg.n_layers]):
-            x, _, new = _block_apply(
-                lp, x, cfg, cache=A.KVCache(caches.k[i], caches.v[i],
-                                            caches.pos[i]))
-            ks.append(new.k)
-            vs.append(new.v)
-            ps.append(new.pos)
-        new_caches = A.KVCache(torch.stack(ks), torch.stack(vs),
-                               torch.stack(ps))
-    new_state = ServeState(new_caches, None, state.enc_out, state.pos + 1)
+            x, _, new = _block_apply(lp, x, cfg, cache=_kv(caches, i),
+                                     enc_out=state.enc_out)
+            layers.append(new)
+        new_caches = A.KVCache(*(torch.stack(t) for t in zip(*layers)))
+    new_state = ServeState(new_caches, shared, state.enc_out, state.pos + 1)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return x[:, 0] @ _head(params, cfg), new_state

@@ -1,6 +1,7 @@
 """Slot-based serving: the generic slot pool, the TNN volley engine (with
 snapshots, :class:`AsyncTNNEngine` and :func:`serve_resilient`) and the LM
-engine (ssm family, static lockstep decoding)."""
+engine (continuous per-slot batching for the attention families, static
+lockstep decoding for the others)."""
 
 from repro_torch.serve.engine import Engine, LMRequest, ServeConfig
 from repro_torch.serve.slots import QueueFull, SlotEntry, SlotPool, latency_summary

@@ -1,7 +1,8 @@
 """Batched LM serving engine: continuous batching over per-slot decode
-state for attention families, static lockstep decoding for the ssm family.
+state for attention families, static lockstep decoding for the ssm,
+hybrid and audio families.
 
-Attention families (moe here) decode over a fixed pool of B slots, the
+Attention families (dense, vlm, moe) decode over a fixed pool of B slots, the
 batch rows of ``decode_step``. Each slot owns its request's decode state:
 a cursor into the prompt and the last sampled token (host side, in the
 slot's ``SlotEntry.state``) and its own write position into the KV cache
@@ -14,11 +15,13 @@ while the other rows keep decoding (``continuous=True``), or only once the
 pool has drained (``continuous=False``, the wave baseline). Free rows
 decode an in-vocab filler whose outputs are discarded.
 
-The ssm family's decode state is a recurrence per row, not a positional
-cache, so it is served by the static wave path: all prompts are prefilled
-together, left-aligned with the filler after each prompt, then one token
-is sampled per step for every live slot; slots retire on EOS or budget and
-are not re-filled.
+The ssm and hybrid families' decode state is a recurrence per row (and,
+for hybrid, the shared block's KV caches), and the audio family's holds an
+encoder output per request, so they are served by the static wave path:
+all prompts are prefilled together, left-aligned with the filler after
+each prompt, then one token is sampled per step for every live slot;
+slots retire on EOS or budget and are not re-filled. Given ``frames``,
+``generate`` takes that path for any family, as the reference does.
 
 Greedy decoding takes the first maximum of the float32 logits, as the
 reference does, and so matches it token for token. Temperature sampling
@@ -29,7 +32,7 @@ deterministic for a seed but cannot reproduce ``jax.random``'s draws.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Union
+from typing import Any, Dict, List, Optional, Union
 
 import numpy as np
 import torch
@@ -87,14 +90,17 @@ class Engine:
         return self.cfg.family not in ("ssm", "hybrid", "audio")
 
     def generate(self, prompts: List[np.ndarray],
-                 max_new_tokens: int = 32) -> List[np.ndarray]:
+                 max_new_tokens: int = 32,
+                 frames: Optional[np.ndarray] = None) -> List[np.ndarray]:
         """Generate continuations for ``prompts``; results in order.
 
-        ssm / hybrid / audio keep the static lockstep path
-        (:meth:`_generate_static`); attention families route through
-        :meth:`serve`."""
-        if not self._per_slot_ok:
-            return self._generate_static(prompts, max_new_tokens)
+        ``frames`` (B, S_enc, d_embed): the audio family's frame embeddings,
+        one row per prompt. Given frames, and for ssm / hybrid / audio, the
+        static lockstep path (:meth:`_generate_static`); otherwise the
+        attention families route through :meth:`serve` with one slot per
+        request."""
+        if frames is not None or not self._per_slot_ok:
+            return self._generate_static(prompts, max_new_tokens, frames)
         return self.serve(prompts, max_new_tokens, n_slots=len(prompts))
 
     def serve(self, prompts: List[np.ndarray], max_new_tokens: int = 32, *,
@@ -190,17 +196,21 @@ class Engine:
         return lg.numpy().argmax(-1)
 
     def _generate_static(self, prompts: List[np.ndarray],
-                         max_new_tokens: int = 32) -> List[np.ndarray]:
+                         max_new_tokens: int = 32,
+                         frames: Optional[np.ndarray] = None
+                         ) -> List[np.ndarray]:
         """Static lockstep batching: all prompts prefilled together
         left-aligned (in-vocab filler after each), one token per step for
-        every live slot, per-slot retirement without re-fill."""
+        every live slot, per-slot retirement without re-fill; ``frames``
+        are encoded once, in ``init_serve_state``."""
         b = len(prompts)
         scfg = self.scfg
         for r, p in enumerate(prompts):
             if len(p) == 0:
                 raise ValueError(f"empty prompt (request {r})")
         max_prompt = max(len(p) for p in prompts)
-        state = T.init_serve_state(self.params, self.cfg, b, scfg.max_len)
+        state = T.init_serve_state(self.params, self.cfg, b, scfg.max_len,
+                                   frames=frames)
 
         # one slot per request; FIFO admission puts prompt r into slot r,
         # matching batch row r of the decode state

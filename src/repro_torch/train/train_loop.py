@@ -60,10 +60,12 @@ def init_train_state(generator: torch.Generator, cfg: ModelConfig,
 
 def loss_fn(params, cfg: ModelConfig, batch: Dict[str, Any]
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """(ce + aux, {"ce", "aux"}) of ``batch`` ("tokens", "labels" and an
-    optional "mask", numpy arrays or tensors)."""
+    """(ce + aux, {"ce", "aux"}) of ``batch`` ("tokens", "labels", and an
+    optional "mask", "patches" (vlm) and "frames" (audio), numpy arrays or
+    tensors)."""
     dev = params["embed"].device
-    logits, aux = T.forward(params, cfg, batch["tokens"])
+    extra = {k: batch[k] for k in ("patches", "frames") if k in batch}
+    logits, aux = T.forward(params, cfg, batch["tokens"], **extra)
     labels = torch.as_tensor(batch["labels"], device=dev)
     mask = batch.get("mask")
     if mask is not None:

@@ -62,7 +62,8 @@ def test_importing_every_port_module_leaves_jax_out(monkeypatch):
                      "repro_torch.optim.optimizers",
                      "repro_torch.optim.grad_compression",
                      "repro_torch.train.train_loop",
-                     "repro_torch.launch.train"):
+                     "repro_torch.launch.train",
+                     "repro_torch.launch.dryrun"):
         assert required in modules
     code = ("import importlib, sys\n"
             f"for m in {modules!r}:\n"

@@ -1,5 +1,6 @@
 """The port's LM path (mamba2-780m, ssm family; internlm2-1.8b, dense
-family) vs the reference: configs, tokenizer, weight conversion, the Mamba2
+family; phi-3-vision-4.2b, vlm family, text only here: its patches are in
+tests/test_torch_families.py) vs the reference: configs, tokenizer, weight conversion, the Mamba2
 block, the full-sequence forward, token-by-token decode and the serving
 engine.
 
@@ -31,13 +32,16 @@ from repro_torch.serve import Engine, ServeConfig  # noqa: E402
 
 ARCH = "mamba2-780m"
 DENSE = "internlm2-1.8b"
+VLM = "phi-3-vision-4.2b"
 #: (arch, dtype) of the ``model`` fixture, and the ids its tests keep
 MODELS = [(ARCH, "float32"), (ARCH, "bfloat16"), (DENSE, "float32"),
-          (DENSE, "bfloat16")]
-MODEL_IDS = ["float32", "bfloat16", "dense-float32", "dense-bfloat16"]
+          (DENSE, "bfloat16"), (VLM, "float32"), (VLM, "bfloat16")]
+MODEL_IDS = ["float32", "bfloat16", "dense-float32", "dense-bfloat16",
+             "vlm-float32", "vlm-bfloat16"]
 #: leaves of the reference trees: embed, final_norm, lm_head, norm1 and 6
-#: ssm leaves; or norm1, norm2, 4 GQA and 3 MLP weights
-LEAVES = {ARCH: 10, DENSE: 12}
+#: ssm leaves; or norm1, norm2, 4 GQA and 3 MLP weights (and the vlm's
+#: patch_proj)
+LEAVES = {ARCH: 10, DENSE: 12, VLM: 13}
 TOL = {"float32": dict(atol=1e-4, rtol=1e-4),
        "bfloat16": dict(atol=0.06, rtol=0.05)}
 L_SEQ = 70          # two chunks of 32 and a ragged third at the smoke size
@@ -83,7 +87,8 @@ def _build(ref, arch, dtype):
 
 @pytest.fixture(scope="module", params=MODELS, ids=MODEL_IDS)
 def model(request, ref):
-    """mamba2-780m's and internlm2-1.8b's smoke models in both dtypes."""
+    """mamba2-780m's, internlm2-1.8b's and phi-3-vision-4.2b's smoke
+    models in both dtypes."""
     return _build(ref, *request.param)
 
 
@@ -406,20 +411,6 @@ def test_engine_refusals(ssm_model):
         eng.serve(_prompts(model.tcfg.vocab_size))
     with pytest.raises(ValueError):
         eng.generate([np.zeros((0,), np.int32)])
-    vlm = treg.get_config("phi-3-vision-4.2b-smoke")
-    with pytest.raises(NotImplementedError):
-        Engine({}, vlm, ServeConfig(), device="cpu").generate(
-            _prompts(vlm.vocab_size))
-
-
-@pytest.mark.parametrize("arch", ["phi-3-vision-4.2b", "zamba2-1.2b",
-                                  "seamless-m4t-medium"])
-def test_other_families_name_their_slice(arch):
-    cfg = treg.get_config(arch + "-smoke")
-    with pytest.raises(NotImplementedError, match="slice"):
-        tT.init_params(torch.Generator(), cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice"):
-        tT.forward({"embed": torch.zeros(4, 4)}, cfg, np.zeros((1, 2)))
 
 
 def test_entry_points_default_to_cuda():

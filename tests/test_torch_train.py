@@ -30,6 +30,7 @@ tensors (the kernels' plain versions). Tolerances, stated per check:
 """
 
 import dataclasses
+import json
 import pathlib
 import subprocess
 import sys
@@ -45,6 +46,7 @@ from repro_torch.configs import registry as treg  # noqa: E402
 from repro_torch.data import pipeline as tDP  # noqa: E402
 from repro_torch.kernels import moe_gate as tmg  # noqa: E402
 from repro_torch.kernels import ssd_scan as tss  # noqa: E402
+from repro_torch.launch import dryrun as tdry  # noqa: E402
 from repro_torch.launch import train as tlaunch  # noqa: E402
 from repro_torch.models import layers as tL  # noqa: E402
 from repro_torch.models import transformer as tT  # noqa: E402
@@ -301,18 +303,38 @@ def test_moe_gate_gradient_matches_the_reference(ref, renorm):
 
 # ------------------------------------------------------------ train steps
 
-def _configs(ref, arch, dtype, **over):
+def _configs(ref, arch, dtype, *, opt=False, **over):
+    """Both packages' smoke config of ``arch``; with ``opt``, after each
+    package's ``apply_opt`` (:func:`test_apply_opt_equals_the_reference`
+    holds the two transforms equal; the reference's is rebuilt here from
+    the port's fields, see :func:`_reference_opt`)."""
     jcfg = dataclasses.replace(ref.reg.get_config(arch + "-smoke"),
                                dtype=dtype, **over)
     tcfg = dataclasses.replace(treg.get_config(arch + "-smoke"),
                                dtype=dtype, **over)
+    if opt:
+        tcfg = tdry.apply_opt(tcfg)
+        jcfg = _reference_opt(jcfg, tcfg)
     return jcfg, tcfg
 
 
-def _setup(ref, arch, dtype, *, grad_accum=1, rho=None, batch=4):
+def _reference_opt(jcfg, tcfg):
+    """The reference config ``jcfg`` with the fields ``apply_opt`` sets,
+    taken from the port's transformed ``tcfg``. Importing the reference's
+    ``repro.launch.dryrun`` sets ``XLA_FLAGS`` and ``REPRO_KERNEL_IMPL``
+    for the whole process, so it is imported only in a subprocess."""
+    repl = dict(act_sp=tcfg.act_sp, batch_over_model=tcfg.batch_over_model)
+    if jcfg.moe is not None:
+        repl["moe"] = dataclasses.replace(
+            jcfg.moe, capacity_factor=tcfg.moe.capacity_factor,
+            dispatch=tcfg.moe.dispatch, ep_fsdp=tcfg.moe.ep_fsdp)
+    return dataclasses.replace(jcfg, **repl)
+
+
+def _setup(ref, arch, dtype, *, grad_accum=1, rho=None, batch=4, opt=False):
     """Both packages' train configs and steps, the reference's initial
     state and the port's copy of it, and a batch of both pipelines."""
-    jcfg, tcfg = _configs(ref, arch, dtype)
+    jcfg, tcfg = _configs(ref, arch, dtype, opt=opt)
     opt = dict(lr=LR, warmup_steps=2, total_steps=50)
     jt = ref.TL.TrainConfig(
         optimizer=ref.O.AdamWConfig(**opt), grad_accum=grad_accum,
@@ -573,12 +595,84 @@ def test_launcher_restart_equals_the_uninterrupted_run(tmp_path):
     assert int(whole["state"].step) == 6
 
 
-def test_launcher_refuses_what_the_multi_gpu_slice_brings(monkeypatch,
-                                                          tmp_path):
+def test_apply_opt_equals_the_reference():
+    """``apply_opt`` gives the reference's config for every architecture,
+    full and smoke. The reference's runs in a subprocess: importing its
+    ``repro.launch.dryrun`` sets ``XLA_FLAGS`` and ``REPRO_KERNEL_IMPL``
+    for the whole process."""
+    code = ("import dataclasses, json\n"
+            "from repro.configs.registry import ARCH_IDS, get_config\n"
+            "from repro.launch.dryrun import apply_opt\n"
+            "print(json.dumps({a + s: dataclasses.asdict(apply_opt(\n"
+            "    get_config(a + s))) for a in ARCH_IDS\n"
+            "    for s in ('', '-smoke')}))\n")
+    env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin",
+           "JAX_PLATFORMS": "cpu"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    want = json.loads(proc.stdout.strip().splitlines()[-1])
+    got = {a + s: json.loads(json.dumps(dataclasses.asdict(
+        tdry.apply_opt(treg.get_config(a + s)))))
+        for a in treg.ARCH_IDS for s in ("", "-smoke")}
+    assert got == want
+    moe = tdry.apply_opt(treg.get_config("deepseek-v2-lite-16b-smoke")).moe
+    assert (moe.capacity_factor, moe.dispatch) == (1.0, "catwalk_ep")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_opt_step_matches_the_reference(ref, dtype):
+    """deepseek-v2-lite's smoke step under ``--opt`` (capacity factor 1.0,
+    so assignments drop; ``catwalk_ep``, which runs ``moe_apply`` on one
+    device in both packages) against the reference's, within the
+    tolerances of :func:`test_train_step_matches_the_reference`."""
+    s = _setup(ref, "deepseek-v2-lite-16b", dtype, opt=True)
+    assert s.tcfg.moe.capacity_factor == 1.0
+    js2, jm = s.jstep(s.js, s.data.j.batch(0))
+    ts2, tm = s.tstep(s.ts, s.data.t.batch(0))
+    f32 = dtype == "float32"
+    assert _rel(tm["loss"], jm["loss"]) <= (1e-5 if f32 else 1e-4)
+    assert _rel(tm["grad_norm"], jm["grad_norm"]) <= (1e-5 if f32 else 5e-3)
+    assert float(tm["aux"]) > 0 and _rel(tm["aux"], jm["aux"]) <= 1e-4
+    jgrads = ref.jax.jit(ref.jax.grad(lambda p: ref.TL.loss_fn(
+        p, s.jcfg, s.data.j.batch(0))[0]))(s.js.params)
+    _check_update(js2.params, ts2.params, jgrads, float(jm["lr"]), dtype)
+
+
+def test_launcher_opt_runs_and_steps_as_the_reference(ref, tmp_path):
+    """``--smoke --opt`` through the launcher: its config is the smoke
+    config after ``apply_opt``, it runs a step, and its step (the
+    launcher's train config and first batch) from the reference's state
+    equals the reference's, as in :func:`test_opt_step_matches_the_reference`
+    (bfloat16, the smoke config's dtype)."""
+    arch = "deepseek-v2-lite-16b"
+    argv = ["--arch", arch, "--smoke", "--opt", "--device", "cpu",
+            "--steps", "1", "--ckpt-dir", str(tmp_path)]
+    out = tlaunch.main(argv)
+    assert len(out["losses"]) == 1 and np.isfinite(out["losses"][0])
+    cfg, tcfg, data = tlaunch.setup(tlaunch.parser().parse_args(argv))
+    assert cfg == tdry.apply_opt(treg.get_config(arch + "-smoke"))
+    jcfg = _reference_opt(ref.reg.get_config(arch + "-smoke"), cfg)
+    jt = ref.TL.TrainConfig(optimizer=ref.O.AdamWConfig(
+        **dataclasses.asdict(tcfg.optimizer)))
+    js = ref.TL.init_train_state(ref.jax.random.PRNGKey(0), jcfg, jt)
+    ts = convert.train_state_from_numpy(ref.jax.tree.map(np.asarray, js),
+                                        cfg, device="cpu")
+    jbatch = ref.DP.SyntheticLM(ref.DP.DataConfig(
+        **dataclasses.asdict(data.cfg))).batch(0)
+    js2, jm = ref.jax.jit(ref.TL.make_train_step(jcfg, jt))(js, jbatch)
+    ts2, tm = tTL.make_train_step(cfg, tcfg)(ts, data.batch(0))
+    assert _rel(tm["loss"], jm["loss"]) <= 1e-4
+    assert _rel(tm["grad_norm"], jm["grad_norm"]) <= 5e-3
+    jgrads = ref.jax.jit(ref.jax.grad(lambda p: ref.TL.loss_fn(
+        p, jcfg, jbatch)[0]))(js.params)
+    _check_update(js2.params, ts2.params, jgrads, float(jm["lr"]),
+                  "bfloat16")
+
+
+def test_launcher_refuses_more_than_one_process(monkeypatch, tmp_path):
     argv = ["--arch", "internlm2-1.8b", "--smoke", "--device", "cpu",
             "--steps", "1", "--ckpt-dir", str(tmp_path)]
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        tlaunch.main(argv + ["--opt"])
     monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
     monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 4)
     with pytest.raises(NotImplementedError, match="multi-GPU"):
