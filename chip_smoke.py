@@ -65,6 +65,17 @@ gate-level paths against the ``fused`` engine and the CPU closed form,
 served MoE requests against each request served alone). The
 learning-cost phase also reports the overhead of async snapshots every 50
 steps. The profile phase adds a learning step at 4 and 64 slots with its STDP ops named. The
+mesh phase then puts the TNN stack on a ``("data", "column")`` mesh of
+world size 1 (NCCL, ``specs.tnn_mesh()``; ``tnn_mesh(2, 1)`` must refuse
+one card): ``TNNEngine(mesh=)`` on ``auto``, ``fused_compact``, L1
+recurrent with 4 micro-batches, learning every step and
+``serve_resilient`` through a failure, each bit-exact against its
+single-device path with the sharded wrappers launching once per layer per
+step; the per-step wall of the mesh engine against the single-device one;
+each served stack on a column axis that does not divide it, through the
+unsharded kernel on a rank's replicated block; and every rank's tile of 2-, 4- and 8-way column by 1- and 2-way data
+meshes launched one after another through the wrappers, each tiling
+equal to the whole launch, each tile shape timed beside its bound. The
 LM phase then holds each layer's Mamba2 block (the kernel) against
 token-by-token decode (the recurrence), greedy generation against the
 forward's argmax, and the card's float32 forward against the CPU's
@@ -82,6 +93,7 @@ from __future__ import annotations
 
 import asyncio
 import dataclasses
+import datetime
 import gc
 import json
 import math
@@ -109,6 +121,7 @@ from repro_torch.data import tokenizer  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import moe_gate as mg  # noqa: E402
 from repro_torch.kernels import rnl_neuron as rn  # noqa: E402
+from repro_torch.kernels import rnl_shard as rs  # noqa: E402
 from repro_torch.kernels import ssd_scan as ss  # noqa: E402
 from repro_torch.kernels import unary_topk as ut  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
@@ -119,6 +132,7 @@ from repro_torch.optim import optimizers as O  # noqa: E402
 from repro_torch.optim.tree import tree_leaves, tree_unflatten  # noqa: E402
 from repro_torch.serve import tnn_engine  # noqa: E402
 from repro_torch.serve.engine import Engine, ServeConfig  # noqa: E402
+from repro_torch.sharding import specs  # noqa: E402
 from repro_torch.train import checkpoint as ckpt  # noqa: E402
 from repro_torch.train import fault_tolerance  # noqa: E402
 from repro_torch.train import train_loop as TL  # noqa: E402
@@ -2408,6 +2422,395 @@ def phase_profile_learn(dev, streams, ff, p_ff):
             stdp.stdp_update_column_minibatch = real
 
 
+# ------------------------------------------------------------------ mesh
+
+#: the TPU functions the sharded wrappers replace; neither has a kernel body
+#: of its own: each launches row 1's or row 3's kernel on a rank's tile
+MESH_REPLACES = {
+    "rnl_fire_times_layer_sharded": "src/repro/kernels/rnl_shard.py:63",
+    "rnl_fire_times_compact_sharded": "src/repro/kernels/rnl_shard.py:92"}
+#: the kernel each sharded wrapper launches
+MESH_INNER = {"rnl_fire_times_layer_sharded": "rnl_fire_times_layer",
+              "rnl_fire_times_compact_sharded": "rnl_fire_times_compact"}
+MESH_WRAPPER_SOURCE = "src/repro_torch/kernels/rnl_shard.py"
+#: the tiles: every rank's block of an m-way column by d-way data mesh,
+#: launched one after another on the one card (all divide 32, 24 and 64)
+MESH_COLUMNS, MESH_DATA = (2, 4, 8), (1, 2)
+#: rounds of the per-step wall comparison, each single-device, mesh, mesh,
+#: single-device
+MESH_WALL_ROUNDS = 3
+#: (data, column) sizes whose column axis the served layers' column counts
+#: (32, 24) do not divide: every rank holds the whole stack and, on the
+#: card, launches the unsharded kernel on its (C, B_local, n) block
+MESH_REPLICATED = ((2, 3), (2, 16))
+
+
+@dataclasses.dataclass
+class MeshShape:
+    """What the sharding rules and the sharded wrappers read of a mesh: its
+    dim names and sizes. Stands in for a DeviceMesh of a shape that one
+    card cannot hold, so that each rank's tile is launched through the
+    wrappers, which talk to no other rank."""
+
+    dims: Dict[str, int]
+
+    @property
+    def mesh_dim_names(self):
+        return tuple(self.dims)
+
+    @property
+    def shape(self):
+        return tuple(self.dims.values())
+
+
+def mesh_counts() -> Dict[str, int]:
+    return {**launch_counts(), **rs.LAUNCHES}
+
+
+def mesh_runs(dev, mesh, streams, ff, p_ff, served, single, root
+              ) -> Dict[str, Dict[str, int]]:
+    """The main path through ``TNNEngine(mesh=)``: the serve population on
+    ``auto`` (→ ``fused``), ``fused_compact`` and L1 recurrent with 4
+    micro-batches, the learning workload with STDP every step, and
+    ``serve_resilient`` through one injected failure. Each run's outputs
+    (and learned weights) must equal its single-device path's bit for bit,
+    every step must run the engine that path ran, and the sharded wrapper
+    must launch as often as the single-device path launched its kernel,
+    once per layer per step, each launch its inner kernel's, and no other
+    kernel. The launch counts are set to 0 just before each run and read
+    just after; returns them by run."""
+    rec = serve_network(recurrent=True)
+    p_rec = network.init_network(torch.Generator().manual_seed(1), rec,
+                                 device=dev)
+    pop = learn_population(streams, LEARN_CLIENTS, LEARN_CYCLES)
+
+    def engine(params, net, **kw):
+        return tnn_engine.TNNEngine(params, net,
+                                    tnn_engine.TNNServeConfig(**kw),
+                                    mesh=mesh)
+
+    def serve(base, backend, net, params, micro):
+        def run():
+            eng = engine(params, net, n_slots=N_SLOTS, backend=backend,
+                         pipeline_microbatches=micro)
+            results = eng.serve(streams)
+            if not same_outputs(results, served[base]):
+                raise AssertionError(f"mesh {base}: outputs differ from "
+                                     f"the single-device engine's")
+            return eng.stats(), dict(requests=len(streams), bit_exact=True)
+        return run
+
+    def learn():
+        eng = engine(p_ff, ff, n_slots=LEARN_SLOTS, learn=True,
+                     stdp_every=1)
+        results = eng.serve(pop)
+        want_out, want_p = served["learn_every1"]
+        if not same_outputs(results, want_out) \
+                or not same_weights(eng.whole_params(), want_p):
+            raise AssertionError("mesh learn_every1: outputs or weights "
+                                 "differ from the single-device engine's")
+        return eng.stats(), dict(requests=len(pop),
+                                 stdp_updates=eng.n_stdp_updates,
+                                 weights_equal=True, bit_exact=True)
+
+    def resilient():
+        directory = tempfile.mkdtemp(dir=root)
+        eng = engine(p_ff, ff, n_slots=N_SLOTS, checkpoint_dir=directory,
+                     checkpoint_every=SERVE_SNAPSHOT_EVERY,
+                     checkpoint_async=False)
+        results, report = tnn_engine.serve_resilient(
+            eng, streams, failure_injector=one_shot_failure(SERVE_FAIL_AT))
+        restored = SERVE_FAIL_AT // SERVE_SNAPSHOT_EVERY \
+            * SERVE_SNAPSHOT_EVERY
+        if report["restarts"] != 1 or report["restored_steps"] != [restored]:
+            raise AssertionError(f"mesh resilient_serve: report {report}")
+        if not same_outputs(results, served["auto"]):
+            raise AssertionError("mesh resilient_serve: outputs differ "
+                                 "from the uninterrupted run")
+        return eng.stats(), dict(requests=len(streams),
+                                 restored_step=restored,
+                                 resubmitted=len(report["resubmitted"][0]),
+                                 bit_exact=True)
+
+    runs = [("mesh_auto", "auto", "fused", "rnl_fire_times_layer_sharded",
+             serve("auto", "auto", ff, p_ff, 1)),
+            ("mesh_fused_compact", "fused_compact", "fused_compact",
+             "rnl_fire_times_compact_sharded",
+             serve("fused_compact", "fused_compact", ff, p_ff, 1)),
+            ("mesh_auto_recurrent_pipelined", "auto_recurrent_pipelined",
+             "fused", "rnl_fire_times_layer_sharded",
+             serve("auto_recurrent_pipelined", "auto", rec, p_rec, 4)),
+            ("mesh_learn_every1", "learn_every1", "fused",
+             "rnl_fire_times_layer_sharded", learn),
+            ("mesh_resilient_serve", "resilient_serve", "fused",
+             "rnl_fire_times_layer_sharded", resilient)]
+    launches: Dict[str, Dict[str, int]] = {}
+    for name, base, want_engine, wrapper, run in runs:
+        torch.cuda.synchronize()
+        reset_launches()
+        rs.reset_launches()
+        t0 = time.perf_counter()
+        st, fields = run()
+        torch.cuda.synchronize()
+        run_ms = 1e3 * (time.perf_counter() - t0)
+        counts = mesh_counts()
+        launches[name] = counts
+        engines = engine_steps(st)
+        if engines != {want_engine: int(st["n_steps"])}:
+            raise AssertionError(f"{name}: engines {engines}, expected every "
+                                 f"step on {want_engine}")
+        inner = MESH_INNER[wrapper]
+        want = single[base][inner]
+        others = {k: v for k, v in counts.items()
+                  if v and k not in (wrapper, inner)}
+        if counts[wrapper] <= 0 or counts[wrapper] != want \
+                or counts[inner] != want or others:
+            raise AssertionError(f"{name}: launches {counts}, expected "
+                                 f"{want} of {wrapper} and of {inner} (the "
+                                 f"single-device {base} path's) and no "
+                                 f"other")
+        emit("mesh", run=name, **fields, steps=int(st["n_steps"]),
+             engine_steps=engines, run_ms=run_ms, launches=counts,
+             single_device_launches=single[base])
+    return launches
+
+
+def mesh_wall(dev, mesh, streams, ff, p_ff) -> None:
+    """The serve population on ``auto`` through the single-device engine
+    and the mesh engine in turns: the engines' own per-step wall (host
+    clock, each step ending in its device-to-host copy), so the mesh's
+    overhead at world size 1 (the wrappers' checks and the blocks'
+    bookkeeping: over axes of one rank no collective runs)."""
+    per_step: Dict[str, List[float]] = {"single": [], "mesh": []}
+    for _ in range(MESH_WALL_ROUNDS):
+        for kind in ("single", "mesh", "mesh", "single"):
+            eng = tnn_engine.TNNEngine(
+                p_ff, ff, tnn_engine.TNNServeConfig(n_slots=N_SLOTS),
+                device=dev if kind == "single" else None,
+                mesh=mesh if kind == "mesh" else None)
+            eng.serve(streams)
+            st = eng.stats()
+            per_step[kind].append(1e3 * st["run_s"] / st["n_steps"])
+    single_ms = statistics.median(per_step["single"])
+    mesh_ms = statistics.median(per_step["mesh"])
+    emit("mesh", run="wall_per_step", single_ms=single_ms, mesh_ms=mesh_ms,
+         mesh_over_single=mesh_ms / single_ms,
+         single_ms_all=per_step["single"], mesh_ms_all=per_step["mesh"])
+
+
+def launch_device_ms(fn, reps: int = 50):
+    """Device time of one RNL launch, for an ``fn`` that launches one a
+    call: the profiler's total over the RNL kernels it recorded in
+    ``reps`` calls, per recorded kernel, and how many it recorded (a late
+    profile can lose its leading device records); ``(None, 0)`` when it
+    recorded none."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and "rnl_" in e.key]
+    count = sum(e.count for e in hits)
+    if not count:
+        return None, 0
+    return sum(e.self_device_time_total for e in hits) / 1e3 / count, count
+
+
+def mesh_profiles(dev, mesh, streams, ff, p_ff) -> None:
+    """Where a serving step's time goes, single-device against the mesh
+    engine at world size 1 (64 slots): one step at a time under the
+    profiler (:func:`phase_profile_path`)."""
+    for name, kw in (("serve_step_64", dict(device=dev)),
+                     ("mesh_step_64", dict(mesh=mesh))):
+        eng = tnn_engine.TNNEngine(
+            p_ff, ff, tnn_engine.TNNServeConfig(n_slots=N_SLOTS), **kw)
+        eng.serve(streams[:N_SLOTS])
+        for s in streams * 8:
+            eng.submit(s)
+        phase_profile_path(Path(name, "rnl_fire_times_layer", eng.step,
+                                lambda *_: {}))
+
+
+def served_stacks(dev, streams, ff, p_ff):
+    """Each served layer's config, gathered ``(C, B, rf)`` volleys and int32
+    weights at the first volley of 64 clients: the shapes the main path
+    gives the bank."""
+    x = torch.from_numpy(np.stack([s[0] for s in streams[:N_SLOTS]])).to(dev)
+    stacks = []
+    for lc, w in zip(ff.layers, p_ff):
+        times = layer._gather_rf(x, lc).contiguous()
+        stacks.append((lc, times, torch.round(w).to(torch.int32)))
+        out, _ = layer._fire_and_inhibit(w, times, lc)
+        x = out.reshape(out.shape[0], lc.n_outputs)
+    return stacks
+
+
+def mesh_replicated(dev, streams, ff, p_ff) -> None:
+    """A column count that the ``column`` axis does not divide, on the card:
+    each served layer's stack through ``fire_times_bank`` on ``fused`` and
+    ``fused_compact`` under a mesh whose column axis does not divide it
+    (:data:`MESH_REPLICATED`, data split in two). The policy keeps the
+    fused engine, the bank launches the unsharded kernel once on the
+    rank's ``(C, B / 2, n)`` block (the sharded wrappers not at all), and
+    the result equals the whole launch's rows bit for bit."""
+    for (lc, times, w_int), (d, m) in zip(
+            served_stacks(dev, streams, ff, p_ff), MESH_REPLICATED):
+        shape = MeshShape({"data": d, "column": m})
+        cfg = lc.neuron_config()
+        rows = times.shape[1] // d
+        for backend, inner in (("fused", "rnl_fire_times_layer"),
+                               ("fused_compact", "rnl_fire_times_compact")):
+            want = neuron.fire_times_bank(times, w_int, cfg,
+                                          backend=backend)[:, :rows]
+            torch.cuda.synchronize()
+            reset_launches()
+            rs.reset_launches()
+            got = neuron.fire_times_bank(
+                times[:, :rows].contiguous(), w_int, cfg, backend=backend,
+                mesh=shape, shape=tuple(times.shape))
+            torch.cuda.synchronize()
+            counts = {k: v for k, v in mesh_counts().items() if v}
+            if counts != {inner: 1} or not torch.equal(got, want):
+                raise AssertionError(
+                    f"replicated {lc.n_columns} columns on mesh ({d}, {m}) "
+                    f"{backend}: launches {counts}, equal "
+                    f"{torch.equal(got, want)}")
+            emit("mesh", run="replicated", layer_columns=lc.n_columns,
+                 mesh=[d, m], backend=backend, block=list(got.shape),
+                 launches=counts, bit_exact=True)
+
+
+def mesh_tiles(dev, streams, ff, p_ff) -> Dict[str, Dict[str, Any]]:
+    """Every rank's tile of the served network's L1 and L2 stacks (the
+    shapes the main path gives the wrappers: the first volley of 64
+    clients) launched one after another through each sharded wrapper, for
+    the (1, 1) mesh and every m-way column by d-way data mesh: the tiles
+    put back together must equal the whole launch bit for bit, and the
+    (1, 1) launch its plain version. One tile of each shape is timed
+    (device ms by the profiler, per recorded launch: :func:`launch_device_ms`;
+    call ms by CUDA events, the wrapper's host work included) beside its
+    int32 bound. Returns, per wrapper, its row at L1 on the (1, 1) mesh (the main
+    path's launch at world size 1) with every tile's times."""
+    stacks = served_stacks(dev, streams, ff, p_ff)
+    rows: Dict[str, Dict[str, Any]] = {}
+    for wrapper in MESH_REPLACES:
+        fn = getattr(rs, wrapper)
+        plain = getattr(rs, wrapper + "_plain")
+        compact = wrapper == "rnl_fire_times_compact_sharded"
+        tiles = []
+        for li, (lc, times, w_int) in enumerate(stacks):
+            kw = dict(t_steps=lc.t_steps, threshold=lc.threshold,
+                      k=neuron.clip_k(lc.neuron_config()))
+            want = rn.rnl_fire_times_layer(times, w_int, **kw)
+            t_in, w_in = times, w_int
+            if compact:
+                comp = compaction.compact_volleys(times, lc.t_steps)
+                t_in = comp.times.contiguous()
+                w_in = compaction.gather_weights(
+                    w_int, comp.line_index).contiguous()
+            whole = tuple(t_in.shape)
+            for d, m in [(1, 1)] + [(d, m) for m in MESH_COLUMNS
+                                    for d in MESH_DATA]:
+                shape = MeshShape({"data": d, "column": m})
+                nc, nb = whole[0] // m, whole[1] // d
+                blocks = [[(t_in[i * nc:(i + 1) * nc,
+                                 j * nb:(j + 1) * nb].contiguous(),
+                            (w_in[i * nc:(i + 1) * nc, j * nb:(j + 1) * nb]
+                             if compact else
+                             w_in[i * nc:(i + 1) * nc]).contiguous())
+                           for i in range(m)] for j in range(d)]
+                got = torch.cat([torch.cat(
+                    [fn(t, w, **kw, mesh=shape, shape=whole)
+                     for t, w in row], dim=0) for row in blocks], dim=1)
+                torch.cuda.synchronize()
+                err = int((got.to(torch.int64) - want.to(torch.int64))
+                          .abs().max())
+                if err or got.shape != want.shape:
+                    raise AssertionError(f"{wrapper} L{li + 1} mesh "
+                                         f"({d}, {m}): the tiles differ from "
+                                         f"the whole launch (max |err| "
+                                         f"{err})")
+                t, w = blocks[0][0]
+
+                def call(t=t, w=w, shape=shape):
+                    return fn(t, w, **kw, mesh=shape, shape=whole)
+
+                fire = call()
+                ms, recorded = launch_device_ms(call)
+                call_ms = time_ms(call)
+                bound, bound_by = bound_ms(t, w, fire, None, kw["t_steps"],
+                                           kw["threshold"])
+                tile = dict(wrapper=wrapper, layer=li + 1, mesh=[d, m],
+                            tiles=d * m, tile_times=list(t.shape),
+                            tile_weights=list(w.shape), max_abs_err=err,
+                            ms=ms, ms_source="profiler, per recorded launch",
+                            launches_recorded=recorded, kernels_per_call=1,
+                            call_ms=call_ms, bound_ms=bound,
+                            bound_by=bound_by)
+                if (d, m) == (1, 1):
+                    want_plain = plain(t, w, **kw, mesh=shape, shape=whole)
+                    if not torch.equal(fire, want_plain):
+                        raise AssertionError(f"{wrapper} L{li + 1}: the "
+                                             f"kernel disagrees with its "
+                                             f"plain version")
+                    tile["plain_ms"] = time_ms(
+                        lambda: plain(t, w, **kw, mesh=shape, shape=whole),
+                        reps=5, warmup=1)
+                emit("mesh_tiles", **tile)
+                tiles.append(tile)
+        rows[wrapper] = dict(tiles[0], tiles=[
+            {k: tile[k] for k in ("layer", "mesh", "tile_times", "ms",
+                                  "call_ms", "bound_ms")} for tile in tiles])
+    return rows
+
+
+def phase_mesh(dev, streams, ff, p_ff, served, single, root
+               ) -> Tuple[Dict[str, Dict[str, int]], Dict[str, Dict[str, Any]]]:
+    """The TNN stack across GPUs, on the one card: an NCCL process group of
+    world size 1 and its ``(1, 1)`` ``("data", "column")`` mesh
+    (``specs.tnn_mesh``); ``tnn_mesh(2, 1)`` must refuse one card. Then
+    :func:`mesh_runs`, :func:`mesh_wall`, :func:`mesh_profiles`,
+    :func:`mesh_replicated` and :func:`mesh_tiles`. The
+    process group is destroyed before the LM phases. Returns the runs'
+    launch counts and the wrappers' rows."""
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "nccl", init_method=(pathlib.Path(root) / "rendezvous").as_uri(),
+        rank=0, world_size=1, timeout=datetime.timedelta(minutes=2))
+    try:
+        mesh = specs.tnn_mesh()
+        if tuple(mesh.shape) != (1, 1) or mesh.device_type != "cuda" \
+                or dist.get_backend() != "nccl":
+            raise AssertionError(f"mesh {tuple(mesh.shape)} on "
+                                 f"{mesh.device_type}, backend "
+                                 f"{dist.get_backend()}")
+        try:
+            specs.tnn_mesh(2, 1)
+        except ValueError as e:
+            refused = str(e)
+        else:
+            raise AssertionError("tnn_mesh(2, 1) did not refuse one card")
+        emit("mesh", run="setup", backend=dist.get_backend(),
+             world_size=dist.get_world_size(), mesh=list(mesh.shape),
+             dims=list(mesh.mesh_dim_names),
+             nccl=".".join(map(str, torch.cuda.nccl.version())),
+             tnn_mesh_2_1_refused=refused)
+        launches = mesh_runs(dev, mesh, streams, ff, p_ff, served, single,
+                             root)
+        mesh_wall(dev, mesh, streams, ff, p_ff)
+        mesh_profiles(dev, mesh, streams, ff, p_ff)
+        mesh_replicated(dev, streams, ff, p_ff)
+        rows = mesh_tiles(dev, streams, ff, p_ff)
+    finally:
+        dist.destroy_process_group()
+    return launches, rows
+
+
 def phase_lm_prefill(cfg, params, tokens, name="lm_prefill_time", **extra):
     """Host clock around whole prefill forwards, each ended by a
     synchronise: ms per forward (median of 3) and prefill tokens/s (text
@@ -3367,6 +3770,8 @@ def smoke(root: str) -> int:
         if path.name.startswith("gate_level") \
                 or path.name in ("lm_prefill", "moe_prefill"):
             phase_profile_path(path)
+    mesh_launches, mesh_rows = phase_mesh(dev, streams, ff, p_ff, served,
+                                          launches, root)
     phase_lm_prefill(lm_cfg, lm_params, lm_tokens)
     phase_profile_decode(lm_cfg, lm_params, prompts)
     phase_lm_checks(dev, lm_cfg, lm_params, lm_tokens, prompts)
@@ -3430,6 +3835,20 @@ def smoke(root: str) -> int:
             bound_ms=row["bound_ms"], bound_by=row["bound_by"],
             library_ms=row.get("library_ms"), floor_ms=floor_ms,
             **(ssd_row if name == "ssd_scan" else {})))
+    for name, row in mesh_rows.items():
+        by_run = {run: counts[name] for run, counts in mesh_launches.items()
+                  if counts[name]}
+        kernels.append(dict(
+            name=name, route="cuda", source=SOURCES["rnl_neuron"],
+            wrapper=MESH_WRAPPER_SOURCE, replaces=MESH_REPLACES[name],
+            launches=sum(by_run.values()), launches_by_run=by_run,
+            shape=f"L{row['layer']} mesh {row['mesh']}",
+            max_abs_err=row["max_abs_err"], ms=row["ms"],
+            ms_source=row["ms_source"],
+            kernels_per_call=row["kernels_per_call"],
+            plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+            bound_by=row["bound_by"], library_ms=None, floor_ms=floor_ms,
+            tiles=row["tiles"]))
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

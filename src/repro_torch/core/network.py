@@ -13,6 +13,14 @@ output volley, so :func:`forward` threads an explicit per-layer ``carry``
 :func:`step` is the learning cycle: the forward plus every layer's
 minibatch STDP, weights in and weights out; :func:`train_network` runs it
 over a stream.
+
+Over a ``("data", "column")`` mesh (``mesh=``) every rank passes the same
+whole volleys and carries, holds its block of each layer's weights
+(:func:`param_shardings`, :func:`init_network`) and gets the whole results
+back. Inside :func:`forward` each rank keeps its rows of the batch
+(:func:`data_sharding`) from layer to layer, each layer's outputs
+all-gathered over the ``column`` group, and the rows are all-gathered over
+the ``data`` group once, at the end.
 """
 
 from __future__ import annotations
@@ -25,6 +33,7 @@ import torch
 from repro_torch.core import coding
 from repro_torch.core import layer as layer_mod
 from repro_torch.kernels.common import resolve_device
+from repro_torch.sharding import specs as sharding_specs
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,14 +68,39 @@ def make_network(layers: Sequence[layer_mod.TNNLayer]) -> TNNNetwork:
     return TNNNetwork(layers=tuple(layers))
 
 
-def init_network(generator: torch.Generator, cfg: TNNNetwork,
-                 device: Union[str, torch.device, None] = None
-                 ) -> Tuple[torch.Tensor, ...]:
-    """Random per-layer weights from ``generator``, on ``device``
-    (``None`` = ``cuda``; raises when CUDA is absent)."""
-    dev = resolve_device(device)
-    return tuple(layer_mod.init_layer(generator, lc, dev)
+def param_shardings(cfg: TNNNetwork, mesh) -> Tuple[sharding_specs.Spec,
+                                                    ...]:
+    """Per-layer specs of the (C_l, Q_l, rf_l) weight stacks: columns over
+    the ``column`` axis, whole on every rank when C_l does not divide it."""
+    return tuple(sharding_specs.tnn_param_pspec(mesh, lc.n_columns)
                  for lc in cfg.layers)
+
+
+def data_sharding(cfg: TNNNetwork, mesh, batch: int) -> sharding_specs.Spec:
+    """Spec of a (B, n_inputs) input volley batch: B over ``data``."""
+    del cfg  # shape-independent; kept for signature symmetry
+    return sharding_specs.tnn_batch_pspec(mesh, batch)
+
+
+def init_network(generator: torch.Generator, cfg: TNNNetwork,
+                 device: Union[str, torch.device, None] = None, *,
+                 mesh=None) -> Tuple[torch.Tensor, ...]:
+    """Random per-layer weights from ``generator``, on ``device``
+    (``None`` = ``cuda``; raises when CUDA is absent).
+
+    With ``mesh`` (``device`` then defaults to the mesh's, and must agree
+    with it) every rank draws the same whole weights and keeps its block
+    under :func:`param_shardings`."""
+    if mesh is not None:
+        dev = sharding_specs.mesh_device(mesh, device)
+    else:
+        dev = resolve_device(device)
+    params = tuple(layer_mod.init_layer(generator, lc, dev)
+                   for lc in cfg.layers)
+    if mesh is None:
+        return params
+    return tuple(sharding_specs.shard_of(p, spec, mesh)
+                 for p, spec in zip(params, param_shardings(cfg, mesh)))
 
 
 class ForwardResult(NamedTuple):
@@ -98,12 +132,11 @@ def init_carry(cfg: TNNNetwork, batch: int,
                  else None for lc in cfg.layers)
 
 
-# repro-lint: unplaced (single-device stack; multi-GPU columns come later)
 def forward(params: Sequence[torch.Tensor], volleys: torch.Tensor,
             cfg: TNNNetwork, *, microbatches: int = 1,
             with_densities: bool = False,
-            carry: Optional[Sequence[Optional[torch.Tensor]]] = None
-            ) -> ForwardResult:
+            carry: Optional[Sequence[Optional[torch.Tensor]]] = None,
+            mesh=None) -> ForwardResult:
     """One gamma cycle through the whole stack.
 
     ``microbatches > 1`` runs the software-pipelined schedule (bit-exact vs
@@ -120,6 +153,8 @@ def forward(params: Sequence[torch.Tensor], volleys: torch.Tensor,
         (requires ``microbatches == 1``).
       carry: per-layer carry-in, layer l (B, n_outputs_l) int32 for
         recurrent layers, ``None`` for feedforward ones.
+      mesh: a ``("data", "column")`` mesh; ``params`` are then this rank's
+        blocks (:func:`param_shardings`) and everything else whole.
 
     Returns:
       :class:`ForwardResult` — ``result.carry`` is the carry-in for the
@@ -143,10 +178,15 @@ def forward(params: Sequence[torch.Tensor], volleys: torch.Tensor,
         raise ValueError("with_densities requires microbatches == 1 "
                          "(density measurement is a whole-batch "
                          "diagnostic)")
+    for p, lc in zip(params, cfg.layers):
+        sharding_specs.maybe_wsc(p, *sharding_specs.tnn_param_axes(),
+                                 mesh=mesh, shape=(lc.n_columns,
+                                                   lc.n_neurons, lc.rf_total))
     if m > 1:
-        res = _forward_pipelined(params, x, cfg, carry_in, m, rows)
+        res = _forward_pipelined(params, x, cfg, carry_in, m, rows, mesh)
     else:
-        res = _forward_barriered(params, x, cfg, carry_in, with_densities)
+        res = _forward_barriered(params, x, cfg, carry_in, with_densities,
+                                 mesh)
     if single:
         res = ForwardResult(
             out=res.out[0],
@@ -156,21 +196,51 @@ def forward(params: Sequence[torch.Tensor], volleys: torch.Tensor,
     return res
 
 
-def _forward_barriered(params, x, cfg, carry_in, with_densities
-                       ) -> ForwardResult:
-    """Whole-batch barrier at every layer (the M=1 schedule)."""
+def _forward_barriered(params, x, cfg, carry_in, with_densities,
+                       mesh=None) -> ForwardResult:
+    """Whole-batch barrier at every layer (the M=1 schedule). Under a mesh
+    each rank carries its rows from layer to layer, with every line of
+    them, and the rows are gathered over ``data`` at the end."""
+    b = x.shape[0]
+    dp = None
+    if mesh is not None:
+        dp = sharding_specs.split(mesh, data_sharding(cfg, mesh, b)[0])
+        rows = sharding_specs.block_slice(mesh, b, dp)
+        x = x[rows]
+        carry_in = tuple(None if c is None else c[rows] for c in carry_in)
     winners_all, carry_out = [], []
     densities: Optional[list] = [] if with_densities else None
     out = None
     for w, lc, c in zip(params, cfg.layers, carry_in):
         if densities is not None:
-            densities.append(layer_mod.layer_input_density(x, lc, c))
-        out, winners = layer_mod.layer_forward(w, x, lc, c)
+            # measured on the whole batch, the same on every rank
+            whole = layer_mod._gather_rows(
+                [x] + ([] if c is None else [c]), dp, mesh)
+            densities.append(layer_mod.layer_input_density(
+                whole[0], lc, whole[1] if c is not None else None))
+        if mesh is None:
+            out, winners = layer_mod.layer_forward(w, x, lc, c)
+        else:
+            out, winners = layer_mod._forward_block(w, x, lc, c, mesh, b)
         winners_all.append(winners)
         x = out.reshape(out.shape[0], lc.n_outputs)
         carry_out.append(x if lc.recurrent else None)
+    if mesh is not None:
+        out, winners_all, carry_out = _gather_cycle(out, winners_all,
+                                                    carry_out, dp, mesh)
     return ForwardResult(out, tuple(winners_all), tuple(carry_out),
                          densities)
+
+
+def _gather_cycle(out, winners, carries, dp, mesh):
+    """All-gather one cycle's rows over the DP entry ``dp`` in one
+    collective: the last layer's outputs, every layer's winners and the
+    recurrent carries (``None`` entries pass through)."""
+    rec = [c for c in carries if c is not None]
+    got = layer_mod._gather_rows([out, *winners, *rec], dp, mesh)
+    it = iter(got[1 + len(winners):])
+    return (got[0], list(got[1:1 + len(winners)]),
+            [None if c is None else next(it) for c in carries])
 
 
 def microbatch_split(batch: int, microbatches: int) -> Tuple[int, int]:
@@ -197,7 +267,8 @@ def _pad_rows(x: torch.Tensor, rows: int) -> torch.Tensor:
     return torch.cat([x, pad])
 
 
-def _forward_pipelined(params, x, cfg, carry_in, m, rows) -> ForwardResult:
+def _forward_pipelined(params, x, cfg, carry_in, m, rows,
+                       mesh=None) -> ForwardResult:
     """One gamma cycle through the stack, software-pipelined.
 
     The batch splits into M micro-batches; at pipeline tick t, layer l
@@ -205,7 +276,11 @@ def _forward_pipelined(params, x, cfg, carry_in, m, rows) -> ForwardResult:
     micro-batches. Warmup/drain ticks feed all-``NO_SPIKE`` stage buffers,
     which fire nothing, so the padding is inert; a ragged batch is padded
     the same way. A recurrent layer's carry rows ride the same schedule:
-    tick l + j feeds micro-batch j's carry rows to layer l.
+    tick l + j feeds micro-batch j's carry rows to layer l. Under a mesh
+    each micro-batch's rows are split over ``data`` (the batch rule of
+    ``specs.tnn_stage_pspec``; whole on every rank when the axis does not
+    divide ``rows``), the stage buffers hold a rank's rows with every
+    line, and each micro-batch is gathered at the end.
     """
     b = x.shape[0]
     n_layers = len(cfg.layers)
@@ -219,7 +294,18 @@ def _forward_pipelined(params, x, cfg, carry_in, m, rows) -> ForwardResult:
         c_full = c if c is not None else layer_mod.carry_init(lc, b, dev)
         carries.append(_pad_rows(c_full, m * rows).reshape(
             m, rows, lc.n_outputs))
-    stage = [layer_mod.stage_init(lc, rows, dev) for lc in cfg.layers[1:]]
+    dp, mb = None, rows             # the split of a micro-batch, its rows
+    layer_forward = layer_mod.layer_forward
+    if mesh is not None:
+        dp = sharding_specs.split(mesh, data_sharding(cfg, mesh, rows)[0])
+        mine = sharding_specs.block_slice(mesh, rows, dp)
+        xs = xs[:, mine]
+        carries = [None if c is None else c[:, mine] for c in carries]
+        mb = xs.shape[1]
+
+        def layer_forward(w, inp, lc, c):
+            return layer_mod._forward_block(w, inp, lc, c, mesh, rows)
+    stage = [layer_mod.stage_init(lc, mb, dev) for lc in cfg.layers[1:]]
     outs: List[torch.Tensor] = []
     wins: List[List[torch.Tensor]] = [[] for _ in cfg.layers]
     couts: List[List[torch.Tensor]] = [[] for _ in cfg.layers]
@@ -228,15 +314,15 @@ def _forward_pipelined(params, x, cfg, carry_in, m, rows) -> ForwardResult:
         for i, (w, lc) in enumerate(zip(params, cfg.layers)):
             j = tick - i                      # this layer's micro-batch
             if i == 0:
-                inp = xs[j] if j < m else layer_mod.stage_init(lc, rows, dev)
+                inp = xs[j] if j < m else layer_mod.stage_init(lc, mb, dev)
             else:
                 inp = stage[i - 1]
             c_t = None
             if lc.recurrent:
                 c_t = (carries[i][j] if 0 <= j < m
-                       else layer_mod.carry_init(lc, rows, dev))
-            out, win = layer_mod.layer_forward(w, inp, lc, c_t)
-            flat = out.reshape(rows, lc.n_outputs)
+                       else layer_mod.carry_init(lc, mb, dev))
+            out, win = layer_forward(w, inp, lc, c_t)
+            flat = out.reshape(mb, lc.n_outputs)
             if 0 <= j < m:
                 wins[i].append(win)
                 if lc.recurrent:
@@ -246,6 +332,16 @@ def _forward_pipelined(params, x, cfg, carry_in, m, rows) -> ForwardResult:
             if i + 1 < n_layers:
                 new_stage.append(flat)
         stage = new_stage
+    if mesh is not None:
+        for j in range(m):
+            outs[j], win_j, cout_j = _gather_cycle(
+                outs[j], [ws[j] for ws in wins],
+                [cs[j] if lc.recurrent else None
+                 for cs, lc in zip(couts, cfg.layers)], dp, mesh)
+            for i, lc in enumerate(cfg.layers):
+                wins[i][j] = win_j[i]
+                if lc.recurrent:
+                    couts[i][j] = cout_j[i]
     out = torch.cat(outs)[:b]
     winners = tuple(torch.cat(ws)[:b] for ws in wins)
     carry_out = tuple(torch.cat(cs)[:b] if lc.recurrent else None
@@ -296,11 +392,11 @@ class StepResult(NamedTuple):
     carry: Tuple[Optional[torch.Tensor], ...]
 
 
-# repro-lint: unplaced (single-device stack; multi-GPU columns come later)
 def step(params: Sequence[torch.Tensor], volleys: torch.Tensor,
          cfg: TNNNetwork, *, key: Optional[torch.Generator] = None,
          carry: Optional[Sequence[Optional[torch.Tensor]]] = None,
-         draws: Optional[Sequence[torch.Tensor]] = None) -> StepResult:
+         draws: Optional[Sequence[torch.Tensor]] = None,
+         mesh=None) -> StepResult:
     """Forward + layer-local minibatch STDP — THE learning entry point.
 
     One gamma cycle through the stack with every layer applying its own
@@ -321,6 +417,10 @@ def step(params: Sequence[torch.Tensor], volleys: torch.Tensor,
     it in turn; ``draws`` hands in each layer's ``(C, B, Q, rf_total)``
     uniforms instead. Returns :class:`StepResult`; a 1-D single volley
     drops the batch dim from every field except ``params``.
+
+    Under ``mesh`` the params in and out are this rank's blocks and every
+    other tensor whole (:func:`repro_torch.core.layer.layer_step`): the
+    new params are the single-device ones, block by block.
     """
     n_layers = len(cfg.layers)
     if carry is None:
@@ -343,7 +443,7 @@ def step(params: Sequence[torch.Tensor], volleys: torch.Tensor,
     out = None
     for w, lc, c, d in zip(params, cfg.layers, carry_in, layer_draws):
         new_w, out, winners = layer_mod.layer_step(w, x, lc, key, c,
-                                                   draws=d)
+                                                   draws=d, mesh=mesh)
         new_params.append(new_w)
         winners_all.append(winners)
         x = out.reshape(out.shape[0], lc.n_outputs)

@@ -20,12 +20,13 @@ All engines of :func:`fire_times_bank` are bit-exact on the fire times
 from __future__ import annotations
 
 import dataclasses
-from typing import Literal, Optional
+from typing import Literal, Optional, Sequence
 
 import torch
 
 from repro_torch.core import coding, compaction, sorting_networks, topk_prune
 from repro_torch.core import policy as engine_policy
+from repro_torch.sharding import specs as sharding_specs
 
 DendriteKind = Literal["pc_conventional", "pc_compact", "sorting_pc",
                        "catwalk"]
@@ -68,6 +69,10 @@ class NeuronOutput:
 def clip_k(cfg: NeuronConfig) -> Optional[int]:
     """Per-tick dendrite clip: k for the clipped designs, None for full PC."""
     return cfg.k if cfg.dendrite in ("sorting_pc", "catwalk") else None
+
+
+# the capability probe, canonical in repro_torch.core.policy
+mesh_active = engine_policy.mesh_active
 
 
 def _check_dendrite(cfg: NeuronConfig) -> None:
@@ -269,11 +274,11 @@ def _bank_shapes(times: torch.Tensor, weights: torch.Tensor):
     return times.to(_I32), weights.to(_I32)
 
 
-# repro-lint: unplaced (single-device bank; multi-GPU columns come later)
 def fire_times_bank(times: torch.Tensor, weights: torch.Tensor,
                     cfg: NeuronConfig, backend: Backend = "auto",
                     n_active_max: Optional[int] = None,
-                    policy: Optional[engine_policy.EnginePolicy] = None
+                    policy: Optional[engine_policy.EnginePolicy] = None,
+                    *, mesh=None, shape: Optional[Sequence[int]] = None
                     ) -> torch.Tensor:
     """Fire times of a neuron bank: every volley through every neuron.
 
@@ -288,8 +293,16 @@ def fire_times_bank(times: torch.Tensor, weights: torch.Tensor,
       * ``"fused"``       — the CUDA tick-sweep kernel
         (:func:`repro_torch.kernels.rnl_neuron.rnl_fire_times`, or
         ``rnl_fire_times_layer`` for a 3-D column stack; one launch).
+        Under a mesh whose ``column`` axis the column stack tiles, one
+        launch per rank on its tile
+        (:mod:`repro_torch.kernels.rnl_shard`). A 2-D bank or a stack
+        that does not tile is whole on every rank: on a CUDA device the
+        kernel runs on it as on one device; on the CPU the engine
+        degrades to ``closed_form``.
       * ``"fused_compact"`` — the same kernel over spike-compacted volleys
-        (``rnl_fire_times_compact``), columns folded into the batch.
+        (``rnl_fire_times_compact``), columns folded into the batch; under
+        a mesh it shards, or runs on a replicated block or degrades (to
+        ``event``), as ``fused`` does.
       * ``"auto"``        — ``fused`` on a CUDA device; elsewhere the engine
         the policy predicts cheapest at the measured activity.
 
@@ -306,33 +319,60 @@ def fire_times_bank(times: torch.Tensor, weights: torch.Tensor,
         omitted, and a width that would drop active lines raises.
       policy: engine-selection policy for ``backend="auto"``; ``None`` uses
         :func:`repro_torch.core.policy.default_policy`.
+      mesh: a ``("data", "column")`` mesh (``specs.tnn_mesh``). Then
+        ``times`` and ``weights`` are this rank's blocks of a whole column
+        stack laid out by ``specs.tnn_data_pspec`` and
+        ``specs.tnn_param_pspec`` (checked), and the result is this rank's
+        block of the whole fire times. No rank talks to another here.
+      shape: the whole ``(C, B, n)`` stack of a block under ``mesh``;
+        ``None`` = the block is the whole stack.
 
     Returns:
       (B, Q) int32 fire times (NO_SPIKE = silent), or (C, B, Q) for 3-D
-      inputs.
+      inputs (this rank's block of them under a mesh).
     """
     _check_dendrite(cfg)
     times, weights = _bank_shapes(times, weights)
-    n_columns = times.shape[0] if times.dim() == 3 else None
+    whole = tuple(times.shape) if shape is None else tuple(shape)
+    n_columns = whole[0] if times.dim() == 3 else None
+    if times.dim() == 3:
+        # under a mesh, the blocks must be where the rules put them
+        col, dp, _ = sharding_specs.tnn_volley_axes()
+        sharding_specs.maybe_wsc(times, col, dp, None, mesh=mesh,
+                                 shape=whole)
+        sharding_specs.maybe_wsc(weights, col, None, None, mesh=mesh,
+                                 shape=(whole[0],) + weights.shape[1:])
     k = clip_k(cfg)
     pol = policy if policy is not None else engine_policy.default_policy()
     density = s_active = None
     if pol.wants_density(backend, times.device):
         density, s_active = compaction.active_stats(times, cfg.t_steps)
-    shape = engine_policy.BankShape(
-        pairs=(n_columns or 1) * times.shape[-2] * weights.shape[-2],
+    bank = engine_policy.BankShape(
+        pairs=(n_columns or 1) * whole[-2] * weights.shape[-2],
         n_lines=times.shape[-1], t_steps=cfg.t_steps)
     engine = pol.resolve(backend, density=density, max_active=s_active,
-                         shape=shape, device=times.device).engine
+                         column_counts=n_columns, shape=bank,
+                         device=times.device, mesh=mesh).engine
 
     if engine in ("fused", "fused_compact"):
-        from repro_torch.kernels import rnl_neuron
+        from repro_torch.kernels import rnl_neuron, rnl_shard
         if times.dim() not in (2, 3):
             raise ValueError(f"{engine} backend supports (B, n) or "
                              f"(C, B, n) volleys, got {tuple(times.shape)}")
+        # a column stack that tiles the column axis goes through the
+        # sharded wrappers; under a mesh, anything else is a replicated
+        # block (the policy lets it through on a CUDA device only) and
+        # launches as on one device
+        sharded = (mesh_active(mesh)
+                   and engine_policy._fused_shardable(n_columns, mesh))
         if engine == "fused_compact":
             comp, w_c = _compact_bank(times, weights, cfg.t_steps,
                                       n_active_max)
+            if sharded:
+                return rnl_shard.rnl_fire_times_compact_sharded(
+                    comp.times.contiguous(), w_c.contiguous(),
+                    t_steps=cfg.t_steps, threshold=cfg.threshold, k=k,
+                    mesh=mesh, shape=whole[:2] + (comp.width,))
             # fold the column axis into the batch: compaction already made
             # weights per-volley, so one launch serves all columns
             ct = comp.times.reshape(-1, comp.width).contiguous()
@@ -340,6 +380,11 @@ def fire_times_bank(times: torch.Tensor, weights: torch.Tensor,
             fire = rnl_neuron.rnl_fire_times_compact(
                 ct, cw, t_steps=cfg.t_steps, threshold=cfg.threshold, k=k)
             return fire.reshape(times.shape[:-1] + (weights.shape[-2],))
+        if sharded:
+            return rnl_shard.rnl_fire_times_layer_sharded(
+                times.contiguous(), weights.contiguous(),
+                t_steps=cfg.t_steps, threshold=cfg.threshold, k=k,
+                mesh=mesh, shape=whole)
         if times.dim() == 2:
             return rnl_neuron.rnl_fire_times(
                 times.contiguous(), weights.contiguous(),

@@ -21,6 +21,16 @@ resolves to ``fused`` (decided by the tensors' device, never by probing
 whether the kernel builds — a build failure raises where the kernel is
 launched); elsewhere ``auto`` is the cost model's pick at the measured
 workload, and an unknown workload keeps the dense choice.
+
+Under a ``("data", "column")`` mesh (:mod:`repro_torch.sharding.specs`,
+passed as ``mesh=``) the fused engines run through the sharded wrappers
+(:mod:`repro_torch.kernels.rnl_shard`) where every column count tiles the
+mesh's ``column`` axis. Where one does not, every rank holds the whole
+column stack: on a CUDA device the kernel then runs unsharded on that
+replicated block, and ``auto`` stays ``fused``; on the CPU the fused
+engines degrade to the engine of the same sparsity class (``fused`` to
+``closed_form``, ``fused_compact`` to ``event``), as the reference's do
+wherever ``shard_map`` cannot tile the columns.
 """
 
 from __future__ import annotations
@@ -28,11 +38,12 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-from typing import Dict, Literal, NamedTuple, Optional, Union
+from typing import Dict, Iterable, Literal, NamedTuple, Optional, Union
 
 import torch
 
 from repro_torch.core import compaction
+from repro_torch.sharding import specs as sharding_specs
 
 Backend = Literal["auto", "scan", "closed_form", "event", "fused",
                   "fused_compact"]
@@ -46,6 +57,52 @@ DENSITY_EVENT_MAX = 0.25
 SPARSE_ENGINES = ("event", "fused_compact")
 
 DeviceLike = Union[str, torch.device, None]
+
+ColumnCounts = Union[int, Iterable[int], None]
+
+
+def mesh_active(mesh) -> bool:
+    """Whether ``mesh`` is a device mesh with named axes (``None``: the
+    single-device path)."""
+    return bool(sharding_specs.axis_names(mesh))
+
+
+def _fused_shardable(n_columns: Optional[int], mesh) -> bool:
+    """Mesh capability of the fused engines.
+
+    True without a mesh (a plain single-device launch). Under a mesh the
+    sharded wrappers need a 3-D column stack whose column count tiles the
+    ``column`` axis: ``n_columns is None`` (a 2-D ``(B, n)`` bank) and a
+    mesh without a ``column`` axis give False.
+    """
+    if not mesh_active(mesh):
+        return True
+    if n_columns is None:
+        return False
+    if sharding_specs.TNN_COLUMN_AXIS not in sharding_specs.axis_names(mesh):
+        return False
+    return n_columns % sharding_specs.tnn_column_size(mesh) == 0
+
+
+def _effective_engine(engine: str, column_counts: ColumnCounts = None,
+                      mesh=None, device: DeviceLike = None) -> str:
+    """The engine that will run for ``engine`` on ``mesh``. The fused
+    engines pass through on a CUDA device (the sharded wrappers, or the
+    kernel on a replicated stack), and elsewhere when every count in
+    ``column_counts`` (one count, or one per layer) is
+    :func:`_fused_shardable`; otherwise — replication fallback, a 2-D
+    bank, or an unknown shape (``None``) — they degrade to the engine of
+    the same sparsity class. Everything else, and everything without a
+    mesh, passes through."""
+    if engine not in ("fused", "fused_compact") or not mesh_active(mesh) \
+            or _on_cuda(device):
+        return engine
+    if column_counts is not None:
+        counts = ((column_counts,) if isinstance(column_counts, int)
+                  else tuple(column_counts))
+        if counts and all(_fused_shardable(c, mesh) for c in counts):
+            return engine
+    return "event" if engine == "fused_compact" else "closed_form"
 
 
 class BankShape(NamedTuple):
@@ -64,10 +121,9 @@ class BankShape(NamedTuple):
 class Resolution(NamedTuple):
     """What :meth:`EnginePolicy.resolve` decided, and why.
 
-    engine:       the engine that will run.
+    engine:       the engine that will run (after the mesh degradation).
     requested:    the explicit backend name, or the policy's pick for
-                  ``auto`` (equal to ``engine`` until a multi-device rule
-                  can degrade it).
+                  ``auto``, before the mesh degradation.
     width:        compaction bucket width for the sparse engines (None
                   when the active-line count is unknown).
     predicted_us: per-candidate predicted runtime for the decision taken
@@ -130,8 +186,9 @@ class EnginePolicy:
     :meth:`CostCoefficients.predict_us` at the measured workload;
     ``mode="density"`` reproduces the legacy ``DENSITY_EVENT_MAX``
     threshold. Both modes keep explicit names as given, let a CUDA device
-    preempt ``auto`` with the fused kernel, and keep an unknown workload
-    dense. Frozen (hashable) so it can ride on the frozen layer configs.
+    preempt ``auto`` with the fused kernel, degrade the fused engines last
+    under a mesh on the CPU, and keep an unknown workload dense. Frozen
+    (hashable) so it can ride on the frozen layer configs.
     """
 
     mode: str = "cost"
@@ -154,13 +211,15 @@ class EnginePolicy:
     def resolve(self, backend: Backend = "auto", *,
                 density: Optional[float] = None,
                 max_active: Optional[int] = None,
+                column_counts: ColumnCounts = None,
                 shape: Optional[BankShape] = None,
-                device: DeviceLike = None) -> Resolution:
+                device: DeviceLike = None, mesh=None) -> Resolution:
         """Resolve ``backend`` to the engine that should run on ``device``
         (the device of the tensors it will run on; ``None`` = not CUDA).
 
-        Takes the measured workload (``density`` and/or ``max_active``) and
-        the bank shape (for the predictor), and returns the
+        Takes the measured workload (``density`` and/or ``max_active``),
+        the column structure and ``mesh`` (for the mesh capability check)
+        and the bank shape (for the predictor), and returns the
         :class:`Resolution` — engine, request, compaction width, and the
         predictions behind the choice.
         """
@@ -184,10 +243,11 @@ class EnginePolicy:
             }
             # dict order breaks exact ties toward the sparse engine
             requested = min(predicted, key=predicted.__getitem__)
+        engine = _effective_engine(requested, column_counts, mesh, device)
         width = (self.width_for(s_active, shape)
-                 if requested in SPARSE_ENGINES and s_active is not None
+                 if engine in SPARSE_ENGINES and s_active is not None
                  else None)
-        return Resolution(engine=requested, requested=requested,
+        return Resolution(engine=engine, requested=requested,
                           width=width, predicted_us=predicted)
 
     def width_for(self, max_active: int,

@@ -65,7 +65,7 @@ def _stabilizer(w: torch.Tensor, cfg: STDPConfig) -> torch.Tensor:
     return torch.clamp(4.0 * u * (1.0 - u), min=cfg.stab_floor)
 
 
-def _uniforms(shape: Sequence[int], like: torch.Tensor,
+def uniforms(shape: Sequence[int], like: torch.Tensor,
               key: Optional[torch.Generator],
               draws: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
     """The stochastic rule's uniforms of ``shape``: ``draws`` as given
@@ -82,6 +82,23 @@ def _uniforms(shape: Sequence[int], like: torch.Tensor,
         return torch.rand(tuple(shape), generator=key, device=like.device,
                           dtype=like.dtype)
     return None
+
+
+def batch_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sum over ``dim`` in an order set by that dim's size alone: halves
+    added pairwise, an odd row carried to the next round. Every add is
+    elementwise, so each element rounds alike whatever the other dims
+    hold (a block of the columns or all of them) and on every device,
+    where ``torch.sum`` picks its order by the tensor's sizes and
+    strides."""
+    x = x.movedim(dim, 0)
+    if x.shape[0] == 0:
+        return x.sum(0)
+    while x.shape[0] > 1:
+        half = x.shape[0] // 2
+        pairs = x[:half] + x[half:2 * half]
+        x = torch.cat([pairs, x[2 * half:]]) if x.shape[0] % 2 else pairs
+    return x[0]
 
 
 def _i32(t: Union[int, torch.Tensor], like: torch.Tensor
@@ -121,7 +138,7 @@ def stdp_delta(weights: torch.Tensor, in_times: torch.Tensor,
 
     b = _stabilizer(weights, cfg)
     shape = torch.broadcast_shapes(weights.shape, t_in.shape, t_out.shape)
-    u = _uniforms(shape, weights, key, draws)
+    u = uniforms(shape, weights, key, draws)
     if u is not None:
         b = (u < b).to(weights.dtype)
 
@@ -174,7 +191,7 @@ def stdp_update_column(weights: torch.Tensor, in_times: torch.Tensor,
     """
     t_in = _i32(in_times, weights)[..., None, :]
     shape = torch.broadcast_shapes(weights.shape, t_in.shape)
-    u = _uniforms(shape, weights, key, draws)
+    u = uniforms(shape, weights, key, draws)
     updated = stdp_update(weights, t_in, out_times, cfg, draws=u)
     keep = _keep(winner, weights.shape[-2], weights)
     return torch.where(keep[..., None], updated, weights)
@@ -193,11 +210,12 @@ def stdp_update_column_minibatch(weights: torch.Tensor,
 
     Each volley's delta is evaluated at the *shared* starting weights with
     the same winner/silent masking as :func:`stdp_update_column`, the B
-    deltas are reduced (mean by default; "sum" accumulates raw), and the
-    result is applied and clipped once. At B=1 with ``key=None`` this is
-    bit-identical to :func:`stdp_update_column`. The stochastic rule draws
-    independent uniforms per (volley, neuron, line): one ``torch.rand`` of
-    shape (..., B, q, n).
+    deltas are reduced (mean by default; "sum" accumulates raw; summed by
+    :func:`batch_sum`, so a block of the columns gets the whole stack's
+    values), and the result is applied and clipped once. At B=1 with
+    ``key=None`` this is bit-identical to :func:`stdp_update_column`. The
+    stochastic rule draws independent uniforms per (volley, neuron,
+    line): one ``torch.rand`` of shape (..., B, q, n).
 
     Args:
       weights:   (..., q, n) float — a leading C runs C columns at once.
@@ -212,12 +230,12 @@ def stdp_update_column_minibatch(weights: torch.Tensor,
     bsz, q = out_times.shape[-2], weights.shape[-2]
     t_in = _i32(in_times, weights)
     shape = tuple(t_in.shape[:-1]) + tuple(weights.shape[-2:])
-    u = _uniforms(shape, weights, key, draws)
+    u = uniforms(shape, weights, key, draws)
     deltas = stdp_delta(weights[..., None, :, :], t_in[..., :, None, :],
                         out_times, cfg, draws=u)            # (..., B, q, n)
     keep = _keep(winner, q, weights)                        # (..., B, q)
     deltas = torch.where(keep[..., None], deltas, 0.0)
-    acc = torch.sum(deltas, dim=-3)
+    acc = batch_sum(deltas, dim=-3)
     if reduction == "mean":
         acc = _div(acc, bsz)
     return torch.clamp(weights + acc, 0.0, float(cfg.w_max))

@@ -47,6 +47,19 @@ snapshot did not commit, so each retired stream is served exactly once,
 bit-exact with learning off. :class:`AsyncTNNEngine` is the ``asyncio``
 front door: clients ``await submit(stream)`` and one pump task steps the
 shared engine.
+
+Across GPUs (``TNNEngine(..., mesh=)``, a ``("data", "column")``
+:class:`torch.distributed.device_mesh.DeviceMesh` from
+:func:`repro_torch.sharding.specs.tnn_mesh`): every rank runs the same
+engine on the same requests — the ``torchrun`` idiom. Each holds its block
+of the weights (columns over ``column``), measures density, active lines
+and widths on the whole host batch, so every rank resolves the same engine
+and width, and gets the whole outputs back from ``network.forward`` /
+``network.step``, which split the batch over ``data`` inside. Snapshots
+are written by the rank at coordinate ``(0, 0)`` from the gathered
+stacks, asynchronously as without a mesh; ``checkpoint_wait()`` ends in a
+barrier behind the publish, and ``restore()`` passes it, then loads the
+whole stacks on every rank and keeps the block.
 """
 
 from __future__ import annotations
@@ -65,6 +78,7 @@ from repro_torch.core import coding, network, neuron
 from repro_torch.core import policy as engine_policy
 from repro_torch.kernels.common import resolve_device
 from repro_torch.serve import slots
+from repro_torch.sharding import specs as sharding_specs
 from repro_torch.train import checkpoint as CKPT
 from repro_torch.train import fault_tolerance
 
@@ -184,6 +198,12 @@ class TNNEngine:
     ``device`` (``None`` = ``cuda``, which raises when CUDA is absent).
     ``resume=True`` restores the latest snapshot under
     ``scfg.checkpoint_dir``, if there is one.
+
+    With ``mesh`` every rank constructs the engine alike and drives it
+    through the same calls (``step``, ``serve``, ``stats``, ``restore``,
+    ``checkpoint_wait``: they may hold collectives); ``params`` are the
+    whole stacks, the same on every rank, of which each keeps its block,
+    and ``device`` defaults to the mesh's and must agree with it.
     """
 
     def __init__(
@@ -193,9 +213,16 @@ class TNNEngine:
         scfg: Optional[TNNServeConfig] = None,
         device: Union[str, torch.device, None] = None,
         resume: bool = False,
+        *,
+        mesh=None,
     ):
         scfg = scfg or TNNServeConfig()
-        self.device = resolve_device(device)
+        #: optional ("data", "column") device mesh: weights live as this
+        #: rank's column blocks, and forward / step split the slot batch
+        #: over "data"
+        self.mesh = mesh
+        self.device = (resolve_device(device) if mesh is None
+                       else sharding_specs.mesh_device(mesh, device))
         valid = typing.get_args(neuron.Backend)
         for name, where in [(scfg.backend, "TNNServeConfig.backend")] + [
                 (lc.backend, f"net.layers[{i}].backend")
@@ -233,8 +260,12 @@ class TNNEngine:
             * net.layers[0].n_neurons,
             n_lines=net.layers[0].rf_total,
             t_steps=net.layers[0].t_steps)
+        #: per-layer column counts: the shape input of the policy's mesh
+        #: capability check
+        self._column_counts = net.column_counts
         self._default_engine = self._policy.resolve(
-            scfg.backend, device=self.device).engine
+            scfg.backend, device=self.device,
+            column_counts=self._column_counts, mesh=mesh).engine
         if scfg.max_jit_variants < 1:
             raise ValueError(
                 f"max_jit_variants must be >= 1, got {scfg.max_jit_variants}")
@@ -300,17 +331,39 @@ class TNNEngine:
                                  "checkpoint_every > 0")
             if CKPT.latest_step(self._ckpt.dir) is not None:
                 self.restore()
-        # the weights this instance came up with (after a resume), on the
-        # host: the reference of the per-layer drift norms in stats(), and
-        # what restore() rolls back to while no snapshot is on disk
+        # the weights this instance came up with (after a resume), whole,
+        # on the host: the reference of the per-layer drift norms in
+        # stats(), and what restore() rolls back to while no snapshot is on
+        # disk
         self._params_host0 = tuple(p.detach().cpu().numpy().copy()
-                                   for p in self.params)
+                                   for p in self.whole_params())
 
     def _place_params(self, params: Sequence) -> Tuple[torch.Tensor, ...]:
-        """Weight stacks -> float32 tensors on the engine's device; shared
-        by construction and :meth:`restore`."""
-        return tuple(torch.as_tensor(p, dtype=torch.float32).to(self.device)
-                     for p in params)
+        """Whole weight stacks -> float32 tensors on the engine's device,
+        and under a mesh this rank's blocks of them; shared by
+        construction and :meth:`restore`."""
+        placed = tuple(torch.as_tensor(p, dtype=torch.float32)
+                       .to(self.device) for p in params)
+        if self.mesh is None:
+            return placed
+        return tuple(
+            sharding_specs.maybe_wsc(
+                sharding_specs.shard_of(p, spec, self.mesh),
+                *sharding_specs.tnn_param_axes(), mesh=self.mesh,
+                shape=(lc.n_columns, lc.n_neurons, lc.rf_total))
+            for p, lc, spec in zip(placed, self.net.layers,
+                                   network.param_shardings(self.net,
+                                                           self.mesh)))
+
+    def whole_params(self) -> Tuple[torch.Tensor, ...]:
+        """The whole weight stacks: the engine's own without a mesh, else
+        gathered from every rank's blocks (a collective: every rank
+        calls it)."""
+        if self.mesh is None:
+            return tuple(self.params)
+        return tuple(sharding_specs.gather(p, spec, self.mesh)
+                     for p, spec in zip(self.params, network.param_shardings(
+                         self.net, self.mesh)))
 
     def _stdp_key(self) -> Optional[torch.Generator]:
         """This step's STDP generator: ``None`` (the expectation rule)
@@ -349,12 +402,12 @@ class TNNEngine:
         return self.step_id % scfg.stdp_every == 0
 
     def _snapshot_state(self) -> Dict[str, object]:
-        """What a snapshot holds: the weight stacks and the persistent
-        counters (``step_id``, ``n_stdp_updates``), enough for a restored
-        engine to make the original run's cadence, seed and snapshot
-        decisions."""
+        """What a snapshot holds: the whole weight stacks and the
+        persistent counters (``step_id``, ``n_stdp_updates``), enough for a
+        restored engine to make the original run's cadence, seed and
+        snapshot decisions."""
         return {
-            "params": tuple(self.params),
+            "params": self.whole_params(),
             "counters": np.asarray(
                 [self.step_id, self.n_stdp_updates], np.int32),
         }
@@ -363,16 +416,35 @@ class TNNEngine:
         """Hand the step's state to the CheckpointManager on the
         ``checkpoint_every`` cadence. The manager copies it to the host
         here, on the serve thread (a device-to-host copy, so a sync), and
-        with ``checkpoint_async`` writes it on its own thread."""
+        with ``checkpoint_async`` writes it on its own thread.
+
+        Under a mesh every rank gathers the stacks and the rank at
+        coordinate ``(0, 0)`` alone hands them to its manager, which
+        writes them as without a mesh (on its thread with
+        ``checkpoint_async``). No rank reads a snapshot before
+        :meth:`checkpoint_wait`'s barrier, which :meth:`restore` passes
+        first."""
         if self._ckpt is None:
             return
-        if self._ckpt.maybe_save(self.step_id, self._snapshot_state()):
-            self.n_snapshots += 1
+        if self.mesh is None:
+            if self._ckpt.maybe_save(self.step_id, self._snapshot_state()):
+                self.n_snapshots += 1
+            return
+        if self.step_id % self._ckpt.every:
+            return
+        state = self._snapshot_state()
+        if sharding_specs.is_origin(self.mesh):
+            self._ckpt.maybe_save(self.step_id, state)
+        self.n_snapshots += 1
 
     def checkpoint_wait(self) -> None:
-        """Block until any in-flight async snapshot has published."""
+        """Block until any in-flight async snapshot has published; under a
+        mesh, until every rank has got here too (a barrier behind the
+        writer's publish)."""
         if self._ckpt is not None:
             self._ckpt.wait()
+            if self.mesh is not None:
+                sharding_specs.barrier(self.mesh)
 
     def restore(self) -> int:
         """Roll the engine back to the latest snapshot, or, with none on
@@ -399,7 +471,8 @@ class TNNEngine:
                 "counters": np.zeros(2, np.int32),
             }
             state = CKPT.restore_checkpoint(self._ckpt.dir, template, step)
-            self.params = tuple(state["params"])
+            # the whole stacks, of which a rank on a mesh keeps its block
+            self.params = self._place_params(state["params"])
             self.step_id = int(state["counters"][0])
             self.n_stdp_updates = int(state["counters"][1])
         self.pool.clear()
@@ -545,10 +618,13 @@ class TNNEngine:
         needs_active = (self.scfg.backend in SPARSE_ENGINES
                         or self._policy.wants_density(self.scfg.backend,
                                                       self.device))
+        # measured on the whole host batch, so under a mesh every rank
+        # resolves the same engine and width
         res = self._policy.resolve(
             self.scfg.backend, density=density,
             max_active=self._layer0_active(batch) if needs_active else None,
-            shape=self._bank_shape, device=self.device)
+            column_counts=self._column_counts, shape=self._bank_shape,
+            device=self.device, mesh=self.mesh)
         engine = res.engine
         self._density_sum += density
         self._backend_steps[engine] = self._backend_steps.get(engine, 0) + 1
@@ -568,13 +644,14 @@ class TNNEngine:
             # outputs at the pre-update weights (bit-exact with the
             # inference path); the new weights advance the engine's state
             result = network.step(self.params, dev[:, :n_in], net,
-                                  key=self._stdp_key(), carry=carry_in)
+                                  key=self._stdp_key(), carry=carry_in,
+                                  mesh=self.mesh)
             self.params = result.params
             self.n_stdp_updates += 1
         else:
             result = network.forward(self.params, dev[:, :n_in], net,
                                      microbatches=self.n_stages,
-                                     carry=carry_in)
+                                     carry=carry_in, mesh=self.mesh)
         # outputs and new carries side by side: one device-to-host copy
         flat_out = result.out.reshape(self.scfg.n_slots, -1)
         parts = [flat_out] + [c for c in result.carry if c is not None]
@@ -668,8 +745,8 @@ class TNNEngine:
         if self.scfg.learn:
             # per-layer L2 drift against the weights this instance came up
             # with (after a resume): how far live traffic has moved each
-            # stack
-            for i, (p, p0) in enumerate(zip(self.params,
+            # stack (whole stacks: under a mesh, a gather on every rank)
+            for i, (p, p0) in enumerate(zip(self.whole_params(),
                                             self._params_host0)):
                 out[f"weight_drift_l{i}"] = float(np.linalg.norm(
                     p.detach().cpu().numpy().astype(np.float64)

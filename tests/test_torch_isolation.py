@@ -63,7 +63,9 @@ def test_importing_every_port_module_leaves_jax_out(monkeypatch):
                      "repro_torch.optim.grad_compression",
                      "repro_torch.train.train_loop",
                      "repro_torch.launch.train",
-                     "repro_torch.launch.dryrun"):
+                     "repro_torch.launch.dryrun",
+                     "repro_torch.sharding.specs",
+                     "repro_torch.kernels.rnl_shard"):
         assert required in modules
     code = ("import importlib, sys\n"
             f"for m in {modules!r}:\n"
