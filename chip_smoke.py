@@ -81,8 +81,22 @@ token-by-token decode (the recurrence), greedy generation against the
 forward's argmax, and the card's float32 forward against the CPU's
 float64 one; the MoE phase holds each MLA block against its cached
 decode, a 2-layer model's forward against its decode, and the card's
-float32 forward against the CPU's float64 one. Phases print one JSON
-line each; the last line is ``{"ok": true, "device": {...}}``. Any
+float32 forward against the CPU's float64 one. The LM mesh phase then
+puts the LM path on a ``("data", "model")`` mesh of world size 1 (NCCL,
+``specs.lm_mesh()``; ``lm_mesh(2, 1)`` must refuse one card): the
+deepseek-v2-lite prefill under ``--opt`` (the expert-parallel layer)
+through ``forward(..., mesh=)`` bit-exact against the forward without a
+mesh at one gate launch a layer; every rank's part of the first MoE layer
+for 2-, 4- and 8-way model by 1- and 2-way data tilings launched one
+after another, each tiling's summed parts against ``moe_apply`` at a
+drop-free capacity, its drops at capacity 1.0 and its time; and the
+mesh train step of deepseek (``--opt``) at the smoke size bit-exact
+against the single-device step. The training phase then repeats
+internlm2-1.8b's and mamba2-780m's (``--opt``) full-width launcher runs
+through the mesh step on a world-size-1 mesh (the state made as blocks
+by ``init_train_state(mesh=)``), each held bit for bit against the
+single-device run's losses and final state. Phases print one
+JSON line each; the last line is ``{"ok": true, "device": {...}}``. Any
 failure raises and exits non-zero; without CUDA it exits non-zero at
 once.
 
@@ -3099,6 +3113,263 @@ def phase_moe_checks(dev, cfg, params):
                           tol=MOE_CARD_CPU_TOL))
 
 
+# ================================================== LM across GPUs
+
+#: the expert-parallel tiles: every rank's part of an m-way model by d-way
+#: data mesh, launched one after another on the one card
+LM_MESH_MODEL, LM_MESH_DATA = (2, 4, 8), (1, 2)
+#: the tiles' summed parts against ``moe_apply`` at a drop-free capacity
+#: (factor E/k: every expert may take every token), bf16: max |err| over
+#: the output's largest |value|. Each rank rounds its part to bf16 and the
+#: parts are summed in bf16 (the all-reduce's dtype), where the whole
+#: layer rounds once: a few bf16 roundings of the output, well under 2^-5
+EP_TILE_TOL = 2.0 ** -5
+#: the smoke-size mesh train step (deepseek-v2-lite ``--opt``): the
+#: launcher's smoke dtype, 3 steps of 8 x 64 tokens in 2 microbatches,
+#: compression rho 0.1
+LM_MESH_STEPS, LM_MESH_BATCH, LM_MESH_SEQ, LM_MESH_ACCUM = 3, 8, 64, 2
+
+
+def _moe_input(params, cfg, tokens):
+    """The first MoE layer's parameters and its input on ``tokens``,
+    (T, D): layer 0's block up to its second norm (the MLA attention and
+    the residual), as ``transformer._block_apply`` computes it."""
+    lp = lm._layer(params["layers"], 0)
+    x = lm.L.embed_lookup(params["embed"], tokens)
+    h = lm.L.rmsnorm(lp["norm1"], x, cfg.norm_eps)
+    a, _ = lm.A.mla_apply(lp["attn"], h, cfg)
+    _, h = lm._residual_norm(lp["norm2"], x, a, cfg)
+    return lp["moe"], h.reshape(-1, cfg.d_model)
+
+
+def _tile_params(p, i: int, m: int):
+    """Model rank ``i`` of ``m``'s blocks of one MoE layer (its experts,
+    its slice of the shared experts' d_ff, the router whole) and its
+    expert count."""
+    e_loc = p["w_gate"].shape[0] // m
+    loc = {"router": p["router"],
+           **{k: p[k][i * e_loc:(i + 1) * e_loc]
+              for k in ("w_gate", "w_up", "w_down")}}
+    if "shared" in p:
+        sh = p["shared"]
+        fs = sh["w_gate"].shape[1] // m
+        loc["shared"] = {"w_gate": sh["w_gate"][:, i * fs:(i + 1) * fs],
+                         "w_up": sh["w_up"][:, i * fs:(i + 1) * fs],
+                         "w_down": sh["w_down"][i * fs:(i + 1) * fs]}
+    return loc, e_loc
+
+
+def _drops(idx, e: int, cap: int) -> int:
+    """Assignments past their expert's capacity ``cap``."""
+    counts = torch.bincount(idx.reshape(-1).long(), minlength=e)
+    return int(torch.clamp(counts - cap, min=0).sum())
+
+
+def lm_mesh_tiles(cfg, p, xt) -> None:
+    """Every rank's part of the expert-parallel layer (``moe._local_dispatch_ffn``)
+    for each m-way model by d-way data tiling of the first MoE layer on the
+    prefill's tokens, launched one after another: each data block's model
+    parts summed and the blocks put together, at a drop-free capacity,
+    against ``moe_apply`` on all the tokens (:data:`EP_TILE_TOL`). At the
+    ``--opt`` capacity (1.0) each tiling's drops (the local capacity of
+    each data block) beside the whole layer's, one tile's gate launches
+    (one a tile), its time (CUDA events) and its gate's device time
+    (profiler); each data block size's gate call held against its plain
+    version."""
+    e, k = cfg.moe.n_experts, cfg.moe.top_k
+    free = dataclasses.replace(cfg.moe, capacity_factor=e / k)
+    want = lm.M.moe_apply(p, xt[None], free)[0][0].float()
+    scale = float(want.abs().max())
+    t = xt.shape[0]
+    whole_drops = _drops(lm.M._route(p, xt, cfg.moe)[2], e,
+                         lm.M._capacity(t, cfg.moe))
+    for d in LM_MESH_DATA:
+        logits = lm.L._f32(xt[:t // d]) @ p["router"]
+        check_gate(f"lm_mesh_tile/T{t // d}", logits, k, True, timed=False,
+                   path="lm_mesh_tiles", calls=1)
+    for m in LM_MESH_MODEL:
+        for d in LM_MESH_DATA:
+            n = t // d
+            blocks, drops = [], 0
+            for j in range(d):
+                x_j = xt[j * n:(j + 1) * n]
+                acc = None
+                for i in range(m):
+                    loc, e_loc = _tile_params(p, i, m)
+                    part, _ = lm.M._local_dispatch_ffn(loc, x_j, free,
+                                                       i * e_loc, e_loc)
+                    acc = part if acc is None else acc + part
+                blocks.append(acc)
+                drops += _drops(lm.M._route(p, x_j, cfg.moe)[2], e,
+                                lm.M._capacity(n, cfg.moe))
+            err = float((torch.cat(blocks).float() - want).abs().max()) \
+                / scale
+            if not err <= EP_TILE_TOL:
+                raise AssertionError(f"lm_mesh tiles ({d}, {m}): the parts "
+                                     f"differ from moe_apply by {err} of "
+                                     f"scale")
+            loc, e_loc = _tile_params(p, 0, m)
+            x0 = xt[:n]
+
+            def tile(loc=loc, e_loc=e_loc, x0=x0):
+                return lm.M._local_dispatch_ffn(loc, x0, cfg.moe, 0, e_loc)
+            mg.reset_launches()
+            tile()
+            torch.cuda.synchronize()
+            per_tile = mg.LAUNCHES["moe_gate_topk"]
+            if per_tile != 1:
+                raise AssertionError(f"lm_mesh tile: {per_tile} gate "
+                                     f"launches")
+            gate_ms, _ = kernel_ms(tile, reps=5, key="moe_gate")
+            emit("lm_mesh_tiles", mesh=[d, m], tiles=d * m,
+                 tokens_per_tile=n, experts_per_tile=e_loc,
+                 drop_free_max_err_over_scale=err, tol=EP_TILE_TOL,
+                 capacity_factor=cfg.moe.capacity_factor,
+                 tile_capacity=lm.M._capacity(n, cfg.moe), drops=drops,
+                 whole_layer_drops=whole_drops, assignments=t * k,
+                 gate_launches_per_tile=per_tile,
+                 tile_ms=time_ms(tile, reps=5, warmup=1),
+                 gate_ms=gate_ms, gate_ms_source="profiler")
+            del blocks
+
+
+def lm_mesh_train(dev, mesh) -> Dict[str, Dict[str, int]]:
+    """The mesh train step at world size 1 (``make_train_step(...,
+    mesh=)`` on blocks cut by ``state_pspecs``) against the single-device
+    step on the card, from the same state and batches: deepseek-v2-lite
+    ``--opt`` (``catwalk_ep``) at the smoke size (its f32 moments do not
+    fit one card at full size), :data:`LM_MESH_STEPS` steps; every metric
+    and every leaf of the gathered state bit for bit. internlm2 and
+    mamba2 run the mesh step at full width in the training phase
+    (:func:`lm_mesh_train_full`). Returns the mesh run's launch counts."""
+    out = {}
+    for arch, opt in ((TRAIN_MOE, True),):
+        cfg = lm_registry.get_config(arch + "-smoke")
+        if opt:
+            cfg = dryrun.apply_opt(cfg)
+        tcfg = TL.TrainConfig(
+            optimizer=O.AdamWConfig(lr=CHECK_LR, warmup_steps=2,
+                                    total_steps=50),
+            grad_accum=LM_MESH_ACCUM,
+            compression=GC.CompressionConfig(rho=0.1))
+        state = TL.init_train_state(torch.Generator(device=dev).manual_seed(
+            3), cfg, tcfg, device=dev)
+        st = TL.state_pspecs(cfg, tcfg, mesh)
+        blocks = specs.shard_tree(state, st, mesh)
+        data = DP.SyntheticLM(DP.DataConfig(
+            seq_len=LM_MESH_SEQ, global_batch=LM_MESH_BATCH,
+            vocab_size=cfg.vocab_size))
+        single = TL.make_train_step(cfg, tcfg)
+        step = TL.make_train_step(cfg, tcfg, mesh=mesh)
+        want = []
+        for i in range(LM_MESH_STEPS):
+            state, m = single(state, data.batch(i))
+            want.append({k: float(v) for k, v in m.items()})
+        reset_launches()
+        got = []
+        for i in range(LM_MESH_STEPS):
+            blocks, m = step(blocks, data.batch(i))
+            got.append({k: float(v) for k, v in m.items()})
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        whole = specs.gather_tree(blocks, st, mesh)
+        same = got == want and all(
+            torch.equal(a, b) for a, b in zip(
+                tree_leaves(whole.params) + tree_leaves(whole.opt.m)
+                + tree_leaves(whole.ef.error),
+                tree_leaves(state.params) + tree_leaves(state.opt.m)
+                + tree_leaves(state.ef.error)))
+        if not same:
+            raise AssertionError(f"lm_mesh train {arch}: the mesh step "
+                                 f"differs from the single-device step "
+                                 f"({got} vs {want})")
+        name = f"lm_mesh_train_{arch.split('-')[0]}"
+        emit("lm_mesh", run=name, arch=cfg.name, opt=opt, dtype=cfg.dtype,
+             dispatch=cfg.moe.dispatch if cfg.moe else None,
+             batch_over_model=cfg.batch_over_model, steps=LM_MESH_STEPS,
+             grad_accum=LM_MESH_ACCUM, losses=[g["loss"] for g in got],
+             bit_exact_vs_single=True,
+             launches={k: v for k, v in counts.items() if v})
+        out[name] = counts
+    return out
+
+
+def phase_lm_mesh(dev, cfg, params, tokens, root
+                  ) -> Tuple[Dict[str, Dict[str, int]], Dict[str, str]]:
+    """The LM path across GPUs, on the one card: an NCCL process group of
+    world size 1 and its ``(1, 1)`` ``("data", "model")`` mesh
+    (``specs.lm_mesh``; ``lm_mesh(2, 1)`` must refuse one card), so every
+    collective spans one rank and each check is bit-exact. (1) The
+    full-width deepseek-v2-lite prefill under ``--opt`` (``catwalk_ep``,
+    capacity 1.0) through ``forward(..., mesh=)``: the logits and the aux
+    loss equal the forward without a mesh bit for bit, at exactly one gate
+    launch per layer; both timed (host clock, median of 3, alternated).
+    (2) :func:`lm_mesh_tiles`. (3) :func:`lm_mesh_train`. The process group
+    is destroyed at the end. Returns each run's launch counts and the
+    kernel each run launches."""
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "nccl", init_method=(pathlib.Path(root) / "rendezvous-lm").as_uri(),
+        rank=0, world_size=1, timeout=datetime.timedelta(minutes=2))
+    try:
+        mesh = specs.lm_mesh()
+        if tuple(mesh.shape) != (1, 1) or tuple(mesh.mesh_dim_names) != (
+                "data", "model") or mesh.device_type != "cuda":
+            raise AssertionError(f"lm mesh {tuple(mesh.shape)} "
+                                 f"{mesh.mesh_dim_names}")
+        try:
+            specs.lm_mesh(2, 1)
+        except ValueError as e:
+            refused = str(e)
+        else:
+            raise AssertionError("lm_mesh(2, 1) did not refuse one card")
+        opt = dryrun.apply_opt(cfg)
+        want, want_aux = lm.forward(params, opt, tokens, logits_mode="last")
+        mg.reset_launches()
+        got, got_aux = lm.forward(params, opt, tokens, logits_mode="last",
+                                  mesh=mesh)
+        torch.cuda.synchronize()
+        gate = mg.LAUNCHES["moe_gate_topk"]
+        if not (torch.equal(got, want) and torch.equal(got_aux, want_aux)):
+            raise AssertionError("lm_mesh prefill: the mesh forward differs "
+                                 "from the forward without one")
+        if gate != cfg.n_layers:
+            raise AssertionError(f"lm_mesh prefill: {gate} gate launches")
+        runs = {"lm_mesh_prefill": launch_counts()}
+        times = {"mesh": [], "single": []}
+        for _ in range(3):
+            for name, kw in (("single", {}), ("mesh", dict(mesh=mesh))):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                lm.forward(params, opt, tokens, logits_mode="last", **kw)
+                torch.cuda.synchronize()
+                times[name].append(1e3 * (time.perf_counter() - t0))
+        emit("lm_mesh", run="lm_mesh_prefill", arch=opt.name,
+             mesh=list(mesh.shape), dims=list(mesh.mesh_dim_names),
+             backend=dist.get_backend(), lm_mesh_2_1_refused=refused,
+             dispatch=opt.moe.dispatch,
+             capacity_factor=opt.moe.capacity_factor,
+             ep_fsdp=opt.moe.ep_fsdp, batch=int(tokens.shape[0]),
+             seq=int(tokens.shape[1]), gate_launches=gate,
+             bit_exact_vs_single=True,
+             forward_ms=statistics.median(times["mesh"]),
+             single_forward_ms=statistics.median(times["single"]),
+             forward_ms_all=times["mesh"],
+             single_forward_ms_all=times["single"])
+        del got, want
+        with torch.no_grad():
+            p, xt = _moe_input(params, opt, tokens)
+            lm_mesh_tiles(opt, p, xt)
+        del p, xt
+        runs.update(lm_mesh_train(dev, mesh))
+    finally:
+        dist.destroy_process_group()
+    kernel = {"lm_mesh_prefill": "moe_gate_topk",
+              "lm_mesh_train_deepseek": "moe_gate_topk"}
+    return runs, kernel
+
+
 # ============================================= vlm, audio and hybrid
 
 #: family checks, as fractions of the logits' scale (float32, TF32 off):
@@ -3373,15 +3644,20 @@ def train_paths(root, smi) -> List[Tuple[Path, List[str]]]:
              accum=MOE_TRAIN_ACCUM)]
 
 
-def phase_train(paths_argv, smi) -> Tuple[Dict[str, Dict[str, int]],
-                                           Dict[str, list]]:
+def phase_train(paths_argv, smi, root
+                ) -> Tuple[Dict[str, Dict[str, int]], Dict[str, list],
+                           Dict[str, Optional[str]]]:
     """The training paths, each run once with the launch counts set to 0
     just before it and read just after, its kernel calls captured on the
     way (the first TRAIN_SSD_COPIES SSD operand copies of a path); each
     must launch its kernel as often as its config says and no other. A
     step of each full-width path is then profiled from the state the run
-    ended in: device busy time, idle share and top device ops."""
-    launches, captured = {}, {}
+    ended in: device busy time, idle share and top device ops. The paths
+    of :data:`LM_MESH_FULL` then run again through the mesh step
+    (:func:`lm_mesh_train_full`), their kernel calls captured as well.
+    Returns each run's launch counts, its captured calls and the kernel
+    of each mesh run."""
+    launches, captured, mesh_kernels = {}, {}, {}
     for path, argv in paths_argv:
         torch.cuda.synchronize()
         reset_launches()
@@ -3400,10 +3676,125 @@ def phase_train(paths_argv, smi) -> Tuple[Dict[str, Dict[str, int]],
         launches[path.name], captured[path.name] = counts, cases
         if path.name != "train_moe_smoke":
             phase_profile_train(path.name, argv, out["state"], smi)
+        ref = None
+        if path.name in LM_MESH_FULL:
+            # the single run's losses and state on the host: its state and
+            # the mesh run's are never on the card together
+            ref = dict(losses=out["losses"], step_s=out["step_s"],
+                       max_memory_allocated=st["max_memory_allocated"],
+                       state=host_leaves(out["state"]))
         del out, got
         gc.collect()
         torch.cuda.empty_cache()
-    return launches, captured
+        if ref is not None:
+            name = f"lm_mesh_{path.name}"
+            runs: list = []
+            cases = capture(lambda: lm_mesh_train_full(
+                path, argv, ref, root), TRAIN_SSD_COPIES, runs)
+            launches[name], captured[name] = runs[0], cases
+            mesh_kernels[name] = path.kernel
+            del ref, runs
+            gc.collect()
+            torch.cuda.empty_cache()
+    return launches, captured, mesh_kernels
+
+
+#: the full-width training paths the mesh step repeats, each with
+#: ``--opt`` or not (mamba2: ``batch_over_model``, a layout alone on one
+#: device, so the single run without it is the same function)
+LM_MESH_FULL = {"train_internlm2": False, "train_mamba2": True}
+
+
+def host_leaves(state) -> Dict[str, torch.Tensor]:
+    """Every tensor leaf of a train state by checkpoint key, copied to the
+    host one leaf at a time."""
+    out: Dict[str, torch.Tensor] = {}
+
+    def put(key, leaf):
+        if isinstance(leaf, torch.Tensor):
+            out[key] = leaf.cpu()
+        return leaf
+    ckpt._map_with_path(state, put)
+    return out
+
+
+def lm_mesh_train_full(path, argv, ref, root) -> Dict[str, int]:
+    """The mesh train step at full width on an NCCL world-size-1 ``(1,
+    1)`` mesh: the launcher's config, train config and data for ``argv``
+    (``--opt`` where :data:`LM_MESH_FULL` says), the state made as blocks
+    by ``init_train_state(mesh=)`` from the launcher's seed, and
+    TRAIN_STEPS steps of ``make_train_step(mesh=)`` on the launcher's
+    batches. Every loss and every leaf of the gathered final state must
+    equal the single-device launcher run's (``ref``, on the host) bit for
+    bit, and the path's kernel must launch as often as in that run and no
+    other. Returns the launch counts; the process group is destroyed at
+    the end."""
+    import torch.distributed as dist
+    opt = LM_MESH_FULL[path.name]
+    args = train_launcher.parser().parse_args(
+        argv + (["--opt"] if opt else []))
+    cfg, tcfg, data = train_launcher.setup(args)
+    dev = torch.device("cuda")
+    name = f"lm_mesh_{path.name}"
+    dist.init_process_group(
+        "nccl", init_method=(pathlib.Path(root) / f"rendezvous-{name}"
+                             ).as_uri(),
+        rank=0, world_size=1, timeout=datetime.timedelta(minutes=5))
+    try:
+        mesh = specs.lm_mesh()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        state = TL.init_train_state(torch.Generator(device=dev).manual_seed(
+            0), cfg, tcfg, device=dev, mesh=mesh)
+        step = TL.make_train_step(cfg, tcfg, mesh=mesh)
+        losses, step_s = [], []
+        for i in range(TRAIN_STEPS):
+            ts = time.perf_counter()
+            state, metrics = step(state, data.batch(i))
+            losses.append(float(metrics["loss"]))
+            step_s.append(time.perf_counter() - ts)
+        torch.cuda.synchronize()
+        run_ms = 1e3 * (time.perf_counter() - t0)
+        counts = launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        whole = specs.gather_tree(state, TL.state_pspecs(cfg, tcfg, mesh),
+                                  mesh)
+        del state
+        got = host_leaves(whole)
+        del whole
+    finally:
+        dist.destroy_process_group()
+    want = ref["state"]
+    differ = sorted(k for k in want if k not in got or not torch.equal(
+        got[k], want[k]))
+    if losses != ref["losses"] or got.keys() != want.keys() or differ:
+        raise AssertionError(f"{name}: the mesh step differs from the "
+                             f"single-device run (losses {losses} vs "
+                             f"{ref['losses']}; leaves {differ[:5]})")
+    for kernel, n in counts.items():
+        expect = path.launches if kernel == path.kernel else 0
+        if n != expect:
+            raise AssertionError(f"{name}: {n} launches of {kernel}, "
+                                 f"expected {expect}")
+    ms = 1e3 * statistics.median(step_s[1:])
+    single_ms = 1e3 * statistics.median(ref["step_s"][1:])
+    seq, batch = data.cfg.seq_len, data.cfg.global_batch
+    emit("lm_mesh", run=name, arch=cfg.name, opt=opt, dtype=cfg.dtype,
+         mesh=list(mesh.shape), batch_over_model=cfg.batch_over_model,
+         layers=cfg.n_layers, seq=seq, global_batch=batch,
+         grad_accum=tcfg.grad_accum, compress=tcfg.compressing,
+         steps=TRAIN_STEPS, losses=losses, bit_exact_vs_single=True,
+         leaves=len(got), ms_per_step=ms, single_ms_per_step=single_ms,
+         step_ms_all=[1e3 * t for t in step_s],
+         single_step_ms_all=[1e3 * t for t in ref["step_s"]],
+         tokens_per_s=batch * seq / (ms / 1e3), run_ms=run_ms,
+         max_memory_allocated_gb=peak / 2 ** 30,
+         single_max_memory_allocated_gb=ref["max_memory_allocated"] / 2 ** 30,
+         launches={k: v for k, v in counts.items() if v},
+         nvidia_smi=smi_line())
+    return counts
 
 
 def phase_profile_train(name, argv, state, smi) -> None:
@@ -3779,6 +4170,9 @@ def smoke(root: str) -> int:
     phase_profile_decode(moe_cfg, moe_params, moe_requests[:MOE_SLOTS],
                          "moe_decode_step", per_slot=True)
     phase_moe_checks(dev, moe_cfg, moe_params)
+    lm_mesh_launches, lm_mesh_kernels = phase_lm_mesh(
+        dev, moe_cfg, moe_params, moe_tokens, root)
+    launches.update(lm_mesh_launches)
 
     ssd = main_rows["ssd_scan"]
     ssd_row = dict(ptxas=ptxas["ssd_scan"], occupancy={
@@ -3787,6 +4181,7 @@ def smoke(root: str) -> int:
             ss.kernel_occupancy(ssd["chunk"], ssd["n"], dt)))
         for dt in (torch.bfloat16, torch.float32)})
     kernel_of = {path.name: path.kernel for path in paths}
+    kernel_of.update(lm_mesh_kernels)
 
     # the last three LM families and training: the inference models and
     # the captured operands go first (deepseek's parameters alone hold
@@ -3803,9 +4198,11 @@ def smoke(root: str) -> int:
     phase_train_checks(dev, root)
     phase_train_autograd(dev, smi)
     train = train_paths(root, smi)
-    train_launches, train_captured = phase_train(train, smi)
+    train_launches, train_captured, mesh_train_kernels = phase_train(
+        train, smi, root)
     launches.update(train_launches)
     kernel_of.update({path.name: path.kernel for path, _ in train})
+    kernel_of.update(mesh_train_kernels)
     for path, cases in train_captured.items():
         for i, case in enumerate(cases):
             if case["wrapper"] == "ssd_scan":

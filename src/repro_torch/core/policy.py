@@ -12,9 +12,11 @@ Work model (per volley x neuron pair, int32 ops):
     breakpoints of the ``s`` compacted lines:
     ``t = pairs * (a_event + b_event * m)``.
 
-The coefficients are the reference package's committed fit, unchanged.
-They were fit to CPU runs, so they rank the CPU engines only; on a CUDA
-device ``auto`` does not consult them: the fused kernel preempts.
+The coefficients are the reference package's committed fit, unchanged;
+:func:`fit_coefficients` refits the event and closed-form ones from a
+sparsity sweep's rows, as the reference's does. They were fit to CPU
+runs, so they rank the CPU engines only; on a CUDA device ``auto`` does
+not consult them: the fused kernel preempts.
 
 Resolution: explicit backend names pass through; on a CUDA device ``auto``
 resolves to ``fused`` (decided by the tensors' device, never by probing
@@ -172,6 +174,55 @@ class CostCoefficients:
             return shape.pairs * (self.event_pair_us
                                   + self.event_breakpoint_us * m)
         raise ValueError(f"unknown engine {engine!r}")
+
+
+def fit_coefficients(rows: Iterable[dict], *, pairs: int, n_lines: int,
+                     t_steps: int,
+                     base: Optional[CostCoefficients] = None
+                     ) -> CostCoefficients:
+    """Re-derive the event and closed-form coefficients from sparsity-sweep
+    rows (dicts with ``backend``, ``density`` and ``us_per_call``, as the
+    reference's ``BENCH_sparsity`` ``results`` list holds them).
+
+    The sweep places exactly ``round(density * n)`` spiking lines per
+    volley, so each event row's compacted bucket width, and hence its
+    sorted breakpoint count ``m``, is known: compacted rows use ``2 *
+    bucket_width(s)``, uncompacted (``event_nc``) rows ``2 * n``.
+    ``closed_form`` takes the median row; the event model is the
+    least-squares affine fit in ``pairs * m``. The other coefficients
+    carry over from ``base``. Raises ``ValueError`` without a closed-form
+    row and two event rows."""
+    closed, event_pts = [], []
+    for row in rows:
+        us = row.get("us_per_call")
+        backend = row.get("backend")
+        density = row.get("density")
+        if not isinstance(us, (int, float)) or density is None:
+            continue
+        if backend == "closed_form":
+            closed.append(float(us))
+        elif backend in ("event", "event_nc"):
+            s = max(int(round(float(density) * n_lines)), 1)
+            w = n_lines if backend == "event_nc" \
+                else min(compaction.bucket_width(s), n_lines)
+            event_pts.append((pairs * 2 * w, float(us)))
+    if not closed or len(event_pts) < 2:
+        raise ValueError("need closed_form rows and >=2 event rows to fit")
+    closed.sort()
+    mid = len(closed) // 2
+    median = (closed[mid] if len(closed) % 2
+              else 0.5 * (closed[mid - 1] + closed[mid]))
+    c_cf = median / (pairs * t_steps * n_lines)
+    xbar = sum(x for x, _ in event_pts) / len(event_pts)
+    ybar = sum(y for _, y in event_pts) / len(event_pts)
+    sxx = sum((x - xbar) ** 2 for x, _ in event_pts)
+    sxy = sum((x - xbar) * (y - ybar) for x, y in event_pts)
+    slope = sxy / sxx
+    intercept = max((ybar - slope * xbar) / pairs, 0.0)
+    base = base if base is not None else CostCoefficients()
+    return dataclasses.replace(base, closed_form_unit_us=c_cf,
+                               event_pair_us=intercept,
+                               event_breakpoint_us=slope)
 
 
 def _on_cuda(device: DeviceLike) -> bool:

@@ -3,6 +3,7 @@ point of the port follows."""
 
 from __future__ import annotations
 
+import os
 from typing import Optional, Union
 
 import torch
@@ -23,3 +24,16 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
             "CUDA is not available; pass device='cpu' to run the plain "
             "PyTorch versions on the CPU")
     return dev
+
+
+def env_int(var: str, default: Optional[int] = None) -> Optional[int]:
+    """Strict integer env knob (``torchrun``'s ``WORLD_SIZE``,
+    ``LOCAL_RANK``): unset or empty returns ``default``; anything but a
+    decimal integer raises."""
+    raw = os.environ.get(var)
+    if raw is None or raw == "":
+        return default
+    try:
+        return int(raw)
+    except ValueError:
+        raise ValueError(f"{var}={raw!r}: expected an integer") from None

@@ -2,11 +2,12 @@
 
 The reference module also compiles every (architecture, shape, mesh) cell
 ahead of time on virtual TPU meshes; that part has no counterpart here.
-``apply_opt`` is a pure config transform: on one device only the MoE
+``apply_opt`` is a pure config transform. On one device only the MoE
 settings change what runs (capacity factor 1.0; ``catwalk_ep`` dispatch,
-which runs ``moe_apply`` without a process group, as the reference runs
-it without a mesh). ``act_sp`` and ``batch_over_model`` choose shardings,
-which one device does not have.
+which runs ``moe_apply`` without a mesh, as the reference does). Under a
+``("data", "model")`` mesh ``catwalk_ep`` runs the expert-parallel layer
+and ``batch_over_model`` splits the rows over ``model`` too; ``act_sp``
+is a layout constraint on the activations, which the port leaves whole.
 """
 
 from __future__ import annotations

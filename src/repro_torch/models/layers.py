@@ -23,9 +23,13 @@ def _dtype(name: str) -> torch.dtype:
 
 def _normal(generator: torch.Generator, shape: Sequence[int],
             device: torch.device) -> torch.Tensor:
-    """Standard normal float32 draws from ``generator``, on ``device``."""
+    """Standard normal float32 draws from ``generator``, on ``device``. On
+    the ``meta`` device nothing is drawn: a tree initialised there holds
+    the shapes and dtypes alone (the sharding rules read those)."""
+    where = torch.device(device)
     return torch.randn(tuple(shape), generator=generator,
-                       device=generator.device,
+                       device=where if where.type == "meta"
+                       else generator.device,
                        dtype=torch.float32).to(device)
 
 
@@ -121,16 +125,33 @@ def mlp_apply(p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                  mask: torch.Tensor | None = None) -> torch.Tensor:
+                  mask: torch.Tensor | None = None, *,
+                  total: torch.Tensor | None = None) -> torch.Tensor:
     """Mean token cross-entropy in float32 (float64 for float64 logits):
     ``logsumexp`` minus the gold logit, averaged over the tokens, or over
     the tokens where ``mask`` is set (divided by ``max(sum(mask), 1)``).
-    logits (..., V), labels (...) integer ids in the vocabulary."""
+    logits (..., V), labels (...) integer ids in the vocabulary.
+
+    ``total``: for rows that are one block of a batch, the batch's token
+    count (or mask sum) to divide by; the blocks' results then add up to
+    the batch's (:func:`token_count` gives a block's own)."""
     logits = _f32(logits)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
     nll = logz - gold
+    if total is not None:
+        kept = nll if mask is None else nll * mask.to(nll.dtype)
+        return torch.sum(kept) / torch.clamp(total.to(nll.dtype), min=1.0)
     if mask is None:
         return torch.mean(nll)
     mask = mask.to(nll.dtype)
     return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+
+
+def token_count(labels: torch.Tensor, mask: torch.Tensor | None = None
+                ) -> torch.Tensor:
+    """The tokens :func:`cross_entropy` averages over, as a float32
+    0-dim tensor: the mask's sum, or every label."""
+    if mask is None:
+        return torch.tensor(float(labels.numel()), device=labels.device)
+    return torch.sum(mask.to(torch.float32))

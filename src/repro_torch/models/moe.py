@@ -3,8 +3,8 @@
 Per token the router activates k of E experts. The router's gate (softmax
 over E, top-k, renormalised) is :func:`repro_torch.kernels.ops.moe_gate_topk`:
 the hand-written CUDA kernel on CUDA tensors, its plain version on CPU
-tensors — one launch per layer per forward and per decode step. Dispatch
-modes:
+tensors — one launch per layer per forward and per decode step (per rank
+under a mesh). Dispatch modes:
 
   * ``catwalk`` (default): the T*k assignments are *relocated* — stably
     sorted by expert id into contiguous per-expert blocks of bounded
@@ -14,14 +14,22 @@ modes:
     E*C) whose value is discarded.
   * ``dense``: every expert processes every token, combined by gate weight
     (the worst-case baseline).
-  * ``catwalk_ep``: the reference's expert-parallel form; without a mesh
-    it runs ``catwalk``, as the reference does. The multi-GPU form waits
-    for the multi-GPU slice.
+  * ``catwalk_ep``: expert parallelism over a ``("data", "model")`` mesh
+    (:func:`moe_apply_ep`); without a mesh, or where the mesh cannot split
+    the experts, it runs ``moe_apply``, as the reference does.
+
+Under a mesh every rank holds a block of the batch's rows (over the DP
+axes, and ``model`` too under ``batch_over_model``). ``moe_apply`` then
+gathers the layer's tokens over those axes, runs the whole layer, and
+keeps the rank's rows, so the capacity, the drops and the aux loss are
+the whole batch's. ``moe_apply_ep`` routes each rank's own rows against
+its own experts, with the capacity from the local token count, as the
+reference's ``shard_map`` body does.
 
 bf16 rounding points follow the reference's compiled layer: the gate
 probabilities are rounded to the model dtype, the combine multiplies and
-sums over k in the model dtype, and the SwiGLU product is rounded before
-the down projection.
+sums over k in f32 and rounds once, and the SwiGLU product is rounded
+before the down projection.
 """
 
 from __future__ import annotations
@@ -34,6 +42,7 @@ import torch
 from repro_torch.configs.base import MoEConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+from repro_torch.sharding import specs as SH
 
 
 def moe_init(generator: torch.Generator, d_model: int, cfg: MoEConfig,
@@ -92,55 +101,225 @@ def _capacity(t: int, cfg: MoEConfig) -> int:
     return min(t, max(k, int(t * k / e * cfg.capacity_factor)))
 
 
-def moe_apply(p, x: torch.Tensor, cfg: MoEConfig
+def _route(p, xt: torch.Tensor, cfg: MoEConfig):
+    """(full softmax (T, E) f32, top-k probabilities in xt's dtype, ids
+    (T, k)) of the router over tokens ``xt`` (T, D): one gate launch."""
+    logits = L._f32(xt) @ p["router"]
+    probs_full = torch.softmax(logits, dim=-1)
+    probs, idx = ops.moe_gate_topk(logits, cfg.top_k, renorm=True)
+    return probs_full, probs.to(xt.dtype), idx
+
+
+def _relocate_ffn(p, xt: torch.Tensor, probs: torch.Tensor,
+                  idx: torch.Tensor, cap: int, e_lo: int, e_loc: int
+                  ) -> torch.Tensor:
+    """The Catwalk relocation dispatch over experts ``e_lo .. e_lo +
+    e_loc`` (the leading axis of ``p``'s stacks): each such assignment of
+    ``idx`` (T, k) lands in its expert's block of ``cap`` slots in token
+    order, past ``cap`` in the trash slot ``e_loc * cap``, as do the other
+    experts' assignments; the (e_loc, cap, D) FFN runs and each token sums
+    its kept contributions weighted by ``probs`` (T, k). Returns (T, D)."""
+    t, d = xt.shape
+    k = idx.shape[1]
+    dev = xt.device
+    flat = idx.reshape(-1).to(torch.int64)                       # (T*k,)
+    mine = (flat >= e_lo) & (flat < e_lo + e_loc)
+    flat_e = torch.where(mine, flat - e_lo, e_loc)       # e_loc = trash
+    flat_tok = torch.arange(t, device=dev).repeat_interleave(k)
+    order = torch.argsort(flat_e, stable=True)                   # relocate
+    sorted_e = flat_e[order]
+    # rank within expert segment = global sorted pos - segment start
+    seg_start = torch.searchsorted(
+        sorted_e, torch.arange(e_loc + 1, device=dev), side="left")
+    rank = torch.arange(t * k, device=dev) - seg_start[sorted_e]
+    keep = (sorted_e < e_loc) & (rank < cap)                     # clip at C
+    slot = torch.where(keep, sorted_e * cap + rank, e_loc * cap)
+    # slot -> source-token table; the trash entry e_loc*cap is written by
+    # every dropped assignment and its value is never read
+    slot_src = torch.full((e_loc * cap + 1,), t, dtype=torch.int64,
+                          device=dev)
+    slot_src[slot] = torch.where(keep, flat_tok[order], t)
+    xt_pad = torch.cat([xt, xt.new_zeros((1, d))], 0)
+    expert_in = xt_pad[slot_src[:-1]].reshape(e_loc, cap, d)
+    expert_out = _expert_ffn(p, expert_in)
+    eo_flat = torch.cat([expert_out.reshape(e_loc * cap, d),
+                         expert_out.new_zeros((1, d))], 0)
+    # per-assignment slot in TOKEN order (inverse relocation)
+    token_slot = slot[torch.argsort(order)]                      # (T*k,)
+    return _combine(eo_flat[token_slot].reshape(t, k, d), probs)
+
+
+def _local_dispatch_ffn(p_loc, xt: torch.Tensor, cfg: MoEConfig, e_lo: int,
+                        e_loc: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One rank's part of the expert-parallel layer: ``xt`` (T, D) its
+    tokens, ``p_loc`` its ``e_loc`` experts (whole d_ff) and its slice of
+    the shared experts. Routes all T tokens (one gate launch), keeps the
+    assignments to experts ``e_lo .. e_lo + e_loc`` at the capacity of T,
+    and returns (its partial output (T, D): the kept contributions plus
+    its shared slice's, which the ranks' sum completes; its aux loss over
+    its tokens). With ``e_lo = 0, e_loc = E`` and the whole shared
+    experts it is ``moe_apply``'s catwalk layer."""
+    probs_full, probs, idx = _route(p_loc, xt, cfg)
+    out = _relocate_ffn(p_loc, xt, probs, idx, _capacity(xt.shape[0], cfg),
+                        e_lo, e_loc)
+    if cfg.n_shared:
+        out = out + L.mlp_apply(p_loc["shared"], xt)
+    return out, cfg.router_aux_loss * _aux_loss(probs_full, idx,
+                                                cfg.n_experts)
+
+
+def _rows_entry(mesh, batch_axes) -> SH.Axis:
+    """The axes of more than one rank the rows are split over, or None."""
+    if mesh is None:
+        return None
+    axes = SH.dp_axes(mesh) if batch_axes is None else tuple(batch_axes)
+    live = SH.live_axes(mesh, axes)
+    return live or None
+
+
+def moe_apply(p, x: torch.Tensor, cfg: MoEConfig, *, mesh=None,
+              batch_axes=None
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """x (B, S, D) -> (out, {'aux_loss': scalar})."""
+    """x (B, S, D) -> (out, {'aux_loss': scalar}).
+
+    Under ``mesh``, ``x`` is this rank's block of rows over ``batch_axes``
+    (default the mesh's DP axes) and ``p`` is whole: the rows of every
+    rank are gathered (:func:`repro_torch.sharding.specs.gather_along`),
+    the whole layer runs on each rank, and each keeps its own rows. The
+    aux loss is then the whole batch's on every rank; its gradient enters
+    a sum of the ranks' gradients once
+    (:func:`repro_torch.sharding.specs.count_once`)."""
+    entry = _rows_entry(mesh, batch_axes)
+    if entry is not None:
+        whole = SH.gather_along(x, 0, entry, mesh)
+        out, stats = moe_apply(p, whole, cfg)
+        rows = SH.block_slice(mesh, whole.shape[0], entry)
+        return out[rows], {"aux_loss": SH.count_once(
+            stats["aux_loss"], entry, mesh)}
     b, s, d = x.shape
     t = b * s
     xt = x.reshape(t, d)
-    e, k = cfg.n_experts, cfg.top_k
-    dev = x.device
-
-    logits = L._f32(xt) @ p["router"]
-    probs_full = torch.softmax(logits, dim=-1)
-    probs, idx = ops.moe_gate_topk(logits, k, renorm=True)
-    probs = probs.to(x.dtype)
-
-    if cfg.dispatch == "dense":
-        # worst-case baseline: all experts on all tokens
-        ys = _expert_ffn(p, xt.expand(e, t, d))                 # (E,T,D)
-        gate = torch.zeros((t, e), dtype=x.dtype, device=dev)
-        gate.scatter_(1, idx.to(torch.int64), probs)
-        out = torch.einsum("te,etd->td", gate, ys)
-    else:
-        # ---- Catwalk relocation dispatch --------------------------------
-        cap = _capacity(t, cfg)
-        flat_e = idx.reshape(-1).to(torch.int64)                 # (T*k,)
-        flat_tok = torch.arange(t, device=dev).repeat_interleave(k)
-        order = torch.argsort(flat_e, stable=True)               # relocate
-        sorted_e = flat_e[order]
-        # rank within expert segment = global sorted pos - segment start
-        seg_start = torch.searchsorted(
-            sorted_e, torch.arange(e, device=dev), side="left")
-        rank = torch.arange(t * k, device=dev) - seg_start[sorted_e]
-        keep = rank < cap                                        # clip at C
-        slot = torch.where(keep, sorted_e * cap + rank, e * cap)  # overflow
-        # slot -> source-token table; the trash entry e*cap is written by
-        # every dropped assignment and its value is never read
-        slot_src = torch.full((e * cap + 1,), t, dtype=torch.int64,
-                              device=dev)
-        slot_src[slot] = torch.where(keep, flat_tok[order], t)
-        xt_pad = torch.cat([xt, xt.new_zeros((1, d))], 0)
-        expert_in = xt_pad[slot_src[:-1]].reshape(e, cap, d)
-        expert_out = _expert_ffn(p, expert_in)
-        eo_flat = torch.cat([expert_out.reshape(e * cap, d),
-                             expert_out.new_zeros((1, d))], 0)
-        # per-assignment slot in TOKEN order (inverse relocation)
-        inv = torch.argsort(order)
-        token_slot = slot[inv]                                   # (T*k,)
-        out = _combine(eo_flat[token_slot].reshape(t, k, d), probs)
-
+    e = cfg.n_experts
+    if cfg.dispatch != "dense":
+        out, aux = _local_dispatch_ffn(p, xt, cfg, 0, e)
+        return out.reshape(b, s, d), {"aux_loss": aux}
+    # worst-case baseline: all experts on all tokens
+    probs_full, probs, idx = _route(p, xt, cfg)
+    ys = _expert_ffn(p, xt.expand(e, t, d))                      # (E,T,D)
+    gate = torch.zeros((t, e), dtype=x.dtype, device=x.device)
+    gate.scatter_(1, idx.to(torch.int64), probs)
+    out = torch.einsum("te,etd->td", gate, ys)
     if cfg.n_shared:
         out = out + L.mlp_apply(p["shared"], xt)
     aux = cfg.router_aux_loss * _aux_loss(probs_full, idx, e)
+    return out.reshape(b, s, d), {"aux_loss": aux}
+
+
+# ---------------------------------------------------------------------------
+# Expert parallelism (the --opt layout). Rows are split over the DP axes
+# and replicated over ``model``; experts are split over ``model``. Every
+# rank routes its own rows, keeps the assignments to its own E / model
+# experts, runs the dense (E_loc, C, D) FFN and the shared experts' d_ff
+# slice, and one sum over ``model`` combines the partial outputs.
+# ---------------------------------------------------------------------------
+
+
+def ep_model_size(cfg: MoEConfig, mesh) -> int | None:
+    """The ``model`` axis size the expert-parallel layer splits the
+    experts over, or None where it runs ``moe_apply`` instead, as the
+    reference's does: no mesh or no ``model`` axis, a ``model`` axis that
+    does not divide the experts, or shared experts whose d_ff it does not
+    divide."""
+    if "model" not in SH.axis_names(mesh):
+        return None
+    m = SH.axis_size(mesh, "model")
+    if cfg.n_experts % m:
+        return None
+    if cfg.n_shared and (cfg.n_shared * cfg.d_expert) % m:
+        return None
+    return m
+
+
+def ep_fsdp_entry(cfg: MoEConfig, mesh, fsdp: bool) -> SH.Axis:
+    """The DP axes the experts' d_ff stays split over in the
+    expert-parallel layer's input (``fsdp``: the layout at rest,
+    :func:`repro_torch.sharding.specs.param_pspec`), or None."""
+    if not fsdp:
+        return None
+    return SH._fit(mesh, cfg.d_expert, SH.dp_axes(mesh))
+
+
+def ep_block_specs(cfg: MoEConfig, mesh, fsdp: bool) -> Dict[str, SH.Spec]:
+    """Spec of each unstacked MoE leaf as :func:`moe_apply_ep` takes it:
+    the experts over ``model`` (d_ff also over the DP axes with
+    ``fsdp``), the shared experts' d_ff over ``model``, the router
+    whole."""
+    f = ep_fsdp_entry(cfg, mesh, fsdp)
+    out = {"router": (None, None), "w_gate": ("model", None, f),
+           "w_up": ("model", None, f), "w_down": ("model", f, None)}
+    if cfg.n_shared:
+        out.update({"shared/w_gate": (None, "model"),
+                    "shared/w_up": (None, "model"),
+                    "shared/w_down": ("model", None)})
+    return out
+
+
+def moe_apply_ep(p, x: torch.Tensor, cfg: MoEConfig, fsdp: bool = False, *,
+                 mesh=None, batch_axes=None
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Expert-parallel MoE over ``mesh``'s ``model`` axis; ``moe_apply``
+    (under the same mesh) where :func:`ep_model_size` says the reference
+    falls back.
+
+    ``x`` (B, S, D) is this rank's block of rows over the DP axes
+    (``batch_axes``, default the DP axes; raises where they leave out a
+    DP axis of more than one rank or name ``model``), the same on every
+    ``model`` rank of its data group; ``p``'s leaves are this
+    rank's blocks under :func:`ep_block_specs` (its ``E / model`` experts;
+    ``fsdp``: their d_ff still split over the DP axes, gathered here before
+    use, the gradient reduce-scattered back). Each rank routes its rows
+    (one gate launch), keeps the assignments to its experts at the
+    capacity of its own token count, and adds its slice of the shared
+    experts; one sum over ``model`` combines the partial outputs (its
+    backward hands each rank the gradient unchanged), and the rows' and
+    the router's gradients are summed over ``model``. The aux loss is the
+    mean of the per-rank aux over the DP axes and ``model``. Returns
+    (out (B, S, D), {'aux_loss'})."""
+    m = ep_model_size(cfg, mesh)
+    if m is None:
+        return moe_apply(p, x, cfg, mesh=mesh, batch_axes=batch_axes)
+    dp = SH.dp_axes(mesh)
+    rows = SH.live_axes(mesh, dp if batch_axes is None else batch_axes)
+    if "model" in rows:
+        raise ValueError("the expert-parallel layer needs the rows "
+                         "replicated over 'model' (not batch_over_model)")
+    if set(SH.live_axes(mesh, dp)) - set(rows):
+        raise ValueError(f"the expert-parallel layer needs the rows split "
+                         f"over every DP axis {dp} (they are split over "
+                         f"{rows}); the reference's shard_map needs its "
+                         f"tokens to split over them")
+    fsdp = fsdp and bool(dp)
+    e, f, d = cfg.n_experts, cfg.d_expert, x.shape[-1]
+    e_loc = e // m
+    whole = {"router": (d, e), "w_gate": (e, d, f), "w_up": (e, d, f),
+             "w_down": (e, f, d), "shared/w_gate": (d, cfg.n_shared * f),
+             "shared/w_up": (d, cfg.n_shared * f),
+             "shared/w_down": (cfg.n_shared * f, d)}
+    p_loc = dict(p)
+    for name, spec in ep_block_specs(cfg, mesh, fsdp).items():
+        tree, leaf = (p["shared"], name[7:]) if name.startswith("shared/") \
+            else (p, name)
+        SH.maybe_wsc(tree[leaf], *spec, mesh=mesh, shape=whole[name])
+    f_entry = ep_fsdp_entry(cfg, mesh, fsdp)
+    if f_entry is not None:
+        p_loc["w_gate"] = SH.gather_along(p["w_gate"], 2, f_entry, mesh)
+        p_loc["w_up"] = SH.gather_along(p["w_up"], 2, f_entry, mesh)
+        p_loc["w_down"] = SH.gather_along(p["w_down"], 1, f_entry, mesh)
+    p_loc["router"] = SH.copy_to(p["router"], "model", mesh)
+    b, s, _ = x.shape
+    xt = SH.copy_to(x.reshape(b * s, d), "model", mesh)
+    e_lo = SH.coordinate(mesh, "model") * e_loc
+    out, aux = _local_dispatch_ffn(p_loc, xt, cfg, e_lo, e_loc)
+    out = SH.sum_over(out, "model", mesh)
+    aux = SH.mean_over(aux, dp + ("model",), mesh)
     return out.reshape(b, s, d), {"aux_loss": aux}

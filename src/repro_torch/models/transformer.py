@@ -27,6 +27,13 @@ layer and the shared block applied after it are one checkpointed block.
 
 A family outside the six raises ``ValueError``; so does the audio family
 without ``frames=`` (the reference fails on ``None.astype`` there).
+
+``forward(..., mesh=)`` runs one rank's part of a ``("data", "model")``
+mesh (:func:`repro_torch.sharding.specs.lm_mesh`): the tokens are the
+rank's rows (its block over the axes ``batch_axes`` names) and the
+parameters whole, except the MoE layers' expert blocks that
+``moe_apply_ep`` consumes under ``catwalk_ep``. Every layer but the MoE
+one computes row by row, so only the MoE layer talks to other ranks.
 """
 
 from __future__ import annotations
@@ -42,6 +49,7 @@ from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
+from repro_torch.sharding import specs as SH
 
 #: the LM families of the reference's model assembly
 FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "audio")
@@ -93,11 +101,14 @@ def _maybe_remat(fn: Callable, cfg: ModelConfig, lp: Dict[str, Any],
                                              preserve_rng_state=False)
 
 
-def _stacked(n: int, make: Callable[[], Dict[str, Any]]) -> Dict[str, Any]:
-    """``n`` trees from ``make()`` stacked on a leading axis. Each stacked
-    leaf is allocated once and filled layer by layer, so the peak is the
-    stack plus one layer (a list of layers and ``torch.stack`` would hold
-    the model twice)."""
+def _stacked(n: int, make: Callable[[], Dict[str, Any]],
+             place: Callable[[Dict[str, Any]], Dict[str, Any]] = lambda t: t
+             ) -> Dict[str, Any]:
+    """``n`` trees from ``make()`` stacked on a leading axis, each layer
+    through ``place`` first (``init_params``' ``cut``). Each stacked leaf
+    is allocated once and filled layer by layer, so the peak is the stack
+    plus one layer (a list of layers and ``torch.stack`` would hold the
+    model twice)."""
     def alloc(tree):
         return {k: alloc(v) if isinstance(v, dict)
                 else v.new_empty((n,) + tuple(v.shape))
@@ -110,12 +121,12 @@ def _stacked(n: int, make: Callable[[], Dict[str, Any]]) -> Dict[str, Any]:
             else:
                 out[k][i] = v
 
-    first = make()
+    first = place(make())
     out = alloc(first)
     fill(out, first, 0)
     del first
     for i in range(1, n):
-        fill(out, make(), i)
+        fill(out, place(make()), i)
     return out
 
 
@@ -168,43 +179,67 @@ def _dec_block_init(generator: torch.Generator, cfg: ModelConfig,
                               device)}
 
 
+#: ``cut(path, leaf)``: what the tree keeps of a leaf just drawn
+Cut = Callable[[Tuple[str, ...], torch.Tensor], torch.Tensor]
+
+
 def init_params(generator: torch.Generator, cfg: ModelConfig,
-                device: Union[str, torch.device, None] = None
-                ) -> Dict[str, Any]:
+                device: Union[str, torch.device, None] = None, *,
+                cut: Cut | None = None) -> Dict[str, Any]:
     """Random parameters from ``generator`` on ``device`` (``None`` =
     ``cuda``; raises when CUDA is absent), with the reference's
-    distributions and dtypes."""
+    distributions and dtypes.
+
+    ``cut``: called on each leaf as soon as it is drawn, with its key path
+    (``("layers", "attn", "wq")``; a stacked leaf layer by layer, its path
+    naming the stack), and the tree keeps what it returns: a rank's block
+    (:func:`repro_torch.train.train_loop.init_train_state` with
+    ``mesh=``). The draws are the same with it or without."""
     _check_family(cfg)
     dev = resolve_device(device)
     dtype = L._dtype(cfg.dtype)
+
+    def put(path: Tuple[str, ...], tree):
+        if cut is None:
+            return tree
+        if isinstance(tree, dict):
+            return {k: put(path + (k,), v) for k, v in tree.items()}
+        return cut(path, tree)
+
+    def stack(name: str, n: int, make):
+        return _stacked(n, make, lambda tree: put((name,), tree))
+
     params: Dict[str, Any] = {
-        "embed": L.embed_init(generator, cfg.vocab_size, cfg.d_model, dtype,
-                              dev),
-        "final_norm": L.rmsnorm_init(cfg.d_model, dev),
+        "embed": put(("embed",), L.embed_init(
+            generator, cfg.vocab_size, cfg.d_model, dtype, dev)),
+        "final_norm": put(("final_norm",), L.rmsnorm_init(cfg.d_model, dev)),
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = L.dense_init(generator, cfg.d_model,
-                                         cfg.vocab_size, dtype, dev)
+        params["lm_head"] = put(("lm_head",), L.dense_init(
+            generator, cfg.d_model, cfg.vocab_size, dtype, dev))
     if cfg.family in ("ssm", "hybrid"):
-        params["layers"] = _stacked(cfg.n_layers, lambda: {
+        params["layers"] = stack("layers", cfg.n_layers, lambda: {
             "norm1": L.rmsnorm_init(cfg.d_model, dev),
             "ssm": S.ssm_init(generator, cfg, dtype, dev)})
         if cfg.family == "hybrid":
-            params["shared"] = _block_init(generator, cfg, dtype, dev)
+            params["shared"] = put(("shared",), _block_init(
+                generator, cfg, dtype, dev))
     elif cfg.family == "audio":
-        params["layers"] = _stacked(
-            cfg.n_layers, lambda: _dec_block_init(generator, cfg, dtype, dev))
-        params["encoder"] = _stacked(
-            cfg.encdec.n_encoder_layers,
+        params["layers"] = stack(
+            "layers", cfg.n_layers,
+            lambda: _dec_block_init(generator, cfg, dtype, dev))
+        params["encoder"] = stack(
+            "encoder", cfg.encdec.n_encoder_layers,
             lambda: _enc_block_init(generator, cfg, dtype, dev))
-        params["frame_proj"] = L.dense_init(generator, cfg.frontend.d_embed,
-                                            cfg.d_model, dtype, dev)
+        params["frame_proj"] = put(("frame_proj",), L.dense_init(
+            generator, cfg.frontend.d_embed, cfg.d_model, dtype, dev))
     else:
-        params["layers"] = _stacked(
-            cfg.n_layers, lambda: _block_init(generator, cfg, dtype, dev))
+        params["layers"] = stack(
+            "layers", cfg.n_layers,
+            lambda: _block_init(generator, cfg, dtype, dev))
         if cfg.family == "vlm":
-            params["patch_proj"] = L.dense_init(
-                generator, cfg.frontend.d_embed, cfg.d_model, dtype, dev)
+            params["patch_proj"] = put(("patch_proj",), L.dense_init(
+                generator, cfg.frontend.d_embed, cfg.d_model, dtype, dev))
     return params
 
 
@@ -224,12 +259,14 @@ def _residual_norm(scale: torch.Tensor, x: torch.Tensor, a: torch.Tensor,
 
 def _block_apply(p, x: torch.Tensor, cfg: ModelConfig,
                  cache: A.KVCache | None = None,
-                 enc_out: torch.Tensor | None = None
+                 enc_out: torch.Tensor | None = None, mesh=None,
+                 batch_axes=None
                  ) -> Tuple[torch.Tensor, torch.Tensor, A.KVCache | None]:
     """Returns (x, aux_loss, new_cache). With ``enc_out`` (the audio
     decoder), a cross-attention over it follows the self-attention; its
     K/V are computed from ``enc_out`` at every call, as the reference
-    does (no cross cache)."""
+    does (no cross cache). ``mesh``, ``batch_axes``: see
+    :func:`forward`."""
     h = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
     if cfg.mla is not None:
         a, new_cache = A.mla_apply(p["attn"], h, cfg, cache=cache)
@@ -241,9 +278,15 @@ def _block_apply(p, x: torch.Tensor, cfg: ModelConfig,
                            causal=False)
     x, h = _residual_norm(p["norm2"], x, a, cfg)
     if cfg.moe is not None:
-        # "catwalk_ep" without a process group runs moe_apply, as the
-        # reference does without a mesh
-        out, stats = M.moe_apply(p["moe"], h, cfg.moe)
+        axes = SH.lm_batch_axes(mesh, cfg.batch_over_model) \
+            if batch_axes is None else batch_axes
+        if cfg.moe.dispatch == "catwalk_ep":
+            out, stats = M.moe_apply_ep(p["moe"], h, cfg.moe,
+                                        fsdp=cfg.moe.ep_fsdp, mesh=mesh,
+                                        batch_axes=axes)
+        else:
+            out, stats = M.moe_apply(p["moe"], h, cfg.moe, mesh=mesh,
+                                     batch_axes=axes)
         aux = stats["aux_loss"]
         if cfg.moe.dense_residual:
             out = out + L.mlp_apply(p["mlp"], h)
@@ -298,7 +341,8 @@ def _encode(params, cfg: ModelConfig, frames) -> torch.Tensor:
 
 
 def forward(params, cfg: ModelConfig, tokens, *, patches=None, frames=None,
-            logits_mode: str = "all") -> Tuple[torch.Tensor, torch.Tensor]:
+            logits_mode: str = "all", mesh=None, batch_axes=None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward. Returns (logits, aux_loss).
 
     tokens (B, S) on the parameters' device (or host ids, copied there);
@@ -311,6 +355,14 @@ def forward(params, cfg: ModelConfig, tokens, *, patches=None, frames=None,
     once over the whole sequence (again in the backward under remat) and
     aux_loss is 0; moe: each layer runs the router gate once over all B*S
     tokens and aux_loss sums the layers' load-balancing losses.
+
+    ``mesh``: a ``("data", "model")`` DeviceMesh this rank's part runs on
+    (see the module docstring): the logits are the rank's rows', the aux
+    loss the whole batch's (``catwalk_ep``: the mean of the ranks' aux,
+    as the reference's ``pmean``). ``batch_axes``: the axes the rows are
+    split over (default
+    :func:`repro_torch.sharding.specs.lm_batch_axes`; the mesh train step
+    passes :func:`repro_torch.sharding.specs.lm_row_axes`).
     """
     _check_family(cfg)
     if logits_mode not in ("all", "last"):
@@ -326,6 +378,9 @@ def forward(params, cfg: ModelConfig, tokens, *, patches=None, frames=None,
         n_prefix = px.shape[1]
     enc_out = _encode(params, cfg, frames) if cfg.family == "audio" else None
     aux = torch.zeros((), dtype=torch.float32, device=dev)
+    # the reference pins the activations to (dp, model, None) between
+    # layers under cfg.act_sp, a layout constraint that changes no value;
+    # here they stay whole on every rank
     for i, lp in enumerate(_unstack(params["layers"])[:cfg.n_layers]):
         if cfg.family in ("ssm", "hybrid"):
             if _shared_site(cfg, i) is None:
@@ -336,7 +391,9 @@ def forward(params, cfg: ModelConfig, tokens, *, patches=None, frames=None,
                                  {"layer": lp, "shared": params["shared"]}, x)
         else:
             x, layer_aux = _maybe_remat(
-                lambda h, p: _block_apply(p, h, cfg, enc_out=enc_out)[:2],
+                lambda h, p: _block_apply(p, h, cfg, enc_out=enc_out,
+                                          mesh=mesh,
+                                          batch_axes=batch_axes)[:2],
                 cfg, lp, x)
             aux = aux + layer_aux
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)

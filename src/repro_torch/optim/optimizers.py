@@ -97,11 +97,15 @@ def clip_by_global_norm(grads, max_norm: float) -> Tuple[Any, torch.Tensor]:
     return tree_map(lambda g: g * scale.to(g.dtype), grads), norm
 
 
-def adamw_update(cfg: AdamWConfig, params, grads, state: AdamWState
+def adamw_update(cfg: AdamWConfig, params, grads, state: AdamWState, *,
+                 grad_norm: torch.Tensor | None = None
                  ) -> Tuple[Any, AdamWState, Dict[str, torch.Tensor]]:
     """One AdamW step: returns (new params, new state, {grad_norm, lr});
-    the inputs are left as they were."""
-    gnorm = global_norm(grads)
+    the inputs are left as they were. ``grad_norm``: the global norm to
+    clip by, where ``params``, ``grads`` and the moments are one rank's
+    blocks of whole trees (the norm of the whole gradients); default the
+    norm of ``grads``."""
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
     scale = _clip_scale(gnorm, cfg.grad_clip)
     step = state.step + 1
     lr = schedule(cfg, step)

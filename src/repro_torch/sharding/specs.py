@@ -1,4 +1,11 @@
-"""Sharding rules of the TNN stack over a ``("data", "column")`` mesh.
+"""Sharding rules over a device mesh: the LM rules over ``("data",
+"model")`` and the TNN rules over ``("data", "column")``.
+
+The LM rules (:func:`param_pspec`, :func:`cache_pspec`,
+:func:`batch_pspec`, :func:`data_shardings`) lay parameters, optimizer
+state, serve caches and batches out as the reference's do: heads, d_ff,
+vocab and d_inner over ``model``, MoE experts over ``model`` with their
+d_ff over the DP axes, batches over the DP axes.
 
 The TNN scales by tiling RNL columns side by side: the (columns, neurons)
 plane is sharded over a ``column`` mesh axis and the volley batch over
@@ -12,19 +19,24 @@ plane is sharded over a ``column`` mesh axis and the volley batch over
   post-WTA / winners          (B, C, ...)   (data, column, ...)
   input volley batch          (B, n_in)     (data, None)
 
-Every rule runs through :func:`_fit`: a column count (or batch) that the
-axis does not divide degrades that dim to replication.
+Every rule runs through :func:`_fit`: a dimension that the axis does not
+divide degrades to replication.
 
 The port is explicitly SPMD, as under ``torchrun``: every rank runs the
 same host loop on the same requests and holds its own block of each
 tensor. A mesh is a :class:`torch.distributed.device_mesh.DeviceMesh`
-(:func:`tnn_mesh`), always passed as an explicit ``mesh=`` argument —
-there is no ambient mesh. A spec is a tuple with one entry per dim: an
-axis name, a tuple of axis names, or ``None``. :func:`shard_of` cuts a
-whole tensor to this rank's block under a resolved spec and
-:func:`gather` puts the blocks back together
+(:func:`lm_mesh`, :func:`tnn_mesh`), always passed as an explicit
+``mesh=`` argument — there is no ambient mesh. A spec is a tuple with one
+entry per dim: an axis name, a tuple of axis names, or ``None``.
+:func:`shard_of` cuts a whole tensor to this rank's block under a
+resolved spec and :func:`gather` puts the blocks back together
 (``dist.all_gather_into_tensor``, the pieces ordered by mesh coordinate,
-never by global rank; an axis of one rank needs none).
+never by global rank; an axis of one rank needs none);
+:func:`shard_tree` and :func:`gather_tree` do so leaf by leaf for a
+whole state. The collectives the LM mesh path differentiates through
+(:func:`sum_over`, :func:`copy_to`, :func:`mean_over`,
+:func:`gather_along`) are autograd functions with the backward each
+needs.
 
 The rules read only a mesh's ``mesh_dim_names`` and ``shape``.
 """
@@ -166,6 +178,163 @@ def maybe_wsc(x: torch.Tensor, *spec: Axis, mesh=None,
     return x
 
 
+# ------------------------------------------------------------- LM rules
+# Axes: ``data`` (+ an outer ``pod``) is the data-parallel dimension;
+# ``model`` carries tensor and expert parallelism:
+#
+#   * attention projections: heads over ``model``
+#   * MLP in/out: d_ff over ``model``
+#   * MoE experts: E over ``model`` and the expert d_ff over the DP axes
+#   * embeddings: vocab over ``model`` (replicated with ``replicate_embed``)
+#   * SSM in/out projections: d_inner over ``model``
+#   * norms / biases / routers: replicated
+#
+# Every rule degrades to replication where the axis does not divide the
+# dimension. Stacked-layer leaves (``layers`` / ``encoder``) get a leading
+# ``None``. The rules key on leaf names: the reference's
+# ``"params/layers/moe/w_gate"`` form, which :func:`_leaf_name` makes of
+# the key strings the checkpoint walker gives a port tree.
+
+
+def _leaf_name(key: str) -> str:
+    """The reference's name of a leaf from its key under
+    :func:`repro_torch.train.checkpoint._map_with_path` (``".params/layers/
+    attn/wq"`` -> ``"params/layers/attn/wq"``): a NamedTuple field loses
+    its dot, as ``GetAttrKey.name`` has none. The LM trees hold dicts and
+    NamedTuples only; a sequence index would stay ``"0"`` where the
+    reference writes ``"[0]"``, which no rule reads."""
+    return "/".join(seg[1:] if seg.startswith(".") else seg
+                    for seg in key.split("/"))
+
+
+def _param_spec_base(name: str, shape: Tuple[int, ...], mesh,
+                     replicate_embed: bool = False) -> Spec:
+    """Spec of an unstacked parameter leaf named ``name``."""
+    dp = dp_axes(mesh)
+    last = name.rsplit("/", 1)[-1]
+
+    def col(d_out_idx=-1):
+        """Column-parallel: shard the output dim over model."""
+        spec: list = [None] * len(shape)
+        spec[d_out_idx] = _fit(mesh, shape[d_out_idx], "model")
+        return tuple(spec)
+
+    def row(d_in_idx=0):
+        spec: list = [None] * len(shape)
+        spec[d_in_idx] = _fit(mesh, shape[d_in_idx], "model")
+        return tuple(spec)
+
+    if last == "embed":
+        if replicate_embed:
+            return (None, None)
+        return (_fit(mesh, shape[0], "model"), None)
+    if last == "lm_head":
+        return (None, None) if replicate_embed else col()
+    # --- MoE expert stacks: (E, D, F) / (E, F, D)
+    if "moe" in name and last in ("w_gate", "w_up") and len(shape) == 3:
+        return (_fit(mesh, shape[0], "model"), None,
+                _fit(mesh, shape[2], dp))
+    if "moe" in name and last == "w_down" and len(shape) == 3:
+        return (_fit(mesh, shape[0], "model"), _fit(mesh, shape[1], dp),
+                None)
+    if last == "router":
+        return (None, None)
+    # --- attention / MLP / SSM projections
+    if last in ("wq", "wk", "wv", "w_ukv", "w_gate", "w_up", "in_proj"):
+        return col()
+    if last in ("wo", "w_down", "out_proj"):
+        return row()
+    # w_dkv, w_kr, patch_proj, frame_proj, conv_w, norms, dt_bias, a_log,
+    # scalars
+    return (None,) * len(shape)
+
+
+#: the keys of the stacked-layer subtrees (their leaves lead with the layer
+#: axis)
+STACK_KEYS = ("layers", "encoder")
+
+
+def param_pspec(key: str, leaf, mesh, replicate_embed: bool = False
+                ) -> Spec:
+    """Spec of the leaf at ``key`` (a checkpoint key string, see
+    :func:`_leaf_name`) of whole shape ``leaf.shape``; optimizer-state
+    prefixes share the parameter's layout (``params/...``, ``opt/m/...``,
+    ``opt/v/...`` and ``ef/error/...`` name the same last segments)."""
+    name = _leaf_name(key)
+    shape = tuple(int(d) for d in leaf.shape)
+    if any(s in STACK_KEYS for s in name.split("/")[:-1]):
+        return (None,) + _param_spec_base(name, shape[1:], mesh,
+                                          replicate_embed)
+    return _param_spec_base(name, shape, mesh, replicate_embed)
+
+
+def param_pspecs(tree, mesh, replicate_embed: bool = False):
+    """Spec tree of a whole (or ``meta``) tree: params, a ``TrainState`` or
+    any tree whose leaves are named as parameters; ``None`` subtrees stay
+    ``None``. It stands for the reference's ``param_shardings`` too (a
+    tree of ``NamedSharding``; a ``DeviceMesh`` and a spec say the same),
+    which :func:`shard_tree` and :func:`gather_tree` apply leaf by leaf."""
+    from repro_torch.train.checkpoint import _map_with_path
+    return _map_with_path(tree, lambda key, leaf: param_pspec(
+        key, leaf, mesh, replicate_embed))
+
+
+def data_shardings(mesh, batch_shapes, over_model: bool = False
+                   ) -> Dict[str, Spec]:
+    """Spec of each batch entry (name -> anything with ``.shape``): the
+    leading batch dim over the DP axes (:func:`batch_pspec`)."""
+    return {k: batch_pspec(mesh, v.shape[0], len(v.shape) - 1, over_model)
+            for k, v in batch_shapes.items()}
+
+
+def cache_pspec(key: str, leaf, mesh) -> Spec:
+    """Serve-state spec: batch over DP; KV heads over model when they
+    divide; SSD state heads over model."""
+    name = _leaf_name(key)
+    shape = tuple(int(d) for d in leaf.shape)
+    if name.endswith("pos") or len(shape) == 0:
+        return ()
+    stacked = name.startswith("layer_caches")
+    body = shape[1:] if stacked else shape
+    spec: list = [None] * len(body)
+    if len(body) >= 1:
+        spec[0] = _fit(mesh, body[0], dp_axes(mesh))       # batch dim
+    if len(body) == 4:                     # (B, S, Hkv, D) | (B, H, N, P)
+        if name.endswith(("/k", "/v")):
+            spec[2] = _fit(mesh, body[2], "model")
+        if "state" in name:
+            spec[1] = _fit(mesh, body[1], "model")         # SSD heads
+    if stacked:
+        spec = [None] + spec
+    return tuple(spec)
+
+
+def serve_shardings(state, mesh):
+    """Spec tree of a serve state (:func:`cache_pspec` per leaf)."""
+    from repro_torch.train.checkpoint import _map_with_path
+    return _map_with_path(state, lambda key, leaf: cache_pspec(
+        key, leaf, mesh))
+
+
+def lm_batch_axes(mesh, over_model: bool = False) -> Tuple[str, ...]:
+    """The axes an LM step splits each microbatch's rows over: the DP
+    axes, and ``model`` too with ``over_model`` (``batch_over_model``).
+    The mesh train step splits the rows over all of them
+    (:func:`repro_torch.train.train_loop.make_train_step`)."""
+    extra = ("model",) if over_model and "model" in axis_names(mesh) \
+        else ()
+    return dp_axes(mesh) + extra
+
+
+def lm_row_axes(mesh, rows: int, over_model: bool = False
+                ) -> Tuple[str, ...]:
+    """The axes of more than one rank an LM step splits a microbatch of
+    ``rows`` rows over: as many of :func:`lm_batch_axes` as divide them
+    (:func:`_fit`, as :func:`batch_pspec`); the rows are replicated over
+    the rest."""
+    return live_axes(mesh, _fit(mesh, rows, lm_batch_axes(mesh, over_model)))
+
+
 # ------------------------------------------------------------ TNN rules
 
 def tnn_column_size(mesh=None) -> int:
@@ -175,36 +344,28 @@ def tnn_column_size(mesh=None) -> int:
     return _sizes(mesh).get(TNN_COLUMN_AXIS, 1)
 
 
-def tnn_mesh(n_column: Optional[int] = None, n_data: int = 1, *,
-             devices: Optional[Sequence[int]] = None,
-             device_type: str = "cuda"):
-    """DeviceMesh with ``("data", "column")`` dims over the world's ranks.
-
-    ``devices`` are global ranks (default: every rank of the initialised
-    process group); ``n_column`` defaults to all of them not consumed by
-    ``n_data``, and the mesh takes the first ``n_data * n_column``. A 1x1
-    mesh is valid and makes every rule shard over axes of size 1. A
-    ``cuda`` mesh (the default) needs the NCCL backend and a ``cpu`` mesh
-    gloo: nothing falls back to another backend or device.
-    """
+def _device_mesh(inner: str, n_inner: Optional[int], n_data: int,
+                 devices: Optional[Sequence[int]], device_type: str):
+    """DeviceMesh with ``("data", inner)`` dims over the world's ranks: the
+    shared body of :func:`tnn_mesh` and :func:`lm_mesh`."""
     if devices is None:
         if not (dist.is_available() and dist.is_initialized()):
-            raise RuntimeError("tnn_mesh needs an initialised process "
-                               "group (torch.distributed.init_process_group)")
+            raise RuntimeError("a mesh needs an initialised process group "
+                               "(torch.distributed.init_process_group)")
         devices = range(dist.get_world_size())
     devices = list(devices)
     if n_data <= 0:
         raise ValueError(f"n_data must be positive, got {n_data}")
-    if n_column is None:
+    if n_inner is None:
         if len(devices) % n_data:
             raise ValueError(
                 f"n_data={n_data} does not divide {len(devices)} devices")
-        n_column = len(devices) // n_data
-    if n_column <= 0:
-        raise ValueError(f"n_column must be positive, got {n_column}")
-    need = n_data * n_column
+        n_inner = len(devices) // n_data
+    if n_inner <= 0:
+        raise ValueError(f"n_{inner} must be positive, got {n_inner}")
+    need = n_data * n_inner
     if need > len(devices):
-        raise ValueError(f"mesh ({n_data}, {n_column}) needs {need} "
+        raise ValueError(f"mesh ({n_data}, {n_inner}) needs {need} "
                          f"devices, have {len(devices)}")
     backend = str(dist.get_backend())
     if device_type == "cuda":
@@ -221,8 +382,35 @@ def tnn_mesh(n_column: Optional[int] = None, n_data: int = 1, *,
                          f"{device_type!r}")
     from torch.distributed.device_mesh import DeviceMesh
     ranks = torch.tensor(devices[:need], dtype=torch.int64)
-    return DeviceMesh(device_type, ranks.reshape(n_data, n_column),
-                      mesh_dim_names=("data", TNN_COLUMN_AXIS))
+    return DeviceMesh(device_type, ranks.reshape(n_data, n_inner),
+                      mesh_dim_names=("data", inner))
+
+
+def tnn_mesh(n_column: Optional[int] = None, n_data: int = 1, *,
+             devices: Optional[Sequence[int]] = None,
+             device_type: str = "cuda"):
+    """DeviceMesh with ``("data", "column")`` dims over the world's ranks.
+
+    ``devices`` are global ranks (default: every rank of the initialised
+    process group); ``n_column`` defaults to all of them not consumed by
+    ``n_data``, and the mesh takes the first ``n_data * n_column``. A 1x1
+    mesh is valid and makes every rule shard over axes of size 1. A
+    ``cuda`` mesh (the default) needs the NCCL backend and a ``cpu`` mesh
+    gloo: nothing falls back to another backend or device.
+    """
+    return _device_mesh(TNN_COLUMN_AXIS, n_column, n_data, devices,
+                        device_type)
+
+
+def lm_mesh(n_model: Optional[int] = None, n_data: int = 1, *,
+            devices: Optional[Sequence[int]] = None,
+            device_type: str = "cuda"):
+    """DeviceMesh with ``("data", "model")`` dims over the world's ranks:
+    the counterpart of ``jax.make_mesh((data_par, model_par), ("data",
+    "model"))``, with :func:`tnn_mesh`'s defaults and checks (``n_model``
+    defaults to every rank ``n_data`` leaves; NCCL for ``cuda``, gloo for
+    ``cpu``)."""
+    return _device_mesh("model", n_model, n_data, devices, device_type)
 
 
 def tnn_param_pspec(mesh, n_columns: int) -> Spec:
@@ -316,6 +504,11 @@ def _coords(mesh) -> Dict[str, int]:
     return memo(mesh, "coords", read)
 
 
+def coordinate(mesh, axis: str) -> int:
+    """This rank's coordinate on ``axis``."""
+    return _coords(mesh)[axis]
+
+
 def is_origin(mesh) -> bool:
     """Whether this rank sits at coordinate 0 on every mesh dim."""
     return not any(_coords(mesh).values())
@@ -323,6 +516,12 @@ def is_origin(mesh) -> bool:
 
 def _axes(entry: Axis) -> Tuple[str, ...]:
     return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def spec_axes(spec: Spec) -> Tuple[str, ...]:
+    """Every axis name a spec names."""
+    return tuple(a for entry in spec if entry is not None
+                 for a in _axes(entry))
 
 
 def split(mesh, entry: Axis) -> Axis:
@@ -390,7 +589,7 @@ def _all_gather(x: torch.Tensor, dim: int, axis: str, mesh) -> torch.Tensor:
     buffer of the pieces stacked along dim 0."""
     group, n, order = memo(mesh, ("gather", axis),
                            lambda: _gather_plan(mesh, axis))
-    x = x.contiguous()
+    x = x.detach().contiguous()
     out = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
     dist.all_gather_into_tensor(out, x, group=group)
     pieces = out.view((n,) + tuple(x.shape))
@@ -428,3 +627,190 @@ def barrier(mesh) -> None:
     for a in axis_names(mesh):
         dist.all_reduce(t, group=mesh.get_group(a))
     t.item()
+
+
+def shard_tree(tree, spec_tree, mesh):
+    """This rank's blocks of a whole tree under its spec tree
+    (:func:`param_pspecs`), leaf by leaf (:func:`shard_of`); ``None``
+    subtrees stay ``None``."""
+    from repro_torch.train.checkpoint import _map_with_path
+    specs_of = _spec_table(spec_tree)
+    return _map_with_path(tree, lambda key, leaf: shard_of(
+        leaf, specs_of[key], mesh))
+
+
+def gather_tree(tree, spec_tree, mesh, to=None):
+    """The whole tree from this rank's blocks under its spec tree, leaf by
+    leaf (:func:`gather`, a collective on every rank); the inverse of
+    :func:`shard_tree`. ``to``: a device each whole leaf moves to as soon
+    as it is gathered (``"cpu"``: a device holds one whole leaf at a
+    time)."""
+    from repro_torch.train.checkpoint import _map_with_path
+    specs_of = _spec_table(spec_tree)
+
+    def one(key, leaf):
+        whole = gather(leaf, specs_of[key], mesh)
+        return whole if to is None else whole.to(to)
+    return _map_with_path(tree, one)
+
+
+def _spec_table(spec_tree) -> Dict[str, Spec]:
+    """Key string -> spec of a spec tree. A spec is a tuple, which the
+    checkpoint walker would enter, so the specs are read beside a walk of
+    the tree they describe: a spec tree's leaves sit where a dict, a
+    NamedTuple or ``None`` does not."""
+    table: Dict[str, Spec] = {}
+
+    def walk(node, path):
+        if node is None:
+            return
+        if isinstance(node, dict):
+            for k in sorted(node):
+                walk(node[k], path + (str(k),))
+        elif isinstance(node, tuple) and hasattr(node, "_fields"):
+            for f, v in zip(node._fields, node):
+                walk(v, path + (f".{f}",))
+        else:
+            table["/".join(path)] = tuple(node)
+    walk(spec_tree, ())
+    return table
+
+
+# ---------------------------------------------- collectives under autograd
+#
+# The LM mesh path differentiates through its collectives. Each function
+# below names the axes it spans; an axis of one rank needs no collective,
+# so on a mesh of one rank every one of them is the identity, forward and
+# backward.
+
+def live_axes(mesh, axes: Axis) -> Tuple[str, ...]:
+    """``axes``' names that span more than one rank (none without a
+    mesh)."""
+    if mesh is None or axes is None:
+        return ()
+    sizes = _sizes(mesh)
+    return tuple(a for a in _axes(axes) if sizes[a] > 1)
+
+
+def all_reduce(x: torch.Tensor, axes: Axis, mesh) -> torch.Tensor:
+    """The sum of ``x`` over every rank of ``axes`` (a new tensor; ``x``
+    itself when every axis has one rank). No gradient."""
+    live = live_axes(mesh, axes)
+    if not live:
+        return x
+    x = x.detach().clone()
+    for a in live:
+        dist.all_reduce(x, group=memo(mesh, ("group", a),
+                                      lambda a=a: mesh.get_group(a)))
+    return x
+
+
+class _SumOver(torch.autograd.Function):
+    """Forward: the sum over the axes' ranks. Backward: the identity — the
+    gradient of the sum is replicated over those ranks already, and each
+    rank's part gets it unchanged (an all-reduce there would count it once
+    a rank)."""
+
+    @staticmethod
+    def forward(ctx, x, axes, mesh):
+        return all_reduce(x, axes, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _CopyTo(torch.autograd.Function):
+    """Forward: the identity on a tensor replicated over the axes' ranks,
+    each of which uses it for a part of the result. Backward: the sum of
+    the parts' gradients over those ranks."""
+
+    @staticmethod
+    def forward(ctx, x, axes, mesh):
+        ctx.axes, ctx.mesh = axes, mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.axes, ctx.mesh), None, None
+
+
+class _MeanOver(torch.autograd.Function):
+    """Forward: the mean over the axes' ranks (``jax.lax.pmean``).
+    Backward: the gradient over the rank count, on each rank — the mean's
+    gradient is replicated, and each rank's term enters it once."""
+
+    @staticmethod
+    def forward(ctx, x, axes, mesh):
+        ctx.n = axis_size(mesh, live_axes(mesh, axes))
+        return all_reduce(x, axes, mesh) / ctx.n
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.n, None, None
+
+
+class _CountOnce(torch.autograd.Function):
+    """Forward: the identity on a value computed whole on every rank of
+    the axes. Backward: the gradient over the rank count, so that a sum of
+    the ranks' gradients counts the value once."""
+
+    @staticmethod
+    def forward(ctx, x, n):
+        ctx.n = n
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.n, None
+
+
+class _GatherAlong(torch.autograd.Function):
+    """Forward: the blocks of the entry's ranks joined along ``dim``
+    (:func:`gather`). Backward: the reduce-scatter — the gradient summed
+    over those ranks (each used the whole tensor on its own data), this
+    rank's block kept."""
+
+    @staticmethod
+    def forward(ctx, x, dim, entry, mesh):
+        ctx.dim, ctx.entry, ctx.mesh = dim, entry, mesh
+        spec = (None,) * dim + (entry,)
+        return gather(x, spec, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        whole = all_reduce(g, ctx.entry, ctx.mesh)
+        rows = block_slice(ctx.mesh, whole.shape[ctx.dim], ctx.entry)
+        return (whole.narrow(ctx.dim, rows.start, rows.stop - rows.start)
+                .contiguous(), None, None, None)
+
+
+def sum_over(x: torch.Tensor, axes: Axis, mesh) -> torch.Tensor:
+    """Differentiable sum over ``axes``' ranks (identity backward)."""
+    return _SumOver.apply(x, axes, mesh) if live_axes(mesh, axes) else x
+
+
+def copy_to(x: torch.Tensor, axes: Axis, mesh) -> torch.Tensor:
+    """Identity whose backward sums the gradient over ``axes``' ranks."""
+    return _CopyTo.apply(x, axes, mesh) if live_axes(mesh, axes) else x
+
+
+def mean_over(x: torch.Tensor, axes: Axis, mesh) -> torch.Tensor:
+    """Differentiable mean over ``axes``' ranks (``jax.lax.pmean``)."""
+    return _MeanOver.apply(x, axes, mesh) if live_axes(mesh, axes) else x
+
+
+def count_once(x: torch.Tensor, axes: Axis, mesh) -> torch.Tensor:
+    """``x``, computed whole on every rank of ``axes``, with its gradient
+    divided by their rank count (see :class:`_CountOnce`)."""
+    live = live_axes(mesh, axes)
+    return _CountOnce.apply(x, axis_size(mesh, live)) if live else x
+
+
+def gather_along(x: torch.Tensor, dim: int, entry: Axis, mesh
+                 ) -> torch.Tensor:
+    """Differentiable :func:`gather` of dim ``dim`` over ``entry``
+    (all-gather forward, reduce-scatter backward)."""
+    if not live_axes(mesh, entry):
+        return x
+    return _GatherAlong.apply(x, dim, entry, mesh)

@@ -127,28 +127,35 @@ def latest_step(ckpt_dir: str | pathlib.Path) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def _like(arr: np.ndarray, leaf: Any) -> Any:
+def _like(arr: np.ndarray, leaf: Any, cut=None, key: str = "") -> Any:
     """``arr`` as the template leaf's kind: a tensor in its dtype on its
-    device, a numpy array in its dtype, or a scalar of its type."""
+    device (``cut(key, tensor)`` first, on the host), a numpy array in its
+    dtype, or a scalar of its type."""
     if isinstance(leaf, torch.Tensor):
-        return torch.from_numpy(arr).to(device=leaf.device, dtype=leaf.dtype)
+        t = torch.from_numpy(arr)
+        if cut is not None:
+            t = cut(key, t)
+        return t.to(device=leaf.device, dtype=leaf.dtype)
     if isinstance(leaf, (np.ndarray, np.generic)):
         return arr.astype(leaf.dtype)
     return type(leaf)(arr.item())
 
 
 def restore_checkpoint(ckpt_dir: str | pathlib.Path, template: Any,
-                       step: Optional[int] = None, host_id: int = 0) -> Any:
+                       step: Optional[int] = None, host_id: int = 0, *,
+                       cut=None) -> Any:
     """Restore into the structure of ``template``: each leaf cast to the
-    template leaf's dtype and put on its device."""
+    template leaf's dtype and put on its device. ``cut(key, tensor)``:
+    what to keep of each whole tensor leaf, taken on the host before it
+    moves (a rank's block, so a device never holds the whole state)."""
     ckpt_dir = pathlib.Path(ckpt_dir)
     step = latest_step(ckpt_dir) if step is None else step
     if step is None:
         raise FileNotFoundError(f"no checkpoint under {ckpt_dir}")
     path = ckpt_dir / f"step_{step:08d}" / f"host_{host_id}" / "arrays.npz"
     with np.load(path) as data:
-        return _map_with_path(template,
-                              lambda key, leaf: _like(data[key], leaf))
+        return _map_with_path(template, lambda key, leaf: _like(
+            data[key], leaf, cut, key))
 
 
 class CheckpointManager:
@@ -189,8 +196,11 @@ class CheckpointManager:
         if self._thread is not None and self._thread.is_alive():
             self._thread.join()
 
-    def restore_latest(self, template: Any) -> tuple[Any, int]:
+    def restore_latest(self, template: Any, *, cut=None) -> tuple[Any, int]:
+        """(the latest checkpoint restored into ``template``'s structure
+        (``cut``: see :func:`restore_checkpoint`), its step), or
+        (``template``, 0) without one."""
         step = latest_step(self.dir)
         if step is None:
             return template, 0
-        return restore_checkpoint(self.dir, template, step), step
+        return restore_checkpoint(self.dir, template, step, cut=cut), step

@@ -8,6 +8,21 @@ AdamW. Gradient accumulation runs the microbatches one after another and
 sums their gradients in the parameters' dtype before dividing by
 ``grad_accum``, as the reference's scan does. A step is functional: it
 returns a new state and leaves the one it was given as it was.
+
+``make_train_step(..., mesh=)`` is the step of one rank of a ``("data",
+"model")`` mesh (:func:`repro_torch.sharding.specs.lm_mesh`). Its state
+(parameters, AdamW moments, error feedback) lives as this rank's blocks
+under :func:`repro_torch.sharding.specs.param_pspecs`
+(:func:`init_train_state` with ``mesh=`` builds it so); every rank gets
+the whole batch and takes its block of each microbatch's rows over the
+axes that divide them (:func:`repro_torch.sharding.specs.lm_row_axes`),
+the rows replicated over the rest. The step gathers each parameter whole
+for the forward, but the expert blocks ``moe_apply_ep`` consumes, takes
+the gradients of its rows, sums them over the ranks the rows are split
+over, clips and compresses the whole gradients, and runs AdamW on its
+blocks. Splitting the attention and MLP compute over ``model`` is not
+done: the parameters are sharded at rest only, and a rank whose rows
+are the whole microbatch computes the whole single-device step.
 """
 
 from __future__ import annotations
@@ -23,6 +38,7 @@ from repro_torch.models import transformer as T
 from repro_torch.optim import grad_compression as GC
 from repro_torch.optim import optimizers as O
 from repro_torch.optim.tree import tree_leaves, tree_map, tree_unflatten
+from repro_torch.sharding import specs as SH
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,12 +61,28 @@ class TrainState(NamedTuple):
 
 def init_train_state(generator: torch.Generator, cfg: ModelConfig,
                      tcfg: TrainConfig,
-                     device: Union[str, torch.device, None] = None
-                     ) -> TrainState:
+                     device: Union[str, torch.device, None] = None, *,
+                     mesh=None) -> TrainState:
     """Random parameters from ``generator`` (:func:`transformer.init_params`)
     on ``device`` (``None`` = ``cuda``; raises when CUDA is absent), zero
-    moments, a zero error buffer when compressing, step 0."""
-    params = T.init_params(generator, cfg, device)
+    moments, a zero error buffer when compressing, step 0.
+
+    ``mesh``: this rank's blocks under :func:`state_pspecs`, the same
+    draws as without a mesh: each parameter is cut as soon as it is drawn
+    (a stacked one layer by layer), and the moments and the error buffer
+    are made as blocks."""
+    cut = None
+    if mesh is not None:
+        pspecs = state_pspecs(cfg, tcfg, mesh).params
+
+        def cut(path, leaf):
+            spec = pspecs
+            for k in path:
+                spec = spec[k]
+            if any(k in SH.STACK_KEYS for k in path[:-1]):
+                spec = spec[1:]              # one layer of a stacked leaf
+            return SH.shard_of(leaf, spec, mesh)
+    params = T.init_params(generator, cfg, device, cut=cut)
     opt = O.init_adamw(params, tcfg.optimizer)
     ef = GC.init_ef(params) if tcfg.compressing else None
     return TrainState(params, opt, ef,
@@ -58,29 +90,50 @@ def init_train_state(generator: torch.Generator, cfg: ModelConfig,
                                   device=params["embed"].device))
 
 
-def loss_fn(params, cfg: ModelConfig, batch: Dict[str, Any]
+def loss_fn(params, cfg: ModelConfig, batch: Dict[str, Any], *, mesh=None,
+            batch_axes=None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """(ce + aux, {"ce", "aux"}) of ``batch`` ("tokens", "labels", and an
     optional "mask", "patches" (vlm) and "frames" (audio), numpy arrays or
-    tensors)."""
+    tensors).
+
+    ``mesh``: ``batch`` is this rank's block of rows over ``batch_axes``
+    (default :func:`repro_torch.sharding.specs.lm_batch_axes`) and
+    ``params`` as :func:`repro_torch.models.transformer.forward` takes
+    them. Where the rows are split, ``ce`` is this rank's share (its
+    tokens' loss over the whole batch's token count), so the ranks' shares
+    and their gradients add up to the batch's; ``aux`` is the whole
+    batch's."""
     dev = params["embed"].device
     extra = {k: batch[k] for k in ("patches", "frames") if k in batch}
-    logits, aux = T.forward(params, cfg, batch["tokens"], **extra)
+    if mesh is not None and batch_axes is None:
+        batch_axes = SH.lm_batch_axes(mesh, cfg.batch_over_model)
+    logits, aux = T.forward(params, cfg, batch["tokens"], **extra,
+                            mesh=mesh, batch_axes=batch_axes)
     labels = torch.as_tensor(batch["labels"], device=dev)
     mask = batch.get("mask")
     if mask is not None:
         mask = torch.as_tensor(mask, device=dev)
-    ce = L.cross_entropy(logits, labels, mask)
+    rows = SH.live_axes(mesh, batch_axes)
+    if rows:
+        total = SH.all_reduce(L.token_count(labels, mask), rows, mesh)
+        ce = L.cross_entropy(logits, labels, mask, total=total)
+    else:
+        ce = L.cross_entropy(logits, labels, mask)
     return ce + aux, {"ce": ce, "aux": aux}
 
 
-def grads_of(params, cfg: ModelConfig, batch: Dict[str, Any]
+def grads_of(params, cfg: ModelConfig, batch: Dict[str, Any], *, mesh=None,
+             batch_axes=None
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], Any]:
     """(loss, parts, gradients in each parameter's dtype) of ``batch``; a
-    parameter the loss does not reach gets a zero gradient."""
+    parameter the loss does not reach gets a zero gradient. ``mesh``,
+    ``batch_axes``: as :func:`loss_fn`; the gradients are this rank's
+    terms."""
     leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
     with torch.enable_grad():
-        loss, parts = loss_fn(tree_unflatten(params, leaves), cfg, batch)
+        loss, parts = loss_fn(tree_unflatten(params, leaves), cfg, batch,
+                              mesh=mesh, batch_axes=batch_axes)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(leaves, grads)]
@@ -88,28 +141,42 @@ def grads_of(params, cfg: ModelConfig, batch: Dict[str, Any]
             tree_unflatten(params, grads))
 
 
-def make_train_step(cfg: ModelConfig, tcfg: TrainConfig
+def _micro(batch: Dict[str, Any], ga: int):
+    """The ``ga`` microbatches of ``batch`` along its leading axis."""
+    rows = len(batch["tokens"])
+    if rows % ga:
+        raise ValueError(f"batch of {rows} rows does not split into "
+                         f"{ga} microbatches")
+    mb = rows // ga
+    return [{k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
+            for i in range(ga)], mb
+
+
+def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, *, mesh=None
                     ) -> Callable[[TrainState, Dict[str, Any]],
                                   Tuple[TrainState, Dict[str, torch.Tensor]]]:
     """The train step: ``step(state, batch) -> (new state, metrics)`` with
     metrics ``loss``, ``ce``, ``aux``, ``grad_norm``, ``lr`` and, when
     compressing, ``kept_fraction`` (0-dim tensors). With ``grad_accum``
     > 1 the batch's leading axis splits into that many microbatches, and
-    ``ce`` is the mean loss (``aux`` 0), as in the reference."""
+    ``ce`` is the mean loss (``aux`` 0), as in the reference.
+
+    ``mesh``: the step of one rank of a ``("data", "model")`` mesh (see
+    the module docstring); ``state`` holds this rank's blocks, ``batch``
+    is whole, the metrics are the whole batch's on every rank. The mesh
+    step's gradients end in the parameters' layout, which the reference's
+    ``grad_pspecs`` pins."""
+    if mesh is not None:
+        return _mesh_train_step(cfg, tcfg, mesh)
     ga = tcfg.grad_accum
 
     def train_step(state: TrainState, batch: Dict[str, Any]):
         if ga > 1:
-            rows = len(batch["tokens"])
-            if rows % ga:
-                raise ValueError(f"batch of {rows} rows does not split into "
-                                 f"{ga} microbatches")
-            mb = rows // ga
+            micros, _ = _micro(batch, ga)
             grads = tree_map(torch.zeros_like, state.params)
             loss = torch.zeros((), dtype=torch.float32,
                                device=state.step.device)
-            for i in range(ga):
-                micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
+            for micro in micros:
                 mloss, _, mgrads = grads_of(state.params, cfg, micro)
                 tree_map(lambda acc, g: acc.add_(g), grads, mgrads)
                 del mgrads
@@ -130,6 +197,110 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig
                                                  tcfg.compression)
         new_params, new_opt, om = O.adamw_update(
             tcfg.optimizer, state.params, grads, state.opt)
+        metrics = {"loss": loss, **parts, **om, **stats}
+        return TrainState(new_params, new_opt, ef, state.step + 1), metrics
+
+    return train_step
+
+
+def state_pspecs(cfg: ModelConfig, tcfg: TrainConfig, mesh) -> TrainState:
+    """The spec tree of a ``TrainState`` of ``cfg`` under ``mesh``: the
+    layout of the mesh step's state (embeddings replicated under
+    ``batch_over_model``, as the reference's launcher lays them out). The
+    whole shapes come from a state initialised on the ``meta`` device."""
+    whole = init_train_state(torch.Generator(), cfg, tcfg, device="meta")
+    return SH.param_pspecs(whole, mesh,
+                           replicate_embed=cfg.batch_over_model)
+
+
+def forward_specs(cfg: ModelConfig, pspecs, mesh):
+    """Per parameter, the part of its spec the mesh step's forward keeps
+    split: nothing, but under ``catwalk_ep`` the expert-parallel MoE
+    layers' blocks (:func:`repro_torch.models.moe.ep_block_specs`, each
+    behind the layers' stack axis)."""
+    from repro_torch.models import moe as M
+    ep = (cfg.moe is not None and cfg.moe.dispatch == "catwalk_ep"
+          and M.ep_model_size(cfg.moe, mesh) is not None)
+    keep = M.ep_block_specs(cfg.moe, mesh, cfg.moe.ep_fsdp) if ep else {}
+
+    def one(path, spec):
+        name = "/".join(path)
+        if path[:2] == ("layers", "moe") and name[len("layers/moe/"):] \
+                in keep:
+            return (None,) + keep[name[len("layers/moe/"):]]
+        return (None,) * len(spec)
+
+    def walk(tree, path):
+        return {k: walk(v, path + (k,)) if isinstance(v, dict)
+                else one(path + (k,), v) for k, v in tree.items()}
+    return walk(pspecs, ())
+
+
+def _minus(rest: SH.Spec, keep: SH.Spec) -> SH.Spec:
+    """The entries of ``rest`` that ``keep`` does not keep."""
+    return tuple(None if k is not None else r for r, k in zip(rest, keep))
+
+
+def _mesh_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh):
+    """:func:`make_train_step` under ``mesh``."""
+    st_specs = state_pspecs(cfg, tcfg, mesh)
+    pspecs = st_specs.params
+    fspecs = forward_specs(cfg, pspecs, mesh)
+    # what the forward gathers of each block
+    fetch = tree_map(_minus, pspecs, fspecs)
+    ga = tcfg.grad_accum
+
+    def train_step(state: TrainState, batch: Dict[str, Any]):
+        micros, mb = _micro(batch, ga)
+        # the axes the rows split over, and those each forward leaf's
+        # gradient is summed over: the rows' axes its spec leaves out
+        row_axes = SH.lm_row_axes(mesh, mb, cfg.batch_over_model)
+        sums = tree_map(lambda keep: tuple(
+            a for a in row_axes if a not in SH.spec_axes(keep)), fspecs)
+        rows = SH.block_slice(mesh, mb, row_axes or None)
+        params = tree_map(lambda p, f: SH.gather(p, f, mesh), state.params,
+                          fetch)
+        loss = grads = None
+        for micro in micros:
+            mine = {k: v[rows] for k, v in micro.items()}
+            mloss, parts, mgrads = grads_of(params, cfg, mine, mesh=mesh,
+                                            batch_axes=row_axes)
+            if row_axes:
+                ce = SH.all_reduce(parts["ce"], row_axes, mesh)
+                parts = {"ce": ce, "aux": parts["aux"]}
+                mloss = ce + parts["aux"]
+            if ga == 1:
+                loss, grads = mloss, mgrads
+                break
+            if grads is None:
+                grads = tree_map(torch.zeros_like, params)
+                loss = torch.zeros((), dtype=torch.float32,
+                                   device=state.step.device)
+            tree_map(lambda acc, g: acc.add_(g), grads, mgrads)
+            del mgrads
+            loss = loss + mloss
+        grads = tree_map(lambda g, axes: SH.all_reduce(g, axes, mesh),
+                         grads, sums)
+        if ga > 1:
+            n = torch.tensor(float(ga), device=loss.device)
+            grads = tree_map(lambda g: g / n, grads)
+            loss = loss / n
+            parts = {"ce": loss, "aux": torch.zeros_like(loss)}
+        del params
+        # whole gradients for the clip and the chunked top-k
+        grads = tree_map(lambda g, f: SH.gather(g, f, mesh), grads, fspecs)
+        ef = state.ef
+        stats: Dict[str, torch.Tensor] = {}
+        if tcfg.compressing:
+            whole_ef = SH.gather_tree(state.ef, st_specs.ef, mesh)
+            grads, whole_ef, stats = GC.compress_grads(grads, whole_ef,
+                                                       tcfg.compression)
+            ef = SH.shard_tree(whole_ef, st_specs.ef, mesh)
+            del whole_ef
+        norm = O.global_norm(grads)
+        grads = SH.shard_tree(grads, pspecs, mesh)
+        new_params, new_opt, om = O.adamw_update(
+            tcfg.optimizer, state.params, grads, state.opt, grad_norm=norm)
         metrics = {"loss": loss, **parts, **om, **stats}
         return TrainState(new_params, new_opt, ef, state.step + 1), metrics
 

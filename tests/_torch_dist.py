@@ -59,8 +59,17 @@ def draws_for(n_inputs: int) -> List[np.ndarray]:
 
 # ----------------------------------------------------------------- harness
 
+def _body(name: str):
+    """A rank body: ``"name"`` in this module, or ``"module:name"``."""
+    if ":" in name:
+        import importlib
+        module, name = name.split(":")
+        return getattr(importlib.import_module(module), name)
+    return globals()[name]
+
+
 def _entry(rank: int, world: int, rdv: str, shape, body: str, args,
-           out_dir: str) -> None:
+           out_dir: str, kind: str = "tnn") -> None:
     import torch
     import torch.distributed as dist
     # one OpenMP thread a rank, set before the rank's first parallel op
@@ -70,8 +79,9 @@ def _entry(rank: int, world: int, rdv: str, shape, body: str, args,
         dist.init_process_group("gloo", init_method=f"file://{rdv}",
                                 rank=rank, world_size=world)
         from repro_torch.sharding import specs
-        mesh = specs.tnn_mesh(shape[1], shape[0], device_type="cpu")
-        result = globals()[body](mesh, *args)
+        make = specs.lm_mesh if kind == "lm" else specs.tnn_mesh
+        mesh = make(shape[1], shape[0], device_type="cpu")
+        result = _body(body)(mesh, *args)
         dist.barrier()
         with open(path, "wb") as f:
             pickle.dump(("ok", result), f)
@@ -84,11 +94,15 @@ def _entry(rank: int, world: int, rdv: str, shape, body: str, args,
             dist.destroy_process_group()
 
 
-def run(body: str, shape, args=(), tmp_dir=None) -> List[Dict[str, Any]]:
+def run(body: str, shape, args=(), tmp_dir=None, kind: str = "tnn"
+        ) -> List[Dict[str, Any]]:
     """Run ``body(mesh, *args)`` on ``shape[0] * shape[1]`` spawned gloo
-    ranks over a ``(n_data, n_column) = shape`` mesh; returns each rank's
-    result, rank by rank. Raises with the ranks' tracebacks when one
-    fails, and when the spawn outlives :data:`TIME_LIMIT_S`."""
+    ranks over a ``(n_data, n_column) = shape`` mesh (``kind="lm"``: a
+    ``(n_data, n_model)`` one, :func:`specs.lm_mesh`); returns each rank's
+    result, rank by rank. ``body`` names a function of this module, or
+    ``"module:function"`` of another under ``tests/``. Raises with the
+    ranks' tracebacks when one fails, and when the spawn outlives
+    :data:`TIME_LIMIT_S`."""
     import multiprocessing as mp
     world = int(shape[0]) * int(shape[1])
     work = tempfile.mkdtemp(dir=tmp_dir)
@@ -96,7 +110,7 @@ def run(body: str, shape, args=(), tmp_dir=None) -> List[Dict[str, Any]]:
     ctx = mp.get_context("spawn")
     procs = [ctx.Process(target=_entry,
                          args=(r, world, rdv, tuple(shape), body, args,
-                               work))
+                               work, kind))
              for r in range(world)]
     for p in procs:
         p.start()

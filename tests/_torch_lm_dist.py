@@ -1,0 +1,281 @@
+"""Rank bodies of the port's LM mesh tests (``tests/test_torch_lm_mesh.py``),
+run by :func:`_torch_dist.run` with ``kind="lm"`` on a ``("data",
+"model")`` mesh of spawned gloo ranks. They import torch and the port
+only. Inputs cross as numpy; each body returns numpy arrays and plain
+values, the whole tensors from the rank at the mesh origin.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict
+
+import numpy as np
+
+
+def _np(t) -> np.ndarray:
+    return t.detach().float().numpy()
+
+
+def _tree(arrays: Dict[str, Any]):
+    import torch
+    return {k: _tree(v) if isinstance(v, dict) else torch.from_numpy(v)
+            for k, v in arrays.items()}
+
+
+def _rows(mesh, x, axes=None):
+    """This rank's block of ``x``'s leading axis over the DP axes."""
+    from repro_torch.sharding import specs
+    entry = specs.live_axes(mesh, specs.dp_axes(mesh) if axes is None
+                            else axes) or None
+    return x[specs.block_slice(mesh, x.shape[0], entry)], entry
+
+
+# ------------------------------------------------------------- the EP layer
+
+def ep_suite(mesh, cases) -> Dict[str, Any]:
+    """Each case: an MoE config, whole parameters and rows; ``tnn``: run it
+    on a ``("data", "column")`` mesh of the same shape (no ``model``
+    axis); ``grad``: also the gradients of ``sum(out * weights)`` (plus
+    the aux loss where the data axis has one rank), summed over the ranks
+    that hold the same block, and gathered whole. Every case runs
+    ``moe_apply_ep`` with the rank's blocks of the parameters and its
+    rows."""
+    import torch
+    from repro_torch.configs.base import MoEConfig
+    from repro_torch.models import moe as M
+    from repro_torch.sharding import specs
+    from repro_torch.train.checkpoint import _map_with_path
+    tnn = None
+    out: Dict[str, Any] = {}
+    for name, c in cases.items():
+        cfg = MoEConfig(**c["cfg"])
+        m = mesh
+        if c.get("tnn"):
+            if tnn is None:
+                tnn = specs.tnn_mesh(mesh.shape[1], mesh.shape[0],
+                                     device_type="cpu")
+            m = tnn
+        p = _tree(c["p"])
+        x, entry = _rows(m, torch.from_numpy(c["x"]))
+        ep = M.ep_model_size(cfg, m) is not None
+        bspecs = M.ep_block_specs(cfg, m, c["fsdp"]) if ep else {}
+        spec_of = {}
+
+        def block(key, leaf):
+            spec = bspecs.get(key, (None,) * leaf.dim())
+            spec_of[key] = spec
+            return specs.shard_of(leaf, spec, m).requires_grad_()
+        pb = _map_with_path(p, block)
+        x.requires_grad_()
+        y, stats = M.moe_apply_ep(pb, x, cfg, fsdp=c["fsdp"], mesh=m)
+        res = dict(ep=ep, y=_np(specs.gather(y, (entry, None, None), m)),
+                   aux=float(stats["aux_loss"].detach()))
+        if c.get("grad"):
+            w, _ = _rows(m, torch.from_numpy(c["w"]))
+            loss = torch.sum(y * w)
+            if specs.axis_size(m, specs.dp_axes(m)) == 1:
+                loss = loss + stats["aux_loss"]
+            loss.backward()
+            dp = specs.live_axes(m, specs.dp_axes(m))
+
+            def whole(key, leaf):
+                spec = spec_of[key]
+                g = specs.all_reduce(leaf.grad, tuple(
+                    a for a in dp if a not in specs.spec_axes(spec)), m)
+                return _np(specs.gather(g, spec, m))
+            res["grads"] = _map_with_path(pb, whole)
+            res["x_grad"] = _np(specs.gather(x.grad, (entry, None, None), m))
+        out[name] = res
+    return out
+
+
+# ---------------------------------------------------------- the mesh step
+
+def _configs(c):
+    """The port's model and train config of a step case."""
+    from repro_torch.configs import registry
+    from repro_torch.launch.dryrun import apply_opt
+    from repro_torch.optim import grad_compression as GC
+    from repro_torch.optim import optimizers as O
+    from repro_torch.train import train_loop as TL
+    cfg = dataclasses.replace(registry.get_config(c["arch"] + "-smoke"),
+                              dtype="float32")
+    if c.get("opt"):
+        cfg = apply_opt(cfg)
+    if c.get("capacity") is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=c["capacity"]))
+    if c.get("dispatch"):
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, dispatch=c["dispatch"]))
+    tcfg = TL.TrainConfig(
+        optimizer=O.AdamWConfig(**c["adamw"]), grad_accum=c["ga"],
+        compression=None if c.get("rho") is None
+        else GC.CompressionConfig(rho=c["rho"]))
+    return cfg, tcfg
+
+
+def state_from_flat(flat: Dict[str, np.ndarray], cfg, tcfg):
+    """A whole port TrainState from checkpoint-keyed numpy leaves."""
+    import torch
+    from repro_torch.train import train_loop as TL
+    from repro_torch.train.checkpoint import _map_with_path
+    meta = TL.init_train_state(torch.Generator(), cfg, tcfg, device="meta")
+    return _map_with_path(meta, lambda key, leaf: torch.from_numpy(
+        np.asarray(flat[key])).to(leaf.dtype).reshape(leaf.shape))
+
+
+def _metrics(m) -> Dict[str, float]:
+    return {k: float(v) for k, v in m.items()}
+
+
+def _same_tree(a, b) -> bool:
+    """Whether two trees hold the same keys and equal tensors (shape,
+    dtype and every element)."""
+    from repro_torch.train.checkpoint import _map_with_path
+
+    def leaves(tree):
+        out = {}
+        _map_with_path(tree, lambda key, leaf: out.__setitem__(key, leaf))
+        return out
+    la, lb = leaves(a), leaves(b)
+    return la.keys() == lb.keys() and all(
+        la[k].shape == lb[k].shape and la[k].dtype == lb[k].dtype
+        and bool((la[k] == lb[k]).all()) for k in la)
+
+
+def step_suite(mesh, cases) -> Dict[str, Any]:
+    """Each case: a config, the reference's initial state (checkpoint keys
+    -> numpy) and batches. The mesh step runs from the state's blocks;
+    returns each step's metrics, the gathered parameters after the first
+    and the last step, the rows' axes of a microbatch, whether
+    ``init_train_state(mesh=)`` made the blocks of the whole state the
+    same generator makes, and (origin) the port's single-device step's
+    metrics and parameters on the same state and batches."""
+    import torch
+    from repro_torch.sharding import specs
+    from repro_torch.train import checkpoint as CK
+    from repro_torch.train import train_loop as TL
+    out: Dict[str, Any] = {}
+    origin = specs.is_origin(mesh)
+    for name, c in cases.items():
+        cfg, tcfg = _configs(c)
+        whole = state_from_flat(c["state"], cfg, tcfg)
+        st = TL.state_pspecs(cfg, tcfg, mesh)
+        state = specs.shard_tree(whole, st, mesh)
+        step = TL.make_train_step(cfg, tcfg, mesh=mesh)
+        mb = len(c["batches"][0]["tokens"]) // tcfg.grad_accum
+        drawn = TL.init_train_state(torch.Generator().manual_seed(1), cfg,
+                                    tcfg, device="cpu", mesh=mesh)
+        cut = specs.shard_tree(TL.init_train_state(
+            torch.Generator().manual_seed(1), cfg, tcfg, device="cpu"),
+            st, mesh)
+        res: Dict[str, Any] = dict(
+            metrics=[], params=[], init_blocks=_same_tree(drawn, cut),
+            row_axes=specs.lm_row_axes(mesh, mb, cfg.batch_over_model))
+        del drawn, cut
+        for i, batch in enumerate(c["batches"]):
+            state, m = step(state, batch)
+            res["metrics"].append(_metrics(m))
+            if i in (0, len(c["batches"]) - 1):
+                g = specs.gather_tree(state, st, mesh)
+                if origin:
+                    res["params"].append(CK._flatten(g.params))
+        if origin:
+            single = TL.make_train_step(cfg, tcfg)
+            s, res["single_metrics"] = whole, []
+            for batch in c["batches"]:
+                s, m = single(s, batch)
+                res["single_metrics"].append(_metrics(m))
+            res["single_params"] = CK._flatten(s.params)
+        out[name] = res
+    return out
+
+
+# ------------------------------------------------------------ the launcher
+
+def launcher_suite(mesh, root: str, resume_dir: str) -> Dict[str, Any]:
+    """The launcher on every rank (it builds its own mesh over the world),
+    each run to ``--steps 4`` with checkpoints every 2 steps:
+
+    * ``a``: internlm2 smoke from scratch; ``a2``: the same failing after
+      its second step (its checkpoint at 2 is for one process to resume);
+    * ``b``: internlm2 smoke resumed from ``resume_dir``, a checkpoint at
+      step 2 the single-process launcher wrote;
+    * ``c``: deepseek smoke ``--opt``; ``d``: the same failing after its
+      third step, then started again.
+    Returns each run's start, losses and (origin) final whole state."""
+    from repro_torch.launch import train as launch
+    from repro_torch.sharding import specs
+    from repro_torch.train import checkpoint as CK
+    from repro_torch.train import train_loop as TL
+
+    class Crash(RuntimeError):
+        pass
+
+    def crash_at(step):
+        def hook(i, state, metrics):
+            if i == step:
+                raise Crash
+        return hook
+
+    def args(arch, ckpt, *extra):
+        return ["--arch", arch, "--smoke", "--device", "cpu", "--seq-len",
+                "32", "--steps", "4", "--ckpt-every", "2", "--ckpt-dir",
+                ckpt, *extra]
+
+    def result(argv):
+        run = launch.main(argv)
+        cfg, tcfg, _ = launch.setup(launch.parser().parse_args(argv))
+        whole = specs.gather_tree(run["state"], TL.state_pspecs(
+            cfg, tcfg, run["mesh"]), run["mesh"])
+        return dict(start=run["start"], losses=run["losses"],
+                    mesh=tuple(run["mesh"].shape),
+                    state=CK._flatten(whole) if specs.is_origin(mesh)
+                    else None)
+
+    def failing(argv, step):
+        try:
+            launch.main(argv, hooks=[crash_at(step)])
+        except Crash:
+            return CK.latest_step(argv[argv.index("--ckpt-dir") + 1])
+        raise AssertionError("the run did not fail")
+
+    intern, deep = "internlm2-1.8b", "deepseek-v2-lite-16b"
+    out = {"a": result(args(intern, f"{root}/a")),
+           "a2_failed_at": failing(args(intern, f"{root}/a2"), 1),
+           "b": result(args(intern, resume_dir)),
+           "c": result(args(deep, f"{root}/c", "--opt")),
+           "d_failed_at": failing(args(deep, f"{root}/d", "--opt"), 2)}
+    out["d"] = result(args(deep, f"{root}/d", "--opt"))
+    return out
+
+
+def ep_rows_refusal(mesh, case) -> Any:
+    """``moe_apply_ep`` given rows replicated over the data axis
+    (``batch_axes=()``): the ``ValueError``'s message, or None where it
+    ran (a data axis of one rank)."""
+    import torch
+    from repro_torch.configs.base import MoEConfig
+    from repro_torch.models import moe as M
+    from repro_torch.sharding import specs
+    from repro_torch.train.checkpoint import _map_with_path
+    cfg = MoEConfig(**case["cfg"])
+    bspecs = M.ep_block_specs(cfg, mesh, False)
+    p = _map_with_path(_tree(case["p"]), lambda key, leaf: specs.shard_of(
+        leaf, bspecs.get(key, (None,) * leaf.dim()), mesh))
+    try:
+        M.moe_apply_ep(p, torch.from_numpy(case["x"]), cfg, mesh=mesh,
+                       batch_axes=())
+    except ValueError as e:
+        return str(e)
+    return None
+
+
+def mesh_suite(mesh, ep_cases, step_cases) -> Dict[str, Any]:
+    """:func:`ep_suite`, :func:`ep_rows_refusal` and :func:`step_suite` in
+    one spawn."""
+    return dict(ep=ep_suite(mesh, ep_cases),
+                ep_rows_refused=ep_rows_refusal(mesh, ep_cases["cap8"]),
+                steps=step_suite(mesh, step_cases))
