@@ -89,7 +89,13 @@ through ``forward(..., mesh=)`` bit-exact against the forward without a
 mesh at one gate launch a layer; every rank's part of the first MoE layer
 for 2-, 4- and 8-way model by 1- and 2-way data tilings launched one
 after another, each tiling's summed parts against ``moe_apply`` at a
-drop-free capacity, its drops at capacity 1.0 and its time; and the
+drop-free capacity, its drops at capacity 1.0 and its time; every
+rank's part of one layer under 2-, 4- and 8-way tensor parallelism
+(internlm2-1.8b's dense block, deepseek's MLA attention, mamba2-780m's
+SSM block with the SSD kernel on the rank's heads, the
+vocabulary-parallel cross-entropy over internlm2's head), combined as
+the collectives would and held against the whole layer, with the
+state bytes per rank from the spec tree; and the
 mesh train step of deepseek (``--opt``) at the smoke size bit-exact
 against the single-device step. The training phase then repeats
 internlm2-1.8b's and mamba2-780m's (``--opt``) full-width launcher runs
@@ -207,6 +213,9 @@ N_PROMPTS, NEW_TOKENS = 8, 32
 MOE_ARCH = "deepseek-v2-lite-16b"
 MOE_PREFILL_B, MOE_PREFILL_S = 4, 2048
 MOE_REQUESTS, MOE_MAX_PROMPT, MOE_NEW_TOKENS, MOE_SLOTS = 24, 24, 16, 6
+#: the requests also served alone through one slot, reported beside the
+#: gated checks (each such serve takes ~2.5 s of host time)
+MOE_ONE_SLOT = 6
 
 #: the last three LM families at full width and depth, bf16, random
 #: weights, one model alive at a time. vlm: phi-3-vision-4.2b
@@ -250,8 +259,14 @@ def ptxas_report(name: str) -> List[Dict[str, Any]]:
     return out
 
 
+#: the script's start on the host clock: each line carries its seconds
+#: since then (``t``), the timeline of a run
+T0 = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    print(json.dumps({"phase": phase, **fields,
+                      "t": round(time.perf_counter() - T0, 1)}), flush=True)
 
 
 def smi_line() -> str:
@@ -1226,7 +1241,8 @@ def moe_paths(dev, cfg, params, tokens, prompts) -> List[Path]:
     The serve check holds both schedules' tokens equal, and each request's
     tokens equal to its own ``serve([p], n_slots=MOE_SLOTS)``: the same
     batch shape, so the card's products round alike (a 1-slot serve picks
-    other GEMM kernels; its agreement is reported, not held)."""
+    other GEMM kernels; for the first MOE_ONE_SLOT requests its agreement
+    is reported, not held)."""
     def prefill_run():
         logits, aux = lm.forward(params, cfg, tokens, logits_mode="last")
         return (logits, aux), None
@@ -1255,7 +1271,8 @@ def moe_paths(dev, cfg, params, tokens, prompts) -> List[Path]:
         eng = moe_engine(dev, cfg, params)
         alone = [eng.serve([p], MOE_NEW_TOKENS, n_slots=MOE_SLOTS)[0]
                  for p in prompts]
-        one_slot = [eng.serve([p], MOE_NEW_TOKENS)[0] for p in prompts]
+        one_slot = [eng.serve([p], MOE_NEW_TOKENS)[0]
+                    for p in prompts[:MOE_ONE_SLOT]]
         for mode, got in outs.items():
             for i, (o, a) in enumerate(zip(got, alone)):
                 if not 1 <= len(o) <= MOE_NEW_TOKENS or o.min() < 0 \
@@ -1275,6 +1292,7 @@ def moe_paths(dev, cfg, params, tokens, prompts) -> List[Path]:
                     prompt_tokens=[len(p) for p in prompts],
                     max_new_tokens=MOE_NEW_TOKENS, **st,
                     equal_to_own_serve=len(prompts),
+                    one_slot_serves=len(one_slot),
                     equal_to_one_slot_serve=sum(
                         bool(np.array_equal(o, a))
                         for o, a in zip(outs["continuous"], one_slot)))
@@ -2162,7 +2180,7 @@ def phase_serve(paths, captured) -> Dict[str, Dict[str, int]]:
 
 
 #: round-robin rounds of the learning-cost phase
-LEARN_ROUNDS = 9
+LEARN_ROUNDS = 5
 #: the interpreter's thread switch interval, seconds, while ``snap50_switch``
 #: serves (the default is 0.005)
 SNAPSHOT_SWITCH_S = 0.0002
@@ -3294,6 +3312,266 @@ def lm_mesh_train(dev, mesh) -> Dict[str, Dict[str, int]]:
     return out
 
 
+#: the tensor-parallel tiles: every rank's part of one layer for these
+#: model-axis sizes, launched one after another and combined as the
+#: collectives would (partial outputs summed, the SSM norm's squares
+#: summed before the ranks normalise); bf16 layers against the whole
+#: layer within TP_TILE_TOL of its output's scale (each rank rounds its
+#: part to bf16 and the parts add in bf16: a few bf16 roundings), the
+#: vocabulary-parallel cross-entropy in float32 within CE_TILE_TOL
+#: (relative) of the whole one
+TP_TILE_MODEL = (2, 4, 8)
+TP_TILE_TOL = 2.0 ** -5
+CE_TILE_TOL = 1e-5
+#: the tiles' input: B x S tokens (the prefill's 8,192), and the archs
+DENSE_ARCH = "internlm2-1.8b"
+TP_TILE_B, TP_TILE_S = 4, 2048
+#: the spec-tree state sizes: archs and model-axis sizes (the launcher's
+#: mesh is (1, world) up to 16)
+TP_BYTES_ARCHS = (DENSE_ARCH, LM_ARCH, MOE_ARCH)
+TP_BYTES_MODEL = (1, 2, 4, 8, 16)
+
+
+class StandInMesh:
+    """A ``("data", "model")`` mesh shape for the sharding rules, which
+    read only a mesh's names and shape (no process group)."""
+
+    def __init__(self, n_data: int, n_model: int):
+        self.mesh_dim_names = ("data", "model")
+        self.shape = (n_data, n_model)
+
+
+def tp_bytes_lines() -> None:
+    """Per arch and model-axis size, computed from the spec tree (nothing
+    allocated, nothing measured): the state each rank holds at rest
+    (parameters, AdamW moments, the error buffer of ``--compress``) and
+    what the mesh step's forward gathers whole (every leaf
+    ``transformer.tp_plan`` leaves out: their sum, held through the
+    step, and the largest)."""
+    def nbytes(t, spec, mesh):
+        n = t.element_size()
+        for d, e in zip(t.shape, spec):
+            n *= d // specs.axis_size(mesh, e)
+        return n
+
+    for arch in TP_BYTES_ARCHS:
+        cfg = lm_registry.get_config(arch)
+        tcfg = TL.TrainConfig(compression=GC.CompressionConfig(rho=0.01))
+        meta = TL.init_train_state(torch.Generator(), cfg, tcfg,
+                                   device="meta")
+        for m in TP_BYTES_MODEL:
+            mesh = StandInMesh(1, m)
+            st = specs._spec_table(TL.state_pspecs(cfg, tcfg, mesh))
+            plan = specs._spec_table(lm.tp_plan(cfg, mesh))
+            sizes = {"params": 0, "moments": 0, "ef": 0}
+            gathers = []
+
+            def leaf(key, t):
+                spec = st[key]
+                part = key.split("/", 1)[0]
+                kind = {".params": "params", ".opt": "moments",
+                        ".ef": "ef"}.get(part)
+                if kind is None:
+                    return t
+                sizes[kind] += nbytes(t, spec, mesh)
+                if kind == "params":
+                    keep = plan[key[len(".params/"):]]
+                    fetch = tuple(None if k is not None else e
+                                  for e, k in zip(spec, keep))
+                    if any(specs.axis_size(mesh, e) > 1 for e in fetch
+                           if e is not None):
+                        gathers.append(nbytes(t, keep, mesh))
+                return t
+            ckpt._map_with_path(meta, leaf)
+            emit("tp_bytes", arch=arch, mesh=[1, m], source="spec tree",
+                 params_bytes=sizes["params"],
+                 moments_bytes=sizes["moments"], ef_bytes=sizes["ef"],
+                 forward_gather_bytes=sum(gathers),
+                 largest_gather_bytes=max(gathers, default=0),
+                 gathered_leaves=len(gathers))
+
+
+def _mlp_rank(p, i: int, m: int):
+    f = p["w_gate"].shape[1] // m
+    return {"w_gate": p["w_gate"][:, i * f:(i + 1) * f],
+            "w_up": p["w_up"][:, i * f:(i + 1) * f],
+            "w_down": p["w_down"][i * f:(i + 1) * f]}
+
+
+def _tile_line(layer, m, got, want, tol, part, whole, shape, **extra):
+    """Hold a tiling's combined output against the whole layer's (within
+    ``tol`` of its scale), time rank 0's part and the whole layer (CUDA
+    events), count rank 0's launches, and emit the line."""
+    err = float((got.float() - want.float()).abs().max()) \
+        / float(want.float().abs().max())
+    if not err <= tol:
+        raise AssertionError(f"lm_tp_tiles {layer} m={m}: the combined "
+                             f"parts differ from the whole layer by "
+                             f"{err} of scale")
+    reset_launches()
+    part()
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in launch_counts().items() if v}
+    emit("lm_tp_tiles", layer=layer, model=m, tiles=m, shape=shape,
+         max_err_over_scale=err, tol=tol, launches_per_tile=counts,
+         tile_ms=time_ms(part, reps=5, warmup=1),
+         whole_ms=time_ms(whole, reps=5, warmup=1), ms_source="cuda_events",
+         **extra)
+    return err
+
+
+def lm_tp_tiles(dev, cfg, params, tokens) -> Tuple[Dict[str, int],
+                                                   List[Dict[str, Any]]]:
+    """Every rank's part of one layer under tensor parallelism over an
+    m-way ``model`` axis (m in TP_TILE_MODEL), launched one after another
+    and combined as the collectives would: internlm2-1.8b's dense block
+    (GQA by heads, the MLP by d_ff) and mamba2-780m's SSM block (the rank's
+    heads: the SSD kernel once a tile on ``(4 * 48 / m, 2048, 64)``, the
+    norm's squares summed over the ranks) at full width on random bf16
+    weights and inputs, deepseek-v2-lite's first MLA attention on the
+    prefill's hidden states, and the vocabulary-parallel cross-entropy
+    over internlm2's 92,544-way head (float32). Each tiling against the
+    whole layer. Returns the SSD launches of the combined runs (with the
+    counts set to 0 just before and read just after) and the kernel rows
+    of the SSD calls at the tile shapes (:func:`check_ssd`)."""
+    gen = torch.Generator(device=dev).manual_seed(21)
+    bf16 = torch.bfloat16
+
+    def normal(*shape, dtype=bf16):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    dense = lm_registry.get_config(DENSE_ARCH)
+    mamba = lm_registry.get_config(LM_ARCH)
+    with torch.no_grad():
+        # internlm2's dense block
+        p = lm._block_init(gen, dense, bf16, dev)
+        x = normal(TP_TILE_B, TP_TILE_S, dense.d_model)
+        want = lm._block_apply(p, x, dense)[0]
+        h = lm.L.rmsnorm(p["norm1"], x, dense.norm_eps)
+        for m in TP_TILE_MODEL:
+            def attn(i, m=m):
+                return lm.A.gqa_apply(lm.A.gqa_rank_params(
+                    p["attn"], dense, i, m), h, dense)[0]
+            a = sum(attn(i) for i in range(m))
+            x2, h2 = lm._residual_norm(p["norm2"], x, a, dense)
+            out = sum(lm.L.mlp_apply(_mlp_rank(p["mlp"], i, m), h2)
+                      for i in range(m))
+            _tile_line("internlm2_block", m, x2 + out, want, TP_TILE_TOL,
+                       lambda m=m, attn=attn, h2=h2: (
+                           attn(0), lm.L.mlp_apply(_mlp_rank(p["mlp"], 0, m),
+                                                   h2)),
+                       lambda: lm._block_apply(p, x, dense),
+                       [TP_TILE_B, TP_TILE_S, dense.d_model],
+                       q_heads_per_tile=dense.n_heads // m,
+                       kv_heads_per_tile=dense.n_kv_heads // m,
+                       d_ff_per_tile=dense.d_ff // m)
+        del p, x, want, h, a, x2, h2, out
+
+        # deepseek-v2-lite's first MLA attention
+        lp = lm._layer(params["layers"], 0)
+        hm = lm.L.rmsnorm(lp["norm1"], lm.L.embed_lookup(params["embed"],
+                                                          tokens),
+                          cfg.norm_eps)
+        want = lm.A.mla_apply(lp["attn"], hm, cfg)[0]
+        for m in TP_TILE_MODEL:
+            def mla(i, m=m):
+                return lm.A.mla_apply(lm.A.mla_rank_params(
+                    lp["attn"], cfg, i, m), hm, cfg)[0]
+            _tile_line("deepseek_mla", m, sum(mla(i) for i in range(m)),
+                       want, TP_TILE_TOL, lambda mla=mla: mla(0),
+                       lambda: lm.A.mla_apply(lp["attn"], hm, cfg),
+                       list(hm.shape), heads_per_tile=cfg.n_heads // m)
+        del lp, hm, want
+
+        # mamba2's SSM block: the SSD kernel on each rank's heads
+        sp = {"norm1": lm.L.rmsnorm_init(mamba.d_model, dev),
+              "ssm": lm.S.ssm_init(gen, mamba, bf16, dev)}
+        sp["ssm"]["dt_bias"] = normal(sp["ssm"]["dt_bias"].shape[0],
+                                      dtype=torch.float32) * 0.5
+        sp["ssm"]["a_log"] = normal(sp["ssm"]["a_log"].shape[0],
+                                    dtype=torch.float32) * 0.5
+        x = normal(TP_TILE_B, TP_TILE_S, mamba.d_model)
+        want = lm._ssm_block(x, sp, mamba)
+        h = lm.L.rmsnorm(sp["norm1"], x, mamba.norm_eps)
+        heads = mamba.ssm.n_heads(mamba.d_model)
+
+        def ssm_tiles(m):
+            ranks = [lm.S.ssm_rank_params(sp["ssm"], mamba, i, m)
+                     for i in range(m)]
+            ys = [lm.S.ssm_gated(pr, h, mamba)[0] for pr in ranks]
+            sumsq = sum(torch.sum(y * y, dim=-1, keepdim=True) for y in ys)
+            return x + sum(lm.S.ssm_project(pr, y, sumsq, mamba, bf16)
+                           for pr, y in zip(ranks, ys))
+
+        reset_launches()
+        combined = {m: ssm_tiles(m) for m in TP_TILE_MODEL}
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        want_launches = sum(TP_TILE_MODEL)
+        if counts["ssd_scan"] != want_launches or any(
+                v for k, v in counts.items() if k != "ssd_scan"):
+            raise AssertionError(f"lm_tp_tiles: {counts} launches, "
+                                 f"{want_launches} SSD launches wanted")
+        rows = []
+        for m in TP_TILE_MODEL:
+            pr0 = lm.S.ssm_rank_params(sp["ssm"], mamba, 0, m)
+
+            def part(pr0=pr0):
+                return lm.S.ssm_gated(pr0, h, mamba)
+            _tile_line("mamba2_ssm", m, combined[m], want, TP_TILE_TOL,
+                       part, lambda: lm._ssm_block(x, sp, mamba),
+                       [TP_TILE_B, TP_TILE_S, mamba.d_model],
+                       heads_per_tile=heads // m,
+                       ssd_rows=[TP_TILE_B * heads // m, TP_TILE_S,
+                                 mamba.ssm.head_dim])
+            (case,) = capture(part, ssd_copies=1)
+            rows.append(check_ssd(f"lm_tp_tiles/m{m}", *case["operands"][0],
+                                  case["chunk"], case["heads"],
+                                  path="lm_tp_tiles", calls=m, model=m))
+        del sp, x, want, h, combined
+
+        # the vocabulary-parallel cross-entropy over internlm2's head
+        head = lm.L.dense_init(gen, dense.d_model, dense.vocab_size, bf16,
+                               dev)
+        x = lm.L.rmsnorm(torch.ones(dense.d_model, device=dev),
+                         normal(TP_TILE_B, TP_TILE_S, dense.d_model),
+                         dense.norm_eps)
+        labels = torch.randint(0, dense.vocab_size, (TP_TILE_B, TP_TILE_S),
+                               generator=gen, device=dev)
+        logits = (x @ head).float()
+        want = lm.L.cross_entropy(logits, labels)
+        for m in TP_TILE_MODEL:
+            v = dense.vocab_size // m
+            blocks = [logits[..., i * v:(i + 1) * v] for i in range(m)]
+            mx = torch.stack([lm.L.vocab_max(b) for b in blocks]).amax(0)
+            se = sum(lm.L.vocab_sumexp(b, mx) for b in blocks)
+            gold = sum(lm.L.vocab_gold(b, labels, i * v)
+                       for i, b in enumerate(blocks))
+            got = torch.mean(torch.log(se) + mx - gold)
+
+            def part(v=v):
+                block = (x @ head[:, :v]).float()
+                mx0 = lm.L.vocab_max(block)
+                return (lm.L.vocab_sumexp(block, mx0),
+                        lm.L.vocab_gold(block, labels, 0))
+            err = abs(float(got) - float(want)) / abs(float(want))
+            if not err <= CE_TILE_TOL:
+                raise AssertionError(f"lm_tp_tiles ce m={m}: {float(got)} "
+                                     f"vs {float(want)}")
+            emit("lm_tp_tiles", layer="internlm2_vocab_ce", model=m,
+                 tiles=m, shape=[TP_TILE_B, TP_TILE_S, dense.vocab_size],
+                 vocab_per_tile=v, loss=float(got), whole_loss=float(want),
+                 rel_err=err, tol=CE_TILE_TOL, launches_per_tile={},
+                 tile_ms=time_ms(part, reps=5, warmup=1),
+                 whole_ms=time_ms(lambda: lm.L.cross_entropy(
+                     (x @ head).float(), labels), reps=5, warmup=1),
+                 ms_source="cuda_events")
+        del head, x, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, rows
+
+
 def phase_lm_mesh(dev, cfg, params, tokens, root
                   ) -> Tuple[Dict[str, Dict[str, int]], Dict[str, str]]:
     """The LM path across GPUs, on the one card: an NCCL process group of
@@ -3304,9 +3582,11 @@ def phase_lm_mesh(dev, cfg, params, tokens, root
     capacity 1.0) through ``forward(..., mesh=)``: the logits and the aux
     loss equal the forward without a mesh bit for bit, at exactly one gate
     launch per layer; both timed (host clock, median of 3, alternated).
-    (2) :func:`lm_mesh_tiles`. (3) :func:`lm_mesh_train`. The process group
-    is destroyed at the end. Returns each run's launch counts and the
-    kernel each run launches."""
+    (2) :func:`lm_mesh_tiles`. (3) :func:`lm_tp_tiles` and
+    :func:`tp_bytes_lines`. (4) :func:`lm_mesh_train`. The process group
+    is destroyed at the end. Returns each run's launch counts, the kernel
+    each run launches and the SSD kernel's rows at the tensor-parallel
+    tile shapes."""
     import torch.distributed as dist
     torch.cuda.set_device(0)
     dist.init_process_group(
@@ -3362,12 +3642,15 @@ def phase_lm_mesh(dev, cfg, params, tokens, root
             p, xt = _moe_input(params, opt, tokens)
             lm_mesh_tiles(opt, p, xt)
         del p, xt
+        runs["lm_tp_tiles"], tp_rows = lm_tp_tiles(dev, cfg, params, tokens)
+        tp_bytes_lines()
         runs.update(lm_mesh_train(dev, mesh))
     finally:
         dist.destroy_process_group()
     kernel = {"lm_mesh_prefill": "moe_gate_topk",
-              "lm_mesh_train_deepseek": "moe_gate_topk"}
-    return runs, kernel
+              "lm_mesh_train_deepseek": "moe_gate_topk",
+              "lm_tp_tiles": "ssd_scan"}
+    return runs, kernel, tp_rows
 
 
 # ============================================= vlm, audio and hybrid
@@ -4170,12 +4453,15 @@ def smoke(root: str) -> int:
     phase_profile_decode(moe_cfg, moe_params, moe_requests[:MOE_SLOTS],
                          "moe_decode_step", per_slot=True)
     phase_moe_checks(dev, moe_cfg, moe_params)
-    lm_mesh_launches, lm_mesh_kernels = phase_lm_mesh(
+    lm_mesh_launches, lm_mesh_kernels, tp_rows = phase_lm_mesh(
         dev, moe_cfg, moe_params, moe_tokens, root)
     launches.update(lm_mesh_launches)
 
     ssd = main_rows["ssd_scan"]
-    ssd_row = dict(ptxas=ptxas["ssd_scan"], occupancy={
+    ssd_row = dict(ptxas=ptxas["ssd_scan"], tp_tiles=[{
+        k: row[k] for k in ("model", "u", "max_abs_err", "ms", "ms_source",
+                            "plain_ms", "bound_ms", "bound_by", "calls")}
+        for row in tp_rows], occupancy={
         str(dt).split(".")[-1]: dict(zip(
             ("smem_bytes", "blocks_per_sm"),
             ss.kernel_occupancy(ssd["chunk"], ssd["n"], dt)))

@@ -7,7 +7,8 @@ settings change what runs (capacity factor 1.0; ``catwalk_ep`` dispatch,
 which runs ``moe_apply`` without a mesh, as the reference does). Under a
 ``("data", "model")`` mesh ``catwalk_ep`` runs the expert-parallel layer
 and ``batch_over_model`` splits the rows over ``model`` too; ``act_sp``
-is a layout constraint on the activations, which the port leaves whole.
+keeps each rank's block of the sequence between the layers (sequence
+parallelism, :func:`repro_torch.models.transformer.forward`).
 """
 
 from __future__ import annotations

@@ -24,17 +24,20 @@ each leaf to its block on the host, so a checkpoint crosses between one
 device and a mesh both ways. NCCL joins ``cuda`` ranks (each on
 ``LOCAL_RANK``'s GPU), gloo ``cpu`` ones.
 
-Up to 16 processes the mesh is ``(1, world)``: the rows split over
-``model`` only under ``batch_over_model`` (mamba2 and zamba2 with
-``--opt``) and the experts under ``catwalk_ep`` (the MoE family with
-``--opt``); otherwise every rank computes the whole single-device step
-on the whole batch, and only the state at rest is split. Splitting the
-attention and MLP compute over ``model`` is not done.
+Up to 16 processes the mesh is ``(1, world)``, and the step splits its
+work over ``model`` as the reference's specs lay the parameters out
+(:func:`repro_torch.models.transformer.tp_plan`): the vocabulary, the
+attention and Mamba2 heads and the MLP's d_ff (tensor parallelism), the
+residual stream's sequence under ``act_sp`` (sequence parallelism), the
+experts under ``catwalk_ep``; under ``batch_over_model`` (mamba2 and
+zamba2 with ``--opt``) the rows take the ``model`` axis instead, and
+each rank gathers the parameters for its rows.
 
 ``--opt`` applies the reference's layout transform
 (:func:`repro_torch.launch.dryrun.apply_opt`): under a mesh
-``catwalk_ep`` runs the expert-parallel MoE layer and
-``batch_over_model`` splits the rows over ``model`` too.
+``catwalk_ep`` runs the expert-parallel MoE layer, ``act_sp`` splits the
+sequence between the layers and ``batch_over_model`` splits the rows
+over ``model`` too.
 
 Usage:
   python -m repro_torch.launch.train --arch internlm2-1.8b --smoke \

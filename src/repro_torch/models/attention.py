@@ -10,6 +10,14 @@ on use. Scores and softmax run in float32; the cache keeps the model dtype.
 
 The functions are pure, as the reference's are: a cache update returns a
 new buffer and leaves the old one as it was.
+
+Under tensor parallelism (``tp=``, :class:`repro_torch.models.layers.TP`,
+full sequence only) a rank computes its heads: GQA its ``n_heads / m``
+query heads with the KV heads of their groups, MLA its heads of ``wq``
+and ``w_ukv`` (the latent and rotary-key projections whole); ``wo`` is
+row-parallel and the ranks' outputs are summed. The head counts come
+from the weights' widths, so the same code computes a whole layer and a
+rank's part (:func:`gqa_rank_params`, :func:`mla_rank_params`).
 """
 
 from __future__ import annotations
@@ -140,24 +148,84 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.reshape(b, sq, h, dh).to(q.dtype)
 
 
+def gqa_split(cfg: ModelConfig, m: int) -> bool:
+    """Whether ``m`` ranks split GQA by heads: each rank's ``n_heads / m``
+    query heads fill whole KV groups or lie in one."""
+    h, rep = cfg.n_heads, cfg.n_heads // cfg.n_kv_heads
+    return h % m == 0 and ((h // m) % rep == 0 or rep % (h // m) == 0)
+
+
+def _cols(w: torch.Tensor, lo: int, n: int, width: int) -> torch.Tensor:
+    """Columns ``lo * width .. (lo + n) * width`` of ``w``."""
+    return w[..., lo * width:(lo + n) * width]
+
+
+def _rows(w: torch.Tensor, lo: int, n: int, width: int) -> torch.Tensor:
+    return w[lo * width:(lo + n) * width]
+
+
+def _cut(p: Dict[str, torch.Tensor], blocks: frozenset, **cuts
+         ) -> Dict[str, torch.Tensor]:
+    """``p``'s leaves, each whole one (not in ``blocks``) through its cut
+    in ``cuts`` (none: kept whole); the leaves in ``blocks`` are already
+    the rank's."""
+    return {k: v if k in blocks or k not in cuts else cuts[k](v)
+            for k, v in p.items()}
+
+
+def gqa_rank_params(p: Dict[str, torch.Tensor], cfg: ModelConfig, rank: int,
+                    m: int, blocks: frozenset = frozenset()
+                    ) -> Dict[str, torch.Tensor]:
+    """Rank ``rank`` of ``m``'s GQA weights (:func:`gqa_split` must
+    hold): its query heads' columns of ``wq`` and rows of ``wo``, its
+    groups' columns of ``wk`` and ``wv``. The leaves named in ``blocks``
+    are already the rank's blocks."""
+    hd, h, g = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
+    hq = h // m
+    q0 = rank * hq
+    rep = h // g
+    g0, gn = q0 // rep, max(hq // rep, 1)
+    return _cut(p, blocks, wq=lambda w: _cols(w, q0, hq, hd),
+                wk=lambda w: _cols(w, g0, gn, hd),
+                wv=lambda w: _cols(w, g0, gn, hd),
+                wo=lambda w: _rows(w, q0, hq, hd))
+
+
 def gqa_apply(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
               *, causal: bool = True,
               positions: Optional[torch.Tensor] = None,
               cache: Optional[KVCache] = None,
-              kv_input: Optional[torch.Tensor] = None
+              kv_input: Optional[torch.Tensor] = None, tp=None
               ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """x (B,S,D). kv_input: encoder output for cross-attention (no rope).
 
     With ``cache``: writes this call's K/V at cache.pos and attends over
-    the whole cache (decode). Returns (out, new_cache | None)."""
+    the whole cache (decode). Returns (out, new_cache | None).
+
+    ``tp``: ``wq``/``wo`` are this rank's query heads, ``wk``/``wv`` its
+    KV heads where ``tp.blocks`` names them, else whole (then its groups'
+    columns are taken); ``x`` enters through ``tp.enter``, ``kv_input``
+    whole, and the output leaves through ``tp.leave``."""
+    if tp is not None:
+        if cache is not None:
+            raise ValueError("tensor parallelism runs the full sequence, "
+                             "not a cached decode")
+        pr = gqa_rank_params(tp.leaves(p), cfg, tp.rank, tp.size,
+                             tp.blocks)
+        out, _ = gqa_apply(pr, tp.enter(x), cfg, causal=causal,
+                           positions=positions,
+                           kv_input=None if kv_input is None
+                           else tp.whole(kv_input))
+        return tp.leave(out), None
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
     if positions is None:
         positions = _positions(cache, s, x.device)
-    q = (x @ p["wq"]).reshape(b, s, cfg.n_heads, hd)
+    q = (x @ p["wq"]).reshape(b, s, p["wq"].shape[1] // hd, hd)
     src = x if kv_input is None else kv_input
-    k = (src @ p["wk"]).reshape(b, src.shape[1], cfg.n_kv_heads, hd)
-    v = (src @ p["wv"]).reshape(b, src.shape[1], cfg.n_kv_heads, hd)
+    n_kv = p["wk"].shape[1] // hd
+    k = (src @ p["wk"]).reshape(b, src.shape[1], n_kv, hd)
+    v = (src @ p["wv"]).reshape(b, src.shape[1], n_kv, hd)
     if kv_input is None:                              # self-attn: rope
         q = L.apply_rope(q, positions, cfg.rope_theta)
         k = L.apply_rope(k, positions, cfg.rope_theta)
@@ -199,14 +267,42 @@ def mla_init(generator: torch.Generator, cfg: ModelConfig,
     }
 
 
+def mla_rank_params(p: Dict[str, torch.Tensor], cfg: ModelConfig, rank: int,
+                    m: int, blocks: frozenset = frozenset()
+                    ) -> Dict[str, torch.Tensor]:
+    """Rank ``rank`` of ``m``'s MLA weights (``n_heads % m == 0``): its
+    heads' columns of ``wq`` and ``w_ukv`` and rows of ``wo``;
+    ``w_dkv`` and ``w_kr`` whole. The leaves named in ``blocks`` are
+    already the rank's blocks."""
+    c, h = cfg.mla, cfg.n_heads
+    hl = h // m
+    q0 = rank * hl
+    return _cut(p, blocks,
+                wq=lambda w: _cols(w, q0, hl, c.d_nope + c.d_rope),
+                w_ukv=lambda w: _cols(w, q0, hl, c.d_nope + c.d_v),
+                wo=lambda w: _rows(w, q0, hl, c.d_v))
+
+
 def mla_apply(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
               *, positions: Optional[torch.Tensor] = None,
-              cache: Optional[KVCache] = None
+              cache: Optional[KVCache] = None, tp=None
               ) -> Tuple[torch.Tensor, Optional[KVCache]]:
-    """Multi-head latent attention; the cache holds (c_kv, k_rope)."""
+    """Multi-head latent attention; the cache holds (c_kv, k_rope).
+
+    ``tp``: ``wq``, ``w_ukv`` and ``wo`` are this rank's heads (as
+    ``tp.blocks`` names them), ``w_dkv`` and ``w_kr`` whole; ``x`` enters
+    through ``tp.enter`` and the output leaves through ``tp.leave``."""
+    if tp is not None:
+        if cache is not None:
+            raise ValueError("tensor parallelism runs the full sequence, "
+                             "not a cached decode")
+        pr = mla_rank_params(tp.leaves(p), cfg, tp.rank, tp.size,
+                             tp.blocks)
+        out, _ = mla_apply(pr, tp.enter(x), cfg, positions=positions)
+        return tp.leave(out), None
     m: MLAConfig = cfg.mla
     b, s, _ = x.shape
-    h = cfg.n_heads
+    h = p["wq"].shape[1] // (m.d_nope + m.d_rope)
     if positions is None:
         positions = _positions(cache, s, x.device)
 

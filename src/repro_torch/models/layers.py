@@ -11,10 +11,84 @@ follow the reference's distributions but cannot match its draws.
 
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Any, Dict, NamedTuple, Sequence
 
 import numpy as np
 import torch
+
+from repro_torch.sharding import specs as SH
+
+#: the mesh axis tensor parallelism splits over
+MODEL = "model"
+
+
+class TP(NamedTuple):
+    """One rank's tensor-parallel context: ``mesh``'s ``model`` axis spans
+    more than one rank and the layers split their heads, columns and
+    vocabulary over it. ``seq``: the activations between the layers are
+    this rank's block of the sequence (dim 1; sequence parallelism, the
+    reference's ``act_sp``). ``blocks``: the names of the module's leaves
+    that :func:`repro_torch.models.transformer.tp_plan` keeps split (this
+    rank's blocks); the module's other leaves are whole."""
+    mesh: Any
+    seq: bool = False
+    blocks: frozenset = frozenset()
+
+    @property
+    def size(self) -> int:
+        return SH.axis_size(self.mesh, MODEL)
+
+    @property
+    def rank(self) -> int:
+        return SH.coordinate(self.mesh, MODEL)
+
+    def enter(self, x: torch.Tensor) -> torch.Tensor:
+        """Into a layer whose weights are this rank's part: ``x`` whole
+        on every rank (``seq``: all-gathered), its gradient the sum of the
+        ranks' parts' gradients."""
+        if self.seq:
+            return SH.gather_along(x, 1, MODEL, self.mesh)
+        return SH.copy_to(x, MODEL, self.mesh)
+
+    def leave(self, y: torch.Tensor) -> torch.Tensor:
+        """Out of such a layer: the ranks' partial outputs summed
+        (``seq``: reduce-scattered to this rank's sequence block)."""
+        if self.seq:
+            return SH.scatter_along(y, 1, MODEL, self.mesh)
+        return SH.sum_over(y, MODEL, self.mesh)
+
+    def whole(self, w: torch.Tensor) -> torch.Tensor:
+        """A whole leaf used for this rank's part (or, under ``seq``, on
+        its sequence block): the identity, its gradient summed over the
+        ranks."""
+        return SH.copy_to(w, MODEL, self.mesh)
+
+    def leaves(self, p: Dict[str, torch.Tensor]
+               ) -> Dict[str, torch.Tensor]:
+        """A module's leaves for this rank's part: its blocks as they
+        are, every whole leaf through :meth:`whole`."""
+        return {k: v if k in self.blocks else self.whole(v)
+                for k, v in p.items()}
+
+    def seq_in(self, x: torch.Tensor) -> torch.Tensor:
+        """Into a layer computed whole on every rank: the whole sequence
+        under ``seq`` (each rank's gradient is the whole one, so the
+        backward keeps the block), else ``x``."""
+        if self.seq:
+            return SH.gather_along(x, 1, MODEL, self.mesh, summed=False)
+        return x
+
+    def seq_out(self, y: torch.Tensor) -> torch.Tensor:
+        """Out of such a layer: this rank's sequence block under ``seq``
+        (the backward all-gathers the blocks' gradients), else ``y``."""
+        if self.seq:
+            return SH.split_along(y, 1, MODEL, self.mesh)
+        return y
+
+    def total(self, x: torch.Tensor) -> torch.Tensor:
+        """The differentiable sum of the ranks' ``x`` (identity
+        backward)."""
+        return SH.sum_over(x, MODEL, self.mesh)
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -72,11 +146,21 @@ def embed_init(generator: torch.Generator, vocab: int, d: int,
     return (_normal(generator, (vocab, d), device) * 0.02).to(dtype)
 
 
-def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+def embed_lookup(table: torch.Tensor, tokens: torch.Tensor,
+                 tp: TP | None = None) -> torch.Tensor:
     """Rows of ``table`` at ``tokens``; every id must lie in the vocabulary
     (the reference fills out-of-range ids with NaN; the engine never sends
-    one, see ``Engine._fill``)."""
-    return table[tokens]
+    one, see ``Engine._fill``).
+
+    ``tp``: ``table`` is this rank's block of the vocabulary's rows; the
+    ids outside it give zero rows, and the ranks' rows are summed over
+    ``model`` (the whole embedding on every rank, ``tp.seq`` ignored)."""
+    if tp is None:
+        return table[tokens]
+    local = tokens - tp.rank * table.shape[0]
+    inside = (local >= 0) & (local < table.shape[0])
+    rows = table[torch.where(inside, local, 0)]
+    return tp.total(torch.where(inside[..., None], rows, 0.0))
 
 
 # ------------------------------------------------------------------- RoPE
@@ -116,17 +200,22 @@ def mlp_init(generator: torch.Generator, d: int, d_ff: int,
     }
 
 
-def mlp_apply(p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
+def mlp_apply(p: Dict[str, torch.Tensor], x: torch.Tensor,
+              tp: TP | None = None) -> torch.Tensor:
     """SwiGLU: down( silu(gate(x)) * up(x) ), the product rounded to x's
     dtype before the down projection, as the reference's compiled form
-    rounds it."""
+    rounds it. ``tp``: the weights are this rank's d_ff columns
+    (``w_gate``, ``w_up``) and rows (``w_down``)."""
+    if tp is not None:
+        return tp.leave(mlp_apply(p, tp.enter(x)))
     g = silu(x @ p["w_gate"])
     return (g * (x @ p["w_up"])) @ p["w_down"]
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   mask: torch.Tensor | None = None, *,
-                  total: torch.Tensor | None = None) -> torch.Tensor:
+                  total: torch.Tensor | None = None,
+                  tp: TP | None = None) -> torch.Tensor:
     """Mean token cross-entropy in float32 (float64 for float64 logits):
     ``logsumexp`` minus the gold logit, averaged over the tokens, or over
     the tokens where ``mask`` is set (divided by ``max(sum(mask), 1)``).
@@ -134,10 +223,22 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 
     ``total``: for rows that are one block of a batch, the batch's token
     count (or mask sum) to divide by; the blocks' results then add up to
-    the batch's (:func:`token_count` gives a block's own)."""
+    the batch's (:func:`token_count` gives a block's own).
+
+    ``tp``: ``logits`` are this rank's block of the vocabulary (the
+    column-parallel head's); the max is all-reduced without a gradient,
+    the sum of the exponentials summed over ``model``, the gold logit
+    taken from the rank that holds it, all in float32 (see
+    :func:`vocab_max`, :func:`vocab_sumexp`, :func:`vocab_gold`)."""
     logits = _f32(logits)
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    if tp is None:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    else:
+        mx = SH.all_reduce(vocab_max(logits), MODEL, tp.mesh, op="max")
+        logz = torch.log(tp.total(vocab_sumexp(logits, mx))) + mx
+        gold = tp.total(vocab_gold(logits, labels,
+                                   tp.rank * logits.shape[-1]))
     nll = logz - gold
     if total is not None:
         kept = nll if mask is None else nll * mask.to(nll.dtype)
@@ -146,6 +247,28 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
         return torch.mean(nll)
     mask = mask.to(nll.dtype)
     return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+
+
+def vocab_max(logits: torch.Tensor) -> torch.Tensor:
+    """A vocabulary block's largest logit per token, without a gradient
+    (its all-reduced max shifts the exponentials)."""
+    return torch.amax(logits.detach(), dim=-1)
+
+
+def vocab_sumexp(logits: torch.Tensor, mx: torch.Tensor) -> torch.Tensor:
+    """A vocabulary block's ``sum(exp(logits - mx))`` per token."""
+    return torch.sum(torch.exp(logits - mx[..., None]), dim=-1)
+
+
+def vocab_gold(logits: torch.Tensor, labels: torch.Tensor, v0: int
+               ) -> torch.Tensor:
+    """The gold logit of each token whose label lies in the block of
+    vocabulary ids starting at ``v0``, else 0."""
+    local = labels.long() - v0
+    inside = (local >= 0) & (local < logits.shape[-1])
+    gold = torch.gather(logits, -1,
+                        torch.where(inside, local, 0)[..., None])[..., 0]
+    return torch.where(inside, gold, 0.0)
 
 
 def token_count(labels: torch.Tensor, mask: torch.Tensor | None = None

@@ -265,7 +265,7 @@ def ep_block_specs(cfg: MoEConfig, mesh, fsdp: bool) -> Dict[str, SH.Spec]:
 
 
 def moe_apply_ep(p, x: torch.Tensor, cfg: MoEConfig, fsdp: bool = False, *,
-                 mesh=None, batch_axes=None
+                 mesh=None, batch_axes=None, seq: bool = False
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Expert-parallel MoE over ``mesh``'s ``model`` axis; ``moe_apply``
     (under the same mesh) where :func:`ep_model_size` says the reference
@@ -284,10 +284,22 @@ def moe_apply_ep(p, x: torch.Tensor, cfg: MoEConfig, fsdp: bool = False, *,
     backward hands each rank the gradient unchanged), and the rows' and
     the router's gradients are summed over ``model``. The aux loss is the
     mean of the per-rank aux over the DP axes and ``model``. Returns
-    (out (B, S, D), {'aux_loss'})."""
+    (out (B, S, D), {'aux_loss'}).
+
+    ``seq``: ``x`` is this rank's block of the sequence (dim 1) over
+    ``model`` (sequence parallelism), and so is the output: the rows are
+    all-gathered along the sequence where they would enter through the
+    identity, and the partial outputs reduce-scattered where they would be
+    summed; the fallback runs ``moe_apply`` on the whole sequence and
+    keeps the block."""
     m = ep_model_size(cfg, mesh)
     if m is None:
-        return moe_apply(p, x, cfg, mesh=mesh, batch_axes=batch_axes)
+        if not seq:
+            return moe_apply(p, x, cfg, mesh=mesh, batch_axes=batch_axes)
+        whole = SH.gather_along(x, 1, "model", mesh, summed=False)
+        out, stats = moe_apply(p, whole, cfg, mesh=mesh,
+                               batch_axes=batch_axes)
+        return SH.split_along(out, 1, "model", mesh), stats
     dp = SH.dp_axes(mesh)
     rows = SH.live_axes(mesh, dp if batch_axes is None else batch_axes)
     if "model" in rows:
@@ -316,10 +328,16 @@ def moe_apply_ep(p, x: torch.Tensor, cfg: MoEConfig, fsdp: bool = False, *,
         p_loc["w_up"] = SH.gather_along(p["w_up"], 2, f_entry, mesh)
         p_loc["w_down"] = SH.gather_along(p["w_down"], 1, f_entry, mesh)
     p_loc["router"] = SH.copy_to(p["router"], "model", mesh)
+    if seq:
+        x = SH.gather_along(x, 1, "model", mesh)
     b, s, _ = x.shape
-    xt = SH.copy_to(x.reshape(b * s, d), "model", mesh)
+    xt = x.reshape(b * s, d) if seq \
+        else SH.copy_to(x.reshape(b * s, d), "model", mesh)
     e_lo = SH.coordinate(mesh, "model") * e_loc
     out, aux = _local_dispatch_ffn(p_loc, xt, cfg, e_lo, e_loc)
-    out = SH.sum_over(out, "model", mesh)
     aux = SH.mean_over(aux, dp + ("model",), mesh)
+    if seq:
+        return SH.scatter_along(out.reshape(b, s, d), 1, "model", mesh), \
+            {"aux_loss": aux}
+    out = SH.sum_over(out, "model", mesh)
     return out.reshape(b, s, d), {"aux_loss": aux}

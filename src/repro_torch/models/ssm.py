@@ -14,6 +14,17 @@ Decode keeps (conv window, SSD state) as the cache and runs the exact
 one-token recurrence, which launches no kernel. Casts follow the
 reference: dt is cast to x's dtype before scaling x, log_decay stays f32,
 B and C stay in the model dtype, the conv and the state run in f32.
+
+Under tensor parallelism (``tp=``, :class:`repro_torch.models.layers.TP`)
+a rank computes its ``H / m`` heads: the packed ``in_proj`` is whole (its
+blocks at rest cross the x/z/B/C/dt boundaries) and the rank takes the x,
+z and dt columns of its heads with B and C whole; ``conv_w``,
+``dt_bias``, ``a_log`` and the norm scale are cut the same way (each
+whole leaf's gradient summed over ``model``, :meth:`TP.whole`); the SSD
+scan runs on the rank's ``(B * H / m, L, P)`` rows; the gated RMSNorm
+over ``d_inner`` sums its squares over ``model``; ``out_proj`` is
+row-parallel. The widths come from the weights, so the same code runs a
+whole block and a rank's part (:func:`ssm_rank_params`).
 """
 
 from __future__ import annotations
@@ -53,10 +64,37 @@ def ssm_init(generator: torch.Generator, cfg: ModelConfig,
     }
 
 
-def _split(cfg: ModelConfig, proj: torch.Tensor):
+def ssm_rank_params(p: Dict[str, torch.Tensor], cfg: ModelConfig,
+                    rank: int, m: int, blocks: frozenset = frozenset()
+                    ) -> Dict[str, torch.Tensor]:
+    """Rank ``rank`` of ``m``'s Mamba2 weights (``m`` divides the heads):
+    ``in_proj``'s x, z and dt columns of its heads with B and C whole,
+    the same channels of ``conv_w``, its heads of ``dt_bias`` and
+    ``a_log``, its channels of the norm scale and its rows of
+    ``out_proj`` (as it is where ``blocks`` names it: already the
+    rank's)."""
     s = cfg.ssm
     d = cfg.d_model
-    di, n = s.d_inner(d), s.d_state
+    di, n, h, pdim = s.d_inner(d), s.d_state, s.n_heads(d), s.head_dim
+    hl = h // m
+    c0, c1 = rank * hl * pdim, (rank + 1) * hl * pdim
+    ip, cw = p["in_proj"], p["conv_w"]
+    out = p["out_proj"]
+    return {
+        "in_proj": torch.cat([ip[:, c0:c1], ip[:, di + c0:di + c1],
+                              ip[:, 2 * di:2 * di + 2 * n],
+                              ip[:, 2 * di + 2 * n + rank * hl:
+                                 2 * di + 2 * n + (rank + 1) * hl]], 1),
+        "conv_w": torch.cat([cw[:, c0:c1], cw[:, di:di + 2 * n]], 1),
+        "dt_bias": p["dt_bias"][rank * hl:(rank + 1) * hl],
+        "a_log": p["a_log"][rank * hl:(rank + 1) * hl],
+        "norm": p["norm"][c0:c1],
+        "out_proj": out if "out_proj" in blocks else out[c0:c1],
+    }
+
+
+def _split(cfg: ModelConfig, proj: torch.Tensor, di: int):
+    n = cfg.ssm.d_state
     x = proj[..., :di]
     z = proj[..., di:2 * di]
     b = proj[..., 2 * di:2 * di + n]
@@ -80,15 +118,51 @@ def _causal_conv(seq: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def ssm_apply(p: Dict[str, torch.Tensor], u: torch.Tensor, cfg: ModelConfig,
+              *, cache: Optional[SSMCache] = None, tp=None
+              ) -> Tuple[torch.Tensor, Optional[SSMCache]]:
+    """u (B, L, D). With cache: L must be 1 (single-token decode).
+
+    ``tp``: ``out_proj`` is this rank's rows (``tp.blocks``), the other
+    leaves whole (see the module docstring); ``u`` enters through
+    ``tp.enter`` and the output leaves through ``tp.leave``."""
+    if tp is None:
+        y, new_cache = ssm_gated(p, u, cfg, cache=cache)
+        sumsq = torch.sum(y * y, dim=-1, keepdim=True)
+        return ssm_project(p, y, sumsq, cfg, u.dtype), new_cache
+    if cache is not None:
+        raise ValueError("tensor parallelism runs the full sequence, not a "
+                         "cached decode")
+    pr = ssm_rank_params(tp.leaves(p), cfg, tp.rank, tp.size, tp.blocks)
+    y, _ = ssm_gated(pr, tp.enter(u), cfg)
+    # every rank normalises its own channels by the sum: the gradient of
+    # the sum is summed over the ranks too
+    sumsq = tp.whole(tp.total(torch.sum(y * y, dim=-1, keepdim=True)))
+    return tp.leave(ssm_project(pr, y, sumsq, cfg, u.dtype)), None
+
+
+def ssm_project(p: Dict[str, torch.Tensor], y: torch.Tensor,
+                sumsq: torch.Tensor, cfg: ModelConfig, dtype: torch.dtype
+                ) -> torch.Tensor:
+    """The gated RMSNorm and the out projection of the channels ``y``
+    (:func:`ssm_gated`; all, or a rank's), ``sumsq`` the squares of all
+    ``d_inner`` channels summed (over the ranks): the output (a rank's
+    partial output)."""
+    var = sumsq / cfg.ssm.d_inner(cfg.d_model)
+    y = (y * torch.rsqrt(var + cfg.norm_eps) * p["norm"]).to(dtype)
+    return y @ p["out_proj"]
+
+
+def ssm_gated(p: Dict[str, torch.Tensor], u: torch.Tensor, cfg: ModelConfig,
               *, cache: Optional[SSMCache] = None
               ) -> Tuple[torch.Tensor, Optional[SSMCache]]:
-    """u (B, L, D). With cache: L must be 1 (single-token decode)."""
+    """The block up to its norm: ``y * silu(z)`` in f32 over the heads
+    the weights hold (all, or a rank's), and the new cache."""
     s = cfg.ssm
-    d = cfg.d_model
-    di, n, h, pdim = s.d_inner(d), s.d_state, s.n_heads(d), s.head_dim
+    n, pdim = s.d_state, s.head_dim
+    di, h = p["out_proj"].shape[0], p["dt_bias"].shape[0]
     bsz, ln, _ = u.shape
     proj = u @ p["in_proj"]
-    x, z, b, c, dt = _split(cfg, proj)
+    x, z, b, c, dt = _split(cfg, proj, di)
     conv_in = torch.cat([x, b, c], dim=-1)              # (B, L, di+2n)
 
     new_cache = None
@@ -130,9 +204,7 @@ def ssm_apply(p: Dict[str, torch.Tensor], u: torch.Tensor, cfg: ModelConfig,
 
     # the gate product goes to the norm unrounded, in f32: the reference's
     # compiled block (XLA) drops the bf16 rounding between the two
-    y = L._f32(y.reshape(bsz, ln, di)) * L._f32(L.silu(z))
-    y = L.rmsnorm(p["norm"], y, cfg.norm_eps).to(u.dtype)
-    return y @ p["out_proj"], new_cache
+    return L._f32(y.reshape(bsz, ln, di)) * L._f32(L.silu(z)), new_cache
 
 
 def ssm_cache_init(cfg: ModelConfig, batch: int, dtype: torch.dtype,

@@ -30,10 +30,19 @@ without ``frames=`` (the reference fails on ``None.astype`` there).
 
 ``forward(..., mesh=)`` runs one rank's part of a ``("data", "model")``
 mesh (:func:`repro_torch.sharding.specs.lm_mesh`): the tokens are the
-rank's rows (its block over the axes ``batch_axes`` names) and the
-parameters whole, except the MoE layers' expert blocks that
-``moe_apply_ep`` consumes under ``catwalk_ep``. Every layer but the MoE
-one computes row by row, so only the MoE layer talks to other ranks.
+rank's rows (its block over the axes ``batch_axes`` names), and the
+parameters are laid out by :func:`tp_plan`: the leaves it keeps split are
+this rank's blocks, the others whole. Over a ``model`` axis of more than
+one rank (unless ``batch_over_model`` gives that axis to the rows) the
+layers are tensor-parallel as the reference's specs lay them out
+(:class:`repro_torch.models.layers.TP`): the embedding and the head over
+the vocabulary, attention and the Mamba2 mixer by heads, the MLP by d_ff,
+each row-parallel projection's partial outputs summed over ``model``;
+under ``act_sp`` the residual stream between layers is the rank's block
+of the sequence (sequence parallelism) where ``model`` divides the
+sequence. A split that is not head-aligned leaves the layer whole on
+every rank. The MoE layer keeps its whole-width rows (``moe_apply``, or
+``moe_apply_ep``'s expert blocks under ``catwalk_ep``).
 """
 
 from __future__ import annotations
@@ -247,6 +256,110 @@ def _head(params, cfg: ModelConfig) -> torch.Tensor:
     return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
 
 
+# ====================================================== the TP plan ======
+def tp_plan(cfg: ModelConfig, mesh) -> Dict[str, Any]:
+    """Per parameter (the tree of :func:`init_params`; a stacked leaf's
+    spec leads with ``None``), the part of its spec at rest
+    (:func:`repro_torch.sharding.specs.param_pspecs`) the forward under
+    ``mesh`` keeps split; the forward takes every other leaf whole.
+
+    Over ``model`` (not under ``batch_over_model``, whose rows take that
+    axis): the embedding's and the head's vocabulary; GQA's ``wq`` and
+    ``wo`` where the heads split head-aligned
+    (:func:`repro_torch.models.attention.gqa_split`), ``wk`` and ``wv``
+    where the KV heads divide too; MLA's ``wq``, ``w_ukv`` and ``wo`` where
+    the heads divide; each MLP's three projections (not the MoE layer's
+    shared experts) where d_ff divides; Mamba2's ``out_proj`` where its
+    heads divide (``in_proj`` stays whole: its blocks at rest cross the
+    x/z/B/C/dt boundaries). Under ``catwalk_ep`` the expert-parallel MoE
+    layers' blocks (:func:`repro_torch.models.moe.ep_block_specs`).
+    Computed once a ``(cfg, mesh)``
+    (:func:`repro_torch.sharding.specs.memo`)."""
+    return SH.memo(mesh, ("tp_plan", cfg), lambda: _tp_plan(cfg, mesh))
+
+
+def _tp_plan(cfg: ModelConfig, mesh) -> Dict[str, Any]:
+    whole = init_params(torch.Generator(), cfg, device="meta")
+    pspecs = SH.param_pspecs(whole, mesh,
+                             replicate_embed=cfg.batch_over_model)
+    ep = (cfg.moe is not None and cfg.moe.dispatch == "catwalk_ep"
+          and M.ep_model_size(cfg.moe, mesh) is not None)
+    ep_keep = M.ep_block_specs(cfg.moe, mesh, cfg.moe.ep_fsdp) if ep else {}
+    tp = "model" in SH.axis_names(mesh) and not cfg.batch_over_model
+    m = SH.axis_size(mesh, "model") if tp else 1
+    heads = {}
+    if cfg.family != "ssm":
+        if cfg.mla is not None:
+            mla = cfg.n_heads % m == 0
+            heads["attn"] = {"wq": mla, "w_ukv": mla, "wo": mla}
+        gqa = A.gqa_split(cfg, m)
+        kv = gqa and cfg.n_kv_heads % m == 0
+        gqa_keep = {"wq": gqa, "wo": gqa, "wk": kv, "wv": kv}
+        heads.setdefault("attn", gqa_keep)
+        heads["xattn"] = gqa_keep
+        mlp = cfg.d_ff % m == 0
+        heads["mlp"] = {"w_gate": mlp, "w_up": mlp, "w_down": mlp}
+    if cfg.ssm is not None:
+        heads["ssm"] = {"out_proj": cfg.ssm.n_heads(cfg.d_model) % m == 0}
+
+    def one(path, spec):
+        stacked = path[0] in SH.STACK_KEYS
+        inner = path[1:] if stacked else path
+        if inner[0] == "moe":
+            name = "/".join(inner[1:])
+            keep = ep_keep.get(name)
+            if keep is None:
+                return (None,) * len(spec)
+            return ((None,) if stacked else ()) + keep
+        if not tp:
+            return (None,) * len(spec)
+        if inner[0] in ("embed", "lm_head") \
+                or heads.get(inner[-2] if len(inner) > 1 else "",
+                             {}).get(inner[-1], False):
+            return spec
+        return (None,) * len(spec)
+
+    def walk(tree, path):
+        return {k: walk(v, path + (k,)) if isinstance(v, dict)
+                else one(path + (k,), v) for k, v in tree.items()}
+    return walk(pspecs, ())
+
+
+def _keeps(spec) -> bool:
+    """Whether a plan entry keeps its leaf split over ``model``."""
+    return spec is not None and "model" in SH.spec_axes(spec)
+
+
+def _tp_of(cfg: ModelConfig, mesh, batch_axes) -> L.TP | None:
+    """The forward's tensor-parallel context under ``mesh``, or None where
+    ``model`` has one rank or carries the rows."""
+    if mesh is None or cfg.batch_over_model \
+            or not SH.live_axes(mesh, "model" if "model"
+                                in SH.axis_names(mesh) else None):
+        return None
+    if "model" in SH.live_axes(mesh, batch_axes):
+        raise ValueError("tensor parallelism needs the rows replicated "
+                         "over 'model' (they are split over it)")
+    return L.TP(mesh)
+
+
+def vocab_parallel(cfg: ModelConfig, mesh) -> bool:
+    """Whether ``forward(..., logits_mode="all", mesh=mesh)`` returns the
+    rank's block of the vocabulary (the head is column-parallel over a
+    ``model`` axis of more than one rank), for
+    :func:`repro_torch.models.layers.cross_entropy`'s ``tp=``."""
+    if _tp_of(cfg, mesh, ()) is None:
+        return False
+    plan = tp_plan(cfg, mesh)
+    return _keeps(plan["embed"] if cfg.tie_embeddings else plan["lm_head"])
+
+
+def _layer_plan(plan) -> Dict[str, Any]:
+    """One layer's plan from a stacked subtree's (the stack axis off)."""
+    return {k: _layer_plan(v) if isinstance(v, dict) else v[1:]
+            for k, v in plan.items()}
+
+
 # ======================================================== forward ========
 def _residual_norm(scale: torch.Tensor, x: torch.Tensor, a: torch.Tensor,
                    cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -257,55 +370,100 @@ def _residual_norm(scale: torch.Tensor, x: torch.Tensor, a: torch.Tensor,
     return xa.to(x.dtype), L.rmsnorm(scale, xa, cfg.norm_eps).to(x.dtype)
 
 
+def _scale(w: torch.Tensor, tp: L.TP | None) -> torch.Tensor:
+    """A norm scale applied to a rank's block of the sequence (under
+    ``tp.seq``) enters through ``tp.whole``: its gradient is the sum of
+    the blocks'."""
+    return tp.whole(w) if tp is not None and tp.seq else w
+
+
+def _mixer(fn: Callable, h: torch.Tensor, tp: L.TP | None,
+           blocks: frozenset) -> torch.Tensor:
+    """``fn(h, tp)`` for a layer whose weights the plan splits (``blocks``
+    names its split leaves, which ``tp.blocks`` carries into the layer;
+    the layer enters and leaves itself); otherwise ``fn(h, None)``, the
+    layer whole on every rank (under ``tp.seq``: on the whole sequence,
+    the rank's block kept)."""
+    if tp is None:
+        return fn(h, None)
+    if blocks:
+        return fn(h, tp._replace(blocks=blocks))
+    return tp.seq_out(fn(tp.seq_in(h), None))
+
+
+def _blocks(tp: L.TP | None, plan) -> Callable[[str], frozenset]:
+    """The names of a module's leaves the plan keeps split (none without
+    ``tp``)."""
+    return lambda mod: frozenset() if tp is None else frozenset(
+        k for k, v in plan[mod].items() if _keeps(v))
+
+
 def _block_apply(p, x: torch.Tensor, cfg: ModelConfig,
                  cache: A.KVCache | None = None,
                  enc_out: torch.Tensor | None = None, mesh=None,
-                 batch_axes=None
+                 batch_axes=None, tp: L.TP | None = None, plan=None
                  ) -> Tuple[torch.Tensor, torch.Tensor, A.KVCache | None]:
     """Returns (x, aux_loss, new_cache). With ``enc_out`` (the audio
     decoder), a cross-attention over it follows the self-attention; its
     K/V are computed from ``enc_out`` at every call, as the reference
     does (no cross cache). ``mesh``, ``batch_axes``: see
-    :func:`forward`."""
-    h = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
-    if cfg.mla is not None:
-        a, new_cache = A.mla_apply(p["attn"], h, cfg, cache=cache)
+    :func:`forward`; ``tp``, ``plan``: its tensor-parallel context and
+    this block's part of :func:`tp_plan` (full sequence only)."""
+    split = _blocks(tp, plan)
+    attn = A.mla_apply if cfg.mla is not None else A.gqa_apply
+    h = L.rmsnorm(_scale(p["norm1"], tp), x, cfg.norm_eps)
+    if tp is None:
+        a, new_cache = attn(p["attn"], h, cfg, cache=cache)
     else:
-        a, new_cache = A.gqa_apply(p["attn"], h, cfg, cache=cache)
+        new_cache = None
+        a = _mixer(lambda y, t: attn(p["attn"], y, cfg, tp=t)[0], h, tp,
+                   split("attn"))
     if enc_out is not None:
-        x, h = _residual_norm(p["norm_x"], x, a, cfg)
-        a, _ = A.gqa_apply(p["xattn"], h, cfg, kv_input=enc_out,
-                           causal=False)
-    x, h = _residual_norm(p["norm2"], x, a, cfg)
+        x, h = _residual_norm(_scale(p["norm_x"], tp), x, a, cfg)
+        a = _mixer(lambda y, t: A.gqa_apply(
+            p["xattn"], y, cfg, kv_input=enc_out, causal=False, tp=t)[0],
+            h, tp, split("xattn"))
+    x, h = _residual_norm(_scale(p["norm2"], tp), x, a, cfg)
     if cfg.moe is not None:
         axes = SH.lm_batch_axes(mesh, cfg.batch_over_model) \
             if batch_axes is None else batch_axes
         if cfg.moe.dispatch == "catwalk_ep":
             out, stats = M.moe_apply_ep(p["moe"], h, cfg.moe,
                                         fsdp=cfg.moe.ep_fsdp, mesh=mesh,
-                                        batch_axes=axes)
+                                        batch_axes=axes,
+                                        seq=tp is not None and tp.seq)
         else:
-            out, stats = M.moe_apply(p["moe"], h, cfg.moe, mesh=mesh,
+            out, stats = M.moe_apply(p["moe"], h if tp is None
+                                     else tp.seq_in(h), cfg.moe, mesh=mesh,
                                      batch_axes=axes)
+            out = out if tp is None else tp.seq_out(out)
         aux = stats["aux_loss"]
         if cfg.moe.dense_residual:
-            out = out + L.mlp_apply(p["mlp"], h)
+            out = out + _mixer(lambda y, t: L.mlp_apply(p["mlp"], y, t), h,
+                               tp, split("mlp"))
     else:
-        out = L.mlp_apply(p["mlp"], h)
+        out = _mixer(lambda y, t: L.mlp_apply(p["mlp"], y, t), h, tp,
+                     split("mlp"))
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x + out, aux, new_cache
 
 
-def _ssm_block(x: torch.Tensor, lp, cfg: ModelConfig) -> torch.Tensor:
-    h = L.rmsnorm(lp["norm1"], x, cfg.norm_eps)
-    out, _ = S.ssm_apply(lp["ssm"], h, cfg)
+def _ssm_block(x: torch.Tensor, lp, cfg: ModelConfig,
+               tp: L.TP | None = None, plan=None) -> torch.Tensor:
+    h = L.rmsnorm(_scale(lp["norm1"], tp), x, cfg.norm_eps)
+    out = _mixer(lambda y, t: S.ssm_apply(lp["ssm"], y, cfg, tp=t)[0], h,
+                 tp, _blocks(tp, plan)("ssm"))
     return x + out
 
 
-def _hybrid_block(x: torch.Tensor, p, cfg: ModelConfig) -> torch.Tensor:
-    """A hybrid layer followed by the shared block (``p``: the layer's
-    parameters under ``"layer"``, the shared block's under ``"shared"``)."""
-    return _block_apply(p["shared"], _ssm_block(x, p["layer"], cfg), cfg)[0]
+def _hybrid_block(x: torch.Tensor, p, cfg: ModelConfig,
+                  tp: L.TP | None = None, plan=None) -> torch.Tensor:
+    """A hybrid layer followed by the shared block (``p``, ``plan``: the
+    layer's under ``"layer"``, the shared block's under ``"shared"``)."""
+    plan = plan or {"layer": None, "shared": None}
+    return _block_apply(p["shared"], _ssm_block(x, p["layer"], cfg, tp,
+                                                plan["layer"]),
+                        cfg, tp=tp, plan=plan["shared"])[0]
 
 
 def _shared_site(cfg: ModelConfig, i: int) -> int | None:
@@ -318,25 +476,33 @@ def _shared_site(cfg: ModelConfig, i: int) -> int | None:
     return i // period if i % period == period - 1 else None
 
 
-def _enc_block(h: torch.Tensor, lp, cfg: ModelConfig) -> torch.Tensor:
+def _enc_block(h: torch.Tensor, lp, cfg: ModelConfig,
+               tp: L.TP | None = None, plan=None) -> torch.Tensor:
+    split = _blocks(tp, plan)
     n = L.rmsnorm(lp["norm1"], h, cfg.norm_eps)
-    a, _ = A.gqa_apply(lp["attn"], n, cfg, causal=False)
+    a = _mixer(lambda y, t: A.gqa_apply(lp["attn"], y, cfg, causal=False,
+                                        tp=t)[0], n, tp, split("attn"))
     h, n = _residual_norm(lp["norm2"], h, a, cfg)
-    return h + L.mlp_apply(lp["mlp"], n)
+    return h + _mixer(lambda y, t: L.mlp_apply(lp["mlp"], y, t), n, tp,
+                      split("mlp"))
 
 
-def _encode(params, cfg: ModelConfig, frames) -> torch.Tensor:
+def _encode(params, cfg: ModelConfig, frames, tp: L.TP | None = None,
+            plan=None) -> torch.Tensor:
     """The audio encoder: ``frames`` (B, S_enc, d_embed) projected to the
     model width, then the bidirectional encoder stack (under remat when a
-    gradient is wanted). Raises ``ValueError`` without frames."""
+    gradient is wanted; ``tp``, ``plan``: tensor-parallel, the encoder's
+    sequence whole). Raises ``ValueError`` without frames."""
     if frames is None:
         raise ValueError(f"{cfg.name}: the audio family needs frames= "
                          f"(B, S_enc, {cfg.frontend.d_embed}) frame "
                          f"embeddings")
     proj = params["frame_proj"]
     h = torch.as_tensor(frames, device=proj.device).to(proj.dtype) @ proj
+    lplan = None if tp is None else _layer_plan(plan["encoder"])
     for lp in _unstack(params["encoder"])[:cfg.encdec.n_encoder_layers]:
-        h = _maybe_remat(lambda x, p: _enc_block(x, p, cfg), cfg, lp, h)
+        h = _maybe_remat(lambda x, p: _enc_block(x, p, cfg, tp, lplan), cfg,
+                         lp, h)
     return h
 
 
@@ -357,10 +523,14 @@ def forward(params, cfg: ModelConfig, tokens, *, patches=None, frames=None,
     tokens and aux_loss sums the layers' load-balancing losses.
 
     ``mesh``: a ``("data", "model")`` DeviceMesh this rank's part runs on
-    (see the module docstring): the logits are the rank's rows', the aux
-    loss the whole batch's (``catwalk_ep``: the mean of the ranks' aux,
-    as the reference's ``pmean``). ``batch_axes``: the axes the rows are
-    split over (default
+    (see the module docstring): ``params`` are laid out by
+    :func:`tp_plan` (its split leaves this rank's blocks, the rest
+    whole); the logits are the rank's rows', and under tensor parallelism
+    with ``logits_mode="all"`` the rank's block of the vocabulary
+    (:func:`vocab_parallel`; ``"last"`` gathers the whole vocabulary);
+    the aux loss is the whole batch's (``catwalk_ep``: the mean of the
+    ranks' aux, as the reference's ``pmean``). ``batch_axes``: the axes
+    the rows are split over (default
     :func:`repro_torch.sharding.specs.lm_batch_axes`; the mesh train step
     passes :func:`repro_torch.sharding.specs.lm_row_axes`).
     """
@@ -369,37 +539,61 @@ def forward(params, cfg: ModelConfig, tokens, *, patches=None, frames=None,
         raise ValueError(f"logits_mode must be 'all' or 'last', got "
                          f"{logits_mode!r}")
     dev = params["embed"].device
-    x = L.embed_lookup(params["embed"], _tokens(tokens, dev))
+    tp = _tp_of(cfg, mesh, SH.lm_batch_axes(mesh, cfg.batch_over_model)
+                if batch_axes is None else batch_axes)
+    plan = None if tp is None else tp_plan(cfg, mesh)
+    x = L.embed_lookup(params["embed"], _tokens(tokens, dev),
+                       tp if tp is not None and _keeps(plan["embed"])
+                       else None)
     n_prefix = 0
     if cfg.family == "vlm" and patches is not None:
         proj = params["patch_proj"]
         px = torch.as_tensor(patches, device=dev).to(x.dtype) @ proj
         x = torch.cat([px, x], dim=1)
         n_prefix = px.shape[1]
-    enc_out = _encode(params, cfg, frames) if cfg.family == "audio" else None
+    enc_out = _encode(params, cfg, frames, tp, plan) \
+        if cfg.family == "audio" else None
     aux = torch.zeros((), dtype=torch.float32, device=dev)
     # the reference pins the activations to (dp, model, None) between
-    # layers under cfg.act_sp, a layout constraint that changes no value;
-    # here they stay whole on every rank
+    # layers under cfg.act_sp: here each rank then holds its block of the
+    # sequence
+    if tp is not None and cfg.act_sp and x.shape[1] % tp.size == 0:
+        tp = tp._replace(seq=True)
+        x = SH.split_along(x, 1, "model", mesh)
+    lplan = None if tp is None else _layer_plan(plan["layers"])
     for i, lp in enumerate(_unstack(params["layers"])[:cfg.n_layers]):
         if cfg.family in ("ssm", "hybrid"):
             if _shared_site(cfg, i) is None:
-                x = _maybe_remat(lambda h, p: _ssm_block(h, p, cfg), cfg, lp,
-                                 x)
+                x = _maybe_remat(lambda h, p: _ssm_block(h, p, cfg, tp,
+                                                         lplan), cfg, lp, x)
             else:
-                x = _maybe_remat(lambda h, p: _hybrid_block(h, p, cfg), cfg,
-                                 {"layer": lp, "shared": params["shared"]}, x)
+                x = _maybe_remat(
+                    lambda h, p: _hybrid_block(
+                        h, p, cfg, tp, None if tp is None else
+                        {"layer": lplan, "shared": plan["shared"]}),
+                    cfg, {"layer": lp, "shared": params["shared"]}, x)
         else:
             x, layer_aux = _maybe_remat(
                 lambda h, p: _block_apply(p, h, cfg, enc_out=enc_out,
-                                          mesh=mesh,
-                                          batch_axes=batch_axes)[:2],
+                                          mesh=mesh, batch_axes=batch_axes,
+                                          tp=tp, plan=lplan)[:2],
                 cfg, lp, x)
             aux = aux + layer_aux
-    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    x = L.rmsnorm(_scale(params["final_norm"], tp), x, cfg.norm_eps)
+    head = _head(params, cfg)
+    if tp is not None and _keeps(plan["embed"] if cfg.tie_embeddings
+                                 else plan["lm_head"]):
+        # column-parallel: this rank's block of the vocabulary
+        x = tp.enter(x)
+        if logits_mode == "last":
+            return SH.gather_along(x[:, -1:] @ head, 2, "model", mesh,
+                                   summed=False), aux
+        return x[:, n_prefix:] @ head, aux
+    if tp is not None:
+        x = tp.seq_in(x)
     if logits_mode == "last":
-        return x[:, -1:] @ _head(params, cfg), aux
-    return x[:, n_prefix:] @ _head(params, cfg), aux
+        return x[:, -1:] @ head, aux
+    return x[:, n_prefix:] @ head, aux
 
 
 # ========================================================= serving =======

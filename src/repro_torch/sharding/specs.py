@@ -35,7 +35,8 @@ never by global rank; an axis of one rank needs none);
 :func:`shard_tree` and :func:`gather_tree` do so leaf by leaf for a
 whole state. The collectives the LM mesh path differentiates through
 (:func:`sum_over`, :func:`copy_to`, :func:`mean_over`,
-:func:`gather_along`) are autograd functions with the backward each
+:func:`count_once`, :func:`gather_along`, :func:`scatter_along`,
+:func:`split_along`) are autograd functions with the backward each
 needs.
 
 The rules read only a mesh's ``mesh_dim_names`` and ``shape``.
@@ -692,16 +693,19 @@ def live_axes(mesh, axes: Axis) -> Tuple[str, ...]:
     return tuple(a for a in _axes(axes) if sizes[a] > 1)
 
 
-def all_reduce(x: torch.Tensor, axes: Axis, mesh) -> torch.Tensor:
-    """The sum of ``x`` over every rank of ``axes`` (a new tensor; ``x``
-    itself when every axis has one rank). No gradient."""
+def all_reduce(x: torch.Tensor, axes: Axis, mesh, op: str = "sum"
+               ) -> torch.Tensor:
+    """The sum (``op="max"``: the largest value) of ``x`` over every rank
+    of ``axes``, elementwise (a new tensor; ``x`` itself when every axis
+    has one rank). No gradient."""
     live = live_axes(mesh, axes)
     if not live:
         return x
     x = x.detach().clone()
+    red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
     for a in live:
-        dist.all_reduce(x, group=memo(mesh, ("group", a),
-                                      lambda a=a: mesh.get_group(a)))
+        dist.all_reduce(x, op=red, group=memo(
+            mesh, ("group", a), lambda a=a: mesh.get_group(a)))
     return x
 
 
@@ -765,24 +769,39 @@ class _CountOnce(torch.autograd.Function):
         return g / ctx.n, None
 
 
-class _GatherAlong(torch.autograd.Function):
-    """Forward: the blocks of the entry's ranks joined along ``dim``
-    (:func:`gather`). Backward: the reduce-scatter — the gradient summed
-    over those ranks (each used the whole tensor on its own data), this
-    rank's block kept."""
+def _block(x: torch.Tensor, dim: int, entry: Axis, mesh) -> torch.Tensor:
+    """This rank's block of ``x`` along ``dim`` over ``entry``."""
+    rows = block_slice(mesh, x.shape[dim], entry)
+    return x.narrow(dim, rows.start, rows.stop - rows.start).contiguous()
+
+
+def _along(op: str, x: torch.Tensor, dim: int, entry: Axis, mesh
+           ) -> torch.Tensor:
+    """One of the three moves along ``dim`` over ``entry``: ``"gather"``
+    the ranks' blocks joined (:func:`gather`), ``"scatter"`` the sum over
+    the ranks with this rank's block kept (a reduce-scatter), ``"split"``
+    this rank's block of a tensor whole on every rank."""
+    if op == "gather":
+        return gather(x, (None,) * dim + (entry,), mesh)
+    if op == "scatter":
+        x = all_reduce(x, entry, mesh)
+    return _block(x, dim, entry, mesh)
+
+
+class _Along(torch.autograd.Function):
+    """A move along a dim over an entry's ranks (:func:`_along`), whose
+    backward is another: the pairs are :func:`gather_along`,
+    :func:`scatter_along` and :func:`split_along`."""
 
     @staticmethod
-    def forward(ctx, x, dim, entry, mesh):
-        ctx.dim, ctx.entry, ctx.mesh = dim, entry, mesh
-        spec = (None,) * dim + (entry,)
-        return gather(x, spec, mesh)
+    def forward(ctx, x, fwd, bwd, dim, entry, mesh):
+        ctx.bwd, ctx.dim, ctx.entry, ctx.mesh = bwd, dim, entry, mesh
+        return _along(fwd, x, dim, entry, mesh)
 
     @staticmethod
     def backward(ctx, g):
-        whole = all_reduce(g, ctx.entry, ctx.mesh)
-        rows = block_slice(ctx.mesh, whole.shape[ctx.dim], ctx.entry)
-        return (whole.narrow(ctx.dim, rows.start, rows.stop - rows.start)
-                .contiguous(), None, None, None)
+        return (_along(ctx.bwd, g, ctx.dim, ctx.entry, ctx.mesh),
+                None, None, None, None, None)
 
 
 def sum_over(x: torch.Tensor, axes: Axis, mesh) -> torch.Tensor:
@@ -807,10 +826,35 @@ def count_once(x: torch.Tensor, axes: Axis, mesh) -> torch.Tensor:
     return _CountOnce.apply(x, axis_size(mesh, live)) if live else x
 
 
-def gather_along(x: torch.Tensor, dim: int, entry: Axis, mesh
-                 ) -> torch.Tensor:
-    """Differentiable :func:`gather` of dim ``dim`` over ``entry``
-    (all-gather forward, reduce-scatter backward)."""
+def gather_along(x: torch.Tensor, dim: int, entry: Axis, mesh, *,
+                 summed: bool = True) -> torch.Tensor:
+    """Differentiable :func:`gather` of dim ``dim`` over ``entry``. The
+    backward reduce-scatters: each rank used the whole tensor for its own
+    part, and the parts' gradients are summed before each rank keeps its
+    block. ``summed=False``: each rank computes the same whole result from
+    the gathered tensor, so its gradient is already the whole one, and
+    the backward only keeps this rank's block."""
     if not live_axes(mesh, entry):
         return x
-    return _GatherAlong.apply(x, dim, entry, mesh)
+    return _Along.apply(x, "gather", "scatter" if summed else "split", dim,
+                        entry, mesh)
+
+
+def scatter_along(x: torch.Tensor, dim: int, entry: Axis, mesh
+                  ) -> torch.Tensor:
+    """The sum of ``x`` over ``entry``'s ranks, this rank's block along
+    ``dim`` kept (reduce-scatter forward); the backward all-gathers the
+    blocks' gradients (Megatron's sequence-parallel reduce-scatter)."""
+    if not live_axes(mesh, entry):
+        return x
+    return _Along.apply(x, "scatter", "gather", dim, entry, mesh)
+
+
+def split_along(x: torch.Tensor, dim: int, entry: Axis, mesh
+                ) -> torch.Tensor:
+    """This rank's block along ``dim`` of ``x``, whole and the same on
+    every rank of ``entry``; the backward all-gathers the blocks'
+    gradients, so every rank's whole gradient is the whole one."""
+    if not live_axes(mesh, entry):
+        return x
+    return _Along.apply(x, "split", "gather", dim, entry, mesh)

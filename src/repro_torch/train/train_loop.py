@@ -16,13 +16,20 @@ under :func:`repro_torch.sharding.specs.param_pspecs`
 (:func:`init_train_state` with ``mesh=`` builds it so); every rank gets
 the whole batch and takes its block of each microbatch's rows over the
 axes that divide them (:func:`repro_torch.sharding.specs.lm_row_axes`),
-the rows replicated over the rest. The step gathers each parameter whole
-for the forward, but the expert blocks ``moe_apply_ep`` consumes, takes
-the gradients of its rows, sums them over the ranks the rows are split
-over, clips and compresses the whole gradients, and runs AdamW on its
-blocks. Splitting the attention and MLP compute over ``model`` is not
-done: the parameters are sharded at rest only, and a rank whose rows
-are the whole microbatch computes the whole single-device step.
+the rows replicated over the rest. The forward splits its work over
+``model`` as :func:`repro_torch.models.transformer.tp_plan` lays it out
+(tensor parallelism, and sequence parallelism under ``act_sp``): the
+leaves the plan keeps split stay this rank's blocks, and the step
+gathers whole only the others (those whose split is not head-aligned,
+Mamba2's packed ``in_proj``, and the expert blocks' DP split without
+``ep_fsdp``). A whole leaf's gradient is the whole one on every rank and
+a split leaf's its block; each is summed over the ranks the rows are
+split over. Without compression the gradients stay blocks: the clip's
+global norm sums each block's squares over the axes that split its leaf
+and AdamW runs on the blocks. With compression the chunked top-k
+(:func:`repro_torch.optim.grad_compression.compress_grads`) chunks each
+whole flattened gradient, so that path gathers the gradients and the
+error buffer whole, as the reference's values need.
 """
 
 from __future__ import annotations
@@ -115,11 +122,12 @@ def loss_fn(params, cfg: ModelConfig, batch: Dict[str, Any], *, mesh=None,
     if mask is not None:
         mask = torch.as_tensor(mask, device=dev)
     rows = SH.live_axes(mesh, batch_axes)
+    tp = L.TP(mesh) if T.vocab_parallel(cfg, mesh) else None
     if rows:
         total = SH.all_reduce(L.token_count(labels, mask), rows, mesh)
-        ce = L.cross_entropy(logits, labels, mask, total=total)
+        ce = L.cross_entropy(logits, labels, mask, total=total, tp=tp)
     else:
-        ce = L.cross_entropy(logits, labels, mask)
+        ce = L.cross_entropy(logits, labels, mask, tp=tp)
     return ce + aux, {"ce": ce, "aux": aux}
 
 
@@ -213,44 +221,24 @@ def state_pspecs(cfg: ModelConfig, tcfg: TrainConfig, mesh) -> TrainState:
                            replicate_embed=cfg.batch_over_model)
 
 
-def forward_specs(cfg: ModelConfig, pspecs, mesh):
-    """Per parameter, the part of its spec the mesh step's forward keeps
-    split: nothing, but under ``catwalk_ep`` the expert-parallel MoE
-    layers' blocks (:func:`repro_torch.models.moe.ep_block_specs`, each
-    behind the layers' stack axis)."""
-    from repro_torch.models import moe as M
-    ep = (cfg.moe is not None and cfg.moe.dispatch == "catwalk_ep"
-          and M.ep_model_size(cfg.moe, mesh) is not None)
-    keep = M.ep_block_specs(cfg.moe, mesh, cfg.moe.ep_fsdp) if ep else {}
-
-    def one(path, spec):
-        name = "/".join(path)
-        if path[:2] == ("layers", "moe") and name[len("layers/moe/"):] \
-                in keep:
-            return (None,) + keep[name[len("layers/moe/"):]]
-        return (None,) * len(spec)
-
-    def walk(tree, path):
-        return {k: walk(v, path + (k,)) if isinstance(v, dict)
-                else one(path + (k,), v) for k, v in tree.items()}
-    return walk(pspecs, ())
-
-
 def _minus(rest: SH.Spec, keep: SH.Spec) -> SH.Spec:
     """The entries of ``rest`` that ``keep`` does not keep."""
     return tuple(None if k is not None else r for r, k in zip(rest, keep))
 
 
-def _mesh_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh):
-    """:func:`make_train_step` under ``mesh``."""
-    st_specs = state_pspecs(cfg, tcfg, mesh)
-    pspecs = st_specs.params
-    fspecs = forward_specs(cfg, pspecs, mesh)
+def _mesh_grads(cfg: ModelConfig, tcfg: TrainConfig, mesh):
+    """``grads(params, batch) -> (loss, parts, gradients)`` of the mesh
+    step: ``params`` this rank's blocks under :func:`state_pspecs`, the
+    batch whole; the gradients in the forward's layout (the plan's split
+    leaves as blocks, the rest whole), summed over the ranks the rows are
+    split over and averaged over the microbatches."""
+    pspecs = state_pspecs(cfg, tcfg, mesh).params
+    fspecs = T.tp_plan(cfg, mesh)
     # what the forward gathers of each block
     fetch = tree_map(_minus, pspecs, fspecs)
     ga = tcfg.grad_accum
 
-    def train_step(state: TrainState, batch: Dict[str, Any]):
+    def grads_fn(blocks, batch: Dict[str, Any]):
         micros, mb = _micro(batch, ga)
         # the axes the rows split over, and those each forward leaf's
         # gradient is summed over: the rows' axes its spec leaves out
@@ -258,8 +246,7 @@ def _mesh_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh):
         sums = tree_map(lambda keep: tuple(
             a for a in row_axes if a not in SH.spec_axes(keep)), fspecs)
         rows = SH.block_slice(mesh, mb, row_axes or None)
-        params = tree_map(lambda p, f: SH.gather(p, f, mesh), state.params,
-                          fetch)
+        params = tree_map(lambda p, f: SH.gather(p, f, mesh), blocks, fetch)
         loss = grads = None
         for micro in micros:
             mine = {k: v[rows] for k, v in micro.items()}
@@ -275,10 +262,11 @@ def _mesh_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh):
             if grads is None:
                 grads = tree_map(torch.zeros_like, params)
                 loss = torch.zeros((), dtype=torch.float32,
-                                   device=state.step.device)
+                                   device=mloss.device)
             tree_map(lambda acc, g: acc.add_(g), grads, mgrads)
             del mgrads
             loss = loss + mloss
+        del params
         grads = tree_map(lambda g, axes: SH.all_reduce(g, axes, mesh),
                          grads, sums)
         if ga > 1:
@@ -286,19 +274,67 @@ def _mesh_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh):
             grads = tree_map(lambda g: g / n, grads)
             loss = loss / n
             parts = {"ce": loss, "aux": torch.zeros_like(loss)}
-        del params
-        # whole gradients for the clip and the chunked top-k
-        grads = tree_map(lambda g, f: SH.gather(g, f, mesh), grads, fspecs)
+        return loss, parts, grads
+
+    return grads_fn, fspecs, fetch
+
+
+def _cut(g: torch.Tensor, spec: SH.Spec, mesh) -> torch.Tensor:
+    """This rank's block of ``g`` over the live entries of ``spec``
+    (``g`` itself where there is none)."""
+    if not any(SH.split(mesh, e) for e in spec):
+        return g
+    return SH.shard_of(g, spec, mesh)
+
+
+def _global_norm_blocks(grads, pspecs, mesh) -> torch.Tensor:
+    """:func:`repro_torch.optim.optimizers.global_norm` of the whole
+    gradients from this rank's blocks (``pspecs``: each leaf's layout):
+    each leaf's f32 sum of squares is summed over the axes of more than
+    one rank that split it (one all-reduce per distinct set of axes), a
+    replicated leaf's counted once, then the root of the sum. Without
+    such axes it computes what ``global_norm`` does, op for op."""
+    leaves = tree_leaves(grads)
+    axes = [SH.live_axes(mesh, SH.spec_axes(s)) for s in tree_leaves(
+        tree_map(lambda g, s: s, grads, pspecs))]
+    sq = torch.stack([torch.sum(torch.square(g.to(torch.float32)))
+                      for g in leaves])
+    groups: Dict[Tuple[str, ...], list] = {}
+    for i, a in enumerate(axes):
+        if a:
+            groups.setdefault(tuple(sorted(a)), []).append(i)
+    if groups:
+        sq = sq.clone()
+        for a, idx in groups.items():
+            idx = torch.tensor(idx, device=sq.device)
+            sq[idx] = SH.all_reduce(sq[idx], a, mesh)
+    return torch.sqrt(torch.sum(sq))
+
+
+def _mesh_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh):
+    """:func:`make_train_step` under ``mesh``."""
+    st_specs = state_pspecs(cfg, tcfg, mesh)
+    pspecs = st_specs.params
+    grads_fn, fspecs, fetch = _mesh_grads(cfg, tcfg, mesh)
+
+    def train_step(state: TrainState, batch: Dict[str, Any]):
+        loss, parts, grads = grads_fn(state.params, batch)
         ef = state.ef
         stats: Dict[str, torch.Tensor] = {}
         if tcfg.compressing:
+            # whole gradients for the chunked top-k
+            grads = tree_map(lambda g, f: SH.gather(g, f, mesh), grads,
+                             fspecs)
             whole_ef = SH.gather_tree(state.ef, st_specs.ef, mesh)
             grads, whole_ef, stats = GC.compress_grads(grads, whole_ef,
                                                        tcfg.compression)
             ef = SH.shard_tree(whole_ef, st_specs.ef, mesh)
             del whole_ef
-        norm = O.global_norm(grads)
-        grads = SH.shard_tree(grads, pspecs, mesh)
+            norm = O.global_norm(grads)
+            grads = SH.shard_tree(grads, pspecs, mesh)
+        else:
+            grads = tree_map(lambda g, f: _cut(g, f, mesh), grads, fetch)
+            norm = _global_norm_blocks(grads, pspecs, mesh)
         new_params, new_opt, om = O.adamw_update(
             tcfg.optimizer, state.params, grads, state.opt, grad_norm=norm)
         metrics = {"loss": loss, **parts, **om, **stats}

@@ -106,6 +106,9 @@ def _configs(c):
     if c.get("capacity") is not None:
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
             cfg.moe, capacity_factor=c["capacity"]))
+    if c.get("act_sp"):
+        cfg = dataclasses.replace(cfg, act_sp=True)
+    cfg = dataclasses.replace(cfg, **c.get("edit", {}))
     if c.get("dispatch"):
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
             cfg.moe, dispatch=c["dispatch"]))
@@ -201,8 +204,9 @@ def launcher_suite(mesh, root: str, resume_dir: str) -> Dict[str, Any]:
 
     * ``a``: internlm2 smoke from scratch; ``a2``: the same failing after
       its second step (its checkpoint at 2 is for one process to resume);
-    * ``b``: internlm2 smoke resumed from ``resume_dir``, a checkpoint at
-      step 2 the single-process launcher wrote;
+    * ``b0``: internlm2 smoke to ``--steps 2`` on ``resume_dir``, a
+      checkpoint at step 2 the single-process launcher wrote: the state
+      as restored, before any step; ``b``: the run resumed from it;
     * ``c``: deepseek smoke ``--opt``; ``d``: the same failing after its
       third step, then started again.
     Returns each run's start, losses and (origin) final whole state."""
@@ -220,10 +224,10 @@ def launcher_suite(mesh, root: str, resume_dir: str) -> Dict[str, Any]:
                 raise Crash
         return hook
 
-    def args(arch, ckpt, *extra):
+    def args(arch, ckpt, *extra, steps=4):
         return ["--arch", arch, "--smoke", "--device", "cpu", "--seq-len",
-                "32", "--steps", "4", "--ckpt-every", "2", "--ckpt-dir",
-                ckpt, *extra]
+                "32", "--steps", str(steps), "--ckpt-every", "2",
+                "--ckpt-dir", ckpt, *extra]
 
     def result(argv):
         run = launch.main(argv)
@@ -245,6 +249,7 @@ def launcher_suite(mesh, root: str, resume_dir: str) -> Dict[str, Any]:
     intern, deep = "internlm2-1.8b", "deepseek-v2-lite-16b"
     out = {"a": result(args(intern, f"{root}/a")),
            "a2_failed_at": failing(args(intern, f"{root}/a2"), 1),
+           "b0": result(args(intern, resume_dir, steps=2)),
            "b": result(args(intern, resume_dir)),
            "c": result(args(deep, f"{root}/c", "--opt")),
            "d_failed_at": failing(args(deep, f"{root}/d", "--opt"), 2)}
@@ -279,3 +284,190 @@ def mesh_suite(mesh, ep_cases, step_cases) -> Dict[str, Any]:
     return dict(ep=ep_suite(mesh, ep_cases),
                 ep_rows_refused=ep_rows_refusal(mesh, ep_cases["cap8"]),
                 steps=step_suite(mesh, step_cases))
+
+
+# ------------------------------------------------ tensor and sequence parallel
+
+def _module_cfg(c):
+    """The port's float32 smoke config of a TP module case, with its
+    edits (``n_kv_heads``, ``n_heads``)."""
+    from repro_torch.configs import registry
+    cfg = dataclasses.replace(registry.get_config(c["arch"] + "-smoke"),
+                              dtype="float32")
+    return dataclasses.replace(cfg, **c.get("edit", {}))
+
+
+def _seq_block(tp, x):
+    """This rank's block of ``x``'s sequence (dim 1)."""
+    from repro_torch.sharding import specs
+    return x[:, specs.block_slice(tp.mesh, x.shape[1], "model")]
+
+
+def tp_modules(mesh, cases) -> Dict[str, Any]:
+    """Each case runs one module the way ``forward(..., mesh=)`` runs it
+    (``transformer._mixer`` with the plan's split leaves): its weights this
+    rank's blocks under :func:`repro_torch.models.transformer.tp_plan`,
+    the input whole (``seq``: the rank's sequence block, under sequence
+    parallelism). Returns (origin) each output whole, and whether the
+    plan split the module."""
+    import torch
+    from repro_torch.models import attention as A
+    from repro_torch.models import layers as L
+    from repro_torch.models import ssm as S
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding import specs
+    out: Dict[str, Any] = {}
+    for name, c in cases.items():
+        cfg = _module_cfg(c)
+        tp = T._tp_of(cfg, mesh, ())
+        plan = T.tp_plan(cfg, mesh)
+        if tp is not None and c.get("seq"):
+            tp = tp._replace(seq=True)
+        p = _tree(c["p"])
+        x = torch.from_numpy(c["x"])
+        kind = c["kind"]
+        if kind in ("embed", "head", "ce"):
+            table = "embed" if kind == "embed" else "lm_head"
+            w = specs.shard_of(p["w"], plan[table], mesh)
+            split = tp is not None and T._keeps(plan[table])
+            part = tp if split else None
+            if kind == "embed":
+                y = L.embed_lookup(w, x, part)
+            elif kind == "head":
+                y = x @ w if part is None else specs.gather_along(
+                    part.enter(x) @ w, 2, "model", mesh, summed=False)
+            else:
+                v = specs.block_slice(mesh, x.shape[-1], plan[table][1]) \
+                    if split else slice(None)
+                y = L.cross_entropy(x[..., v], torch.from_numpy(c["labels"]),
+                                    torch.from_numpy(c["mask"]), tp=part)
+            out[name] = dict(y=_np(y), split=split)
+            continue
+        mod = {"mlp": "mlp", "gqa": "attn", "xattn": "attn", "mla": "attn",
+               "ssm": "ssm"}[kind]
+        lplan = T._layer_plan(plan["layers"])
+        blocks = {k: specs.shard_of(v, lplan[mod][k], mesh)
+                  for k, v in p.items()}
+        split = T._blocks(tp, lplan)(mod)
+        kv = None if c.get("kv") is None else torch.from_numpy(c["kv"])
+        fns = {
+            "mlp": lambda h, t: L.mlp_apply(blocks, h, t),
+            "gqa": lambda h, t: A.gqa_apply(blocks, h, cfg, tp=t)[0],
+            "xattn": lambda h, t: A.gqa_apply(
+                blocks, h, cfg, kv_input=kv, causal=False, tp=t)[0],
+            "mla": lambda h, t: A.mla_apply(blocks, h, cfg, tp=t)[0],
+            "ssm": lambda h, t: S.ssm_apply(blocks, h, cfg, tp=t)[0],
+        }
+        h = x if tp is None or not tp.seq else _seq_block(tp, x)
+        y = T._mixer(fns[kind], h, tp, split)
+        if tp is not None and tp.seq:
+            y = specs.gather(y, (None, "model"), mesh)
+        out[name] = dict(y=_np(y), split=bool(split))
+    return out if specs.is_origin(mesh) else {}
+
+
+def tp_grads(mesh, cases) -> Dict[str, Any]:
+    """Each case: a config, the reference's initial state (checkpoint
+    keys -> numpy), a batch and the reference's single-device gradient
+    (parameter keys -> numpy). Every rank takes the mesh step's gradients
+    without compression (``train_loop._mesh_grads``, cut to the state's
+    blocks as the step cuts them) and compares each leaf's block with its
+    block of the reference's: returns, per rank, each leaf's largest
+    |difference| over the whole leaf's largest |value|, and the shape
+    of each block."""
+    import torch
+    from repro_torch.sharding import specs
+    from repro_torch.train import train_loop as TL
+    from repro_torch.train.checkpoint import _map_with_path
+    out: Dict[str, Any] = {}
+    for name, c in cases.items():
+        cfg, tcfg = _configs(c)
+        whole = state_from_flat(c["state"], cfg, tcfg)
+        st = TL.state_pspecs(cfg, tcfg, mesh)
+        blocks = specs.shard_tree(whole, st, mesh)
+        grads_fn, _, fetch = TL._mesh_grads(cfg, tcfg, mesh)
+        _, _, grads = grads_fn(blocks.params, c["batch"])
+        grads = TL.tree_map(lambda g, f: TL._cut(g, f, mesh), grads, fetch)
+        spec_of = specs._spec_table(st.params)
+        flat = {}
+        _map_with_path(grads, lambda key, g: flat.__setitem__(key, g))
+        res = {}
+        for key, g in flat.items():
+            want = torch.from_numpy(c["grad"][key]).to(g.dtype)
+            scale = float(want.abs().max())
+            err = float((g - specs.shard_of(want, spec_of[key], mesh))
+                        .abs().max())
+            res[key] = (err / scale if scale else err, tuple(g.shape))
+        out[name] = res
+    return out
+
+
+def tp_layout(mesh, cases) -> Dict[str, Any]:
+    """Each case: a config (``act_sp`` or not) and a batch, the state
+    drawn by ``init_train_state(mesh=)``. (1) One mesh step without
+    compression and one with, the leaves gathered outside the
+    activations' collectives recorded: the state's parameter blocks the
+    step gathers (by key) and any other gather (a gradient's). (2) The
+    forward's residual stream: the sequence length of every block's
+    input."""
+    import torch
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding import specs
+    from repro_torch.train import train_loop as TL
+    from repro_torch.train.checkpoint import _map_with_path
+    out: Dict[str, Any] = {}
+    gather, along, block = specs.gather, specs._along, T._block_apply
+    inside = [0]
+    record: Dict[str, Any] = {}
+
+    def spy_gather(x, spec, mesh_):
+        if not inside[0] and any(specs.split(mesh_, e) for e in spec):
+            key = record["ids"].get(id(x))
+            record["params" if key else "other"].append(key or tuple(
+                x.shape))
+        return gather(x, spec, mesh_)
+
+    def spy_along(*args):
+        inside[0] += 1
+        try:
+            return along(*args)
+        finally:
+            inside[0] -= 1
+
+    def spy_block(p, x, *args, **kw):
+        record["seq"].append(int(x.shape[1]))
+        return block(p, x, *args, **kw)
+
+    specs.gather, specs._along, T._block_apply = spy_gather, spy_along, \
+        spy_block
+    try:
+        for name, c in cases.items():
+            res = {}
+            for rho in (None, 0.1):
+                cfg, tcfg = _configs(dict(c, rho=rho))
+                state = TL.init_train_state(
+                    torch.Generator().manual_seed(0), cfg, tcfg,
+                    device="cpu", mesh=mesh)
+                ids = {}
+                _map_with_path(state.params,
+                               lambda key, leaf: ids.__setitem__(id(leaf),
+                                                                 key))
+                record.update(ids=ids, params=[], other=[], seq=[])
+                TL.make_train_step(cfg, tcfg, mesh=mesh)(state, c["batch"])
+                res["compress" if rho else "plain"] = dict(
+                    params=sorted(set(record["params"])),
+                    other=len(record["other"]), seq=list(record["seq"]))
+            out[name] = res
+    finally:
+        specs.gather, specs._along, T._block_apply = gather, along, block
+    return out
+
+
+def tp_suite(mesh, module_cases, grad_cases, layout_cases) -> Dict[str, Any]:
+    """:func:`tp_modules`, :func:`tp_grads` and :func:`tp_layout` in one
+    spawn."""
+    import torch
+    torch.manual_seed(0)
+    return dict(modules=tp_modules(mesh, module_cases),
+                grads=tp_grads(mesh, grad_cases),
+                layout=tp_layout(mesh, layout_cases))
