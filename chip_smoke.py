@@ -95,14 +95,21 @@ rank's part of one layer under 2-, 4- and 8-way tensor parallelism
 SSM block with the SSD kernel on the rank's heads, the
 vocabulary-parallel cross-entropy over internlm2's head), combined as
 the collectives would and held against the whole layer, with the
-state bytes per rank from the spec tree; and the
+state bytes per rank from the spec tree; the
 mesh train step of deepseek (``--opt``) at the smoke size bit-exact
-against the single-device step. The training phase then repeats
+against the single-device step; and 16 steps of ``decode_step(...,
+mesh=)`` after a 4 x 2,048 prefill for deepseek (``--opt``: one gate
+launch a layer a step), internlm2-1.8b and mamba2-780m at full width,
+each bit-exact against the decode without a mesh. The training phase then repeats
 internlm2-1.8b's and mamba2-780m's (``--opt``) full-width launcher runs
 through the mesh step on a world-size-1 mesh (the state made as blocks
 by ``init_train_state(mesh=)``), each held bit for bit against the
-single-device run's losses and final state. Phases print one
-JSON line each; the last line is ``{"ok": true, "device": {...}}``. Any
+single-device run's losses and final state. Last, the dry run
+(``repro_torch.launch.dryrun``) traces four production cells on the host
+(fake ranks, no device) and its counter is held against one real step of
+internlm2-1.8b's launcher run on the card: the argument bytes and the
+FLOPs equal, the predicted peak beside ``max_memory_allocated``. Phases
+print one JSON line each; the last line is ``{"ok": true, "device": {...}}``. Any
 failure raises and exits non-zero; without CUDA it exits non-zero at
 once.
 
@@ -130,6 +137,11 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 ROOT = pathlib.Path(__file__).resolve().parent
+if not (ROOT / "src" / "repro_torch").is_dir():
+    # the script alone, without the port beside it: nothing to run
+    print(f"chip_smoke: no src/repro_torch under {ROOT}; run it from the "
+          f"repository's root", file=sys.stderr)
+    sys.exit(1)
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.core import coding, column, compaction, layer  # noqa: E402
@@ -150,6 +162,8 @@ from repro_torch.models import transformer as lm  # noqa: E402
 from repro_torch.optim import grad_compression as GC  # noqa: E402
 from repro_torch.optim import optimizers as O  # noqa: E402
 from repro_torch.optim.tree import tree_leaves, tree_unflatten  # noqa: E402
+from repro_torch.roofline import analysis as roofline  # noqa: E402
+from repro_torch.roofline.op_cost import tensor_bytes  # noqa: E402
 from repro_torch.serve import tnn_engine  # noqa: E402
 from repro_torch.serve.engine import Engine, ServeConfig  # noqa: E402
 from repro_torch.sharding import specs  # noqa: E402
@@ -159,17 +173,19 @@ from repro_torch.train import train_loop as TL  # noqa: E402
 
 from examples import tnn_clustering_torch as clustering  # noqa: E402
 
-#: H100 SXM device-memory rate, bytes/s (NVIDIA data sheet).
-HBM_BYTES_PER_S = 3.35e12
+#: H100 SXM device-memory rate, bytes/s (NVIDIA data sheet;
+#: repro_torch.roofline.analysis).
+HBM_BYTES_PER_S = roofline.HBM_BW
 #: H100 SXM int32 ALU rate, ops/s: 132 SMs x 64 INT32 units per SM (Hopper
 #: architecture white paper) x 1.98 GHz boost clock.
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 #: int32 operations per line-tick of the sweep: subtract, compare, add.
 OPS_PER_LINE_TICK = 3
-#: H100 SXM dense tensor-core rates, FLOP/s (NVIDIA data sheet): bf16,
-#: and TF32 taken three times over, the float32-accurate split of each
-#: product (3xTF32): the peaks for the SSD scan's bf16 and float32 inputs.
-BF16_FLOPS_PER_S = 989e12
+#: H100 SXM dense tensor-core rates, FLOP/s (NVIDIA data sheet): bf16
+#: (repro_torch.roofline.analysis), and TF32 taken three times over, the
+#: float32-accurate split of each product (3xTF32): the peaks for the SSD
+#: scan's bf16 and float32 inputs.
+BF16_FLOPS_PER_S = roofline.PEAK_FLOPS
 F32_SPLIT_FLOPS_PER_S = 495e12 / 3
 
 #: the largest TNN network the repository defines
@@ -2908,8 +2924,8 @@ def _forward_vs_decode(cfg, params, tokens):
     calls = []
     apply = lm.S.ssm_apply
 
-    def spy(p, u, c, *, cache=None):
-        out = apply(p, u, c, cache=cache)
+    def spy(p, u, c, **kw):
+        out = apply(p, u, c, **kw)
         calls.append((u, out[0]))
         return out
 
@@ -3572,7 +3588,161 @@ def lm_tp_tiles(dev, cfg, params, tokens) -> Tuple[Dict[str, int],
     return counts, rows
 
 
-def phase_lm_mesh(dev, cfg, params, tokens, root
+#: the mesh decode: DECODE_STEPS steps of decode_step(..., mesh=) after a
+#: prefill of the phase's 4 x 2,048 tokens, each step's tokens drawn from
+#: a seed; the caches hold DECODE_STEPS positions past the prefill
+DECODE_STEPS = 16
+
+
+def prefilled_state(params, cfg, tokens, max_len: int):
+    """The serve state after a prefill of ``tokens`` (B, S): one
+    ``forward`` over them with each layer's mixer input captured, and the
+    caches written from those inputs as the decode would write them token
+    by token — GQA's roped K and V, MLA's latent and roped rotary key, the
+    Mamba2 conv window (the last K - 1 conv inputs) and SSD state (the
+    scan's inputs summed under their decays: the recurrence's final
+    state, in float32) — with every position at S."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import attention as A
+    from repro_torch.models import layers as L
+    from repro_torch.models import ssm as S
+    b, s = tokens.shape
+    seen: Dict[str, list] = {"x": [], "conv": [], "scan": []}
+    orig = (A.gqa_apply, A.mla_apply, S._causal_conv, ops.ssd_scan_mh)
+
+    def spy_attn(fn):
+        def call(p, x, cfg_, **kw):
+            if kw.get("cache") is None and kw.get("kv_input") is None \
+                    and kw.get("tp") is None:
+                seen["x"].append(x)
+            return fn(p, x, cfg_, **kw)
+        return call
+
+    def spy_conv(seq, w):
+        seen["conv"].append(seq[:, -(w.shape[0] - 1):].clone())
+        return orig[2](seq, w)
+
+    def spy_scan(u, log_decay, b_, c, chunk=128):
+        seen["scan"].append((u, log_decay, b_))
+        return orig[3](u, log_decay, b_, c, chunk=chunk)
+    A.gqa_apply, A.mla_apply = spy_attn(orig[0]), spy_attn(orig[1])
+    S._causal_conv, ops.ssd_scan_mh = spy_conv, spy_scan
+    try:
+        with torch.no_grad():
+            lm.forward(params, cfg, tokens, logits_mode="last")
+    finally:
+        A.gqa_apply, A.mla_apply, S._causal_conv, ops.ssd_scan_mh = orig
+    state = lm.init_serve_state(params, cfg, b, max_len)
+    caches = state.layer_caches
+    pos = torch.arange(s, device=tokens.device, dtype=torch.int32)[None]
+    with torch.no_grad():
+        for i, lp in enumerate(lm._unstack(params["layers"])):
+            if cfg.family == "ssm":
+                u, ld, bb = seen["scan"][i]
+                cum = torch.cumsum(ld, -1)
+                w = torch.exp(cum[..., -1:] - cum)
+                caches.state[i] = torch.einsum(
+                    "bhl,bln,bhlp->bhnp", w, bb.float(), u.float())
+                caches.conv[i] = seen["conv"][i]
+                continue
+            h, p = seen["x"][i], lp["attn"]
+            if cfg.mla is not None:
+                caches.k[i, :, :s] = h @ p["w_dkv"]
+                caches.v[i, :, :s] = L.apply_rope(
+                    (h @ p["w_kr"])[:, :, None, :], pos,
+                    cfg.rope_theta)[:, :, 0]
+            else:
+                hd = cfg.resolved_head_dim
+                k = (h @ p["wk"]).reshape(b, s, -1, hd)
+                caches.k[i, :, :s] = L.apply_rope(k, pos, cfg.rope_theta)
+                caches.v[i, :, :s] = (h @ p["wv"]).reshape(b, s, -1, hd)
+        if isinstance(caches, lm.A.KVCache):
+            caches.pos.fill_(s)
+    return state._replace(pos=torch.full_like(state.pos, s))
+
+
+def lm_mesh_decode(dev, mesh, name, cfg, params, tokens, kernel,
+                   floor_ms) -> Dict[str, int]:
+    """``decode_step(..., mesh=)`` on the world-size-1 mesh against
+    ``decode_step`` without one, :data:`DECODE_STEPS` steps from the same
+    prefilled state (:func:`prefilled_state`) on the same tokens: every
+    step's logits and the final state bit for bit. At world size 1 every
+    block is its whole leaf, so the parameters go in as they are. The mesh
+    run's gate calls are captured (the first run) and each distinct one is
+    held against its plain version; the second mesh run is counted: the
+    gate once per layer a step where ``kernel`` names it, no launch at all
+    otherwise. Each run's ms per step (host clock, synchronised) is
+    reported. Returns the counted run's launch counts."""
+    b, s = tokens.shape
+    state = prefilled_state(params, cfg, tokens, s + DECODE_STEPS)
+    blocks = lm.init_serve_state(params, cfg, b, s + DECODE_STEPS, mesh=mesh)
+    if [t.shape for t in tree_leaves_state(blocks)] \
+            != [t.shape for t in tree_leaves_state(state)]:
+        raise AssertionError(f"{name}: init_serve_state(mesh=) blocks "
+                             f"differ from the whole state at world size 1")
+    del blocks
+    steps = torch.from_numpy(np.random.default_rng(11).integers(
+        0, cfg.vocab_size, (DECODE_STEPS, b, 1))).to(dev)
+
+    def run(mesh_=None):
+        st, out = state, []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            for t in range(DECODE_STEPS):
+                logits, st = lm.decode_step(params, cfg, st, steps[t],
+                                            mesh=mesh_)
+                out.append(logits)
+        torch.cuda.synchronize()
+        return out, st, 1e3 * (time.perf_counter() - t0) / DECODE_STEPS
+    got = []
+    cases = capture(lambda: run(mesh), result=got)
+    for i, case in enumerate(cases):
+        if case["wrapper"] != "moe_gate_topk":
+            raise AssertionError(f"{name}: launched {case['wrapper']}")
+        check_gate(f"{name}#{i}", case["logits"], case["k"], case["renorm"],
+                   path=name, calls=case["calls"], floor_ms=floor_ms)
+    reset_launches()
+    mesh_logits, mesh_state, mesh_ms = run(mesh)
+    counts = launch_counts()
+    want_logits, want_state, single_ms = run()
+    want = {k: 0 for k in counts}
+    if kernel is not None:
+        want[kernel] = cfg.n_layers * DECODE_STEPS
+    if counts != want:
+        raise AssertionError(f"{name}: launches {counts}, expected {want}")
+    same = all(torch.equal(g, w) for g, w in zip(mesh_logits, want_logits)) \
+        and all(torch.equal(g, w) for g, w in zip(
+            tree_leaves_state(mesh_state), tree_leaves_state(want_state)))
+    if not same:
+        raise AssertionError(f"{name}: the mesh decode differs from the "
+                             f"decode without a mesh")
+    _, _, mesh_ms2 = run(mesh)
+    _, _, single_ms2 = run()
+    emit("lm_mesh", run=name, arch=cfg.name, dispatch=cfg.moe.dispatch
+         if cfg.moe else None, mesh=list(mesh.shape), batch=b, prefill=s,
+         steps=DECODE_STEPS, gate_calls_checked=len(cases),
+         launches={k: v for k, v in counts.items() if v},
+         bit_exact_vs_single=True,
+         ms_per_step=statistics.median([mesh_ms, mesh_ms2]),
+         single_ms_per_step=statistics.median([single_ms, single_ms2]),
+         ms_per_step_all=[mesh_ms, mesh_ms2],
+         single_ms_per_step_all=[single_ms, single_ms2],
+         nvidia_smi=smi_line())
+    return counts
+
+
+def tree_leaves_state(state) -> List[torch.Tensor]:
+    """A serve state's tensors in field order."""
+    out = []
+    for part in state:
+        if part is None:
+            continue
+        out.extend(part if isinstance(part, tuple) else [part])
+    return out
+
+
+def phase_lm_mesh(dev, cfg, params, tokens, root, decode, floor_ms
                   ) -> Tuple[Dict[str, Dict[str, int]], Dict[str, str]]:
     """The LM path across GPUs, on the one card: an NCCL process group of
     world size 1 and its ``(1, 1)`` ``("data", "model")`` mesh
@@ -3583,10 +3753,13 @@ def phase_lm_mesh(dev, cfg, params, tokens, root
     loss equal the forward without a mesh bit for bit, at exactly one gate
     launch per layer; both timed (host clock, median of 3, alternated).
     (2) :func:`lm_mesh_tiles`. (3) :func:`lm_tp_tiles` and
-    :func:`tp_bytes_lines`. (4) :func:`lm_mesh_train`. The process group
-    is destroyed at the end. Returns each run's launch counts, the kernel
-    each run launches and the SSD kernel's rows at the tensor-parallel
-    tile shapes."""
+    :func:`tp_bytes_lines`. (4) :func:`lm_mesh_train`. (5)
+    :func:`lm_mesh_decode` of deepseek-v2-lite ``--opt`` (these parameters
+    and ``tokens``), of internlm2-1.8b (initialised here, at full width)
+    and of mamba2-780m (``decode``: its config, parameters and tokens). The
+    process group is destroyed at the end. Returns each run's launch
+    counts, the kernel each run launches and the SSD kernel's rows at the
+    tensor-parallel tile shapes."""
     import torch.distributed as dist
     torch.cuda.set_device(0)
     dist.init_process_group(
@@ -3645,11 +3818,26 @@ def phase_lm_mesh(dev, cfg, params, tokens, root
         runs["lm_tp_tiles"], tp_rows = lm_tp_tiles(dev, cfg, params, tokens)
         tp_bytes_lines()
         runs.update(lm_mesh_train(dev, mesh))
+        runs["lm_mesh_decode_deepseek"] = lm_mesh_decode(
+            dev, mesh, "lm_mesh_decode_deepseek", opt, params, tokens,
+            "moe_gate_topk", floor_ms)
+        dense = lm_registry.get_config(DENSE_ARCH)
+        dense_params = lm.init_params(
+            torch.Generator(device=dev).manual_seed(0), dense, device=dev)
+        runs["lm_mesh_decode_internlm2"] = lm_mesh_decode(
+            dev, mesh, "lm_mesh_decode_internlm2", dense, dense_params,
+            torch.from_numpy(np.random.default_rng(12).integers(
+                0, dense.vocab_size, tuple(tokens.shape))).to(dev),
+            None, floor_ms)
+        del dense_params
+        runs["lm_mesh_decode_mamba2"] = lm_mesh_decode(
+            dev, mesh, "lm_mesh_decode_mamba2", *decode, None, floor_ms)
     finally:
         dist.destroy_process_group()
     kernel = {"lm_mesh_prefill": "moe_gate_topk",
               "lm_mesh_train_deepseek": "moe_gate_topk",
-              "lm_tp_tiles": "ssd_scan"}
+              "lm_tp_tiles": "ssd_scan",
+              "lm_mesh_decode_deepseek": "moe_gate_topk"}
     return runs, kernel, tp_rows
 
 
@@ -4370,6 +4558,147 @@ def phase_train_autograd(dev, smi) -> None:
                    backward_is="moe_gate_vjp (plain PyTorch)"))
 
 
+# ============================================================ dry run
+
+#: the dry run's cells on the card's host (arch, shape, two pods, --opt):
+#: a dense train step, the expert-parallel decode, arctic's train state on
+#: two pods, mamba2's 524,288-token decode
+DRYRUN_CELLS = (("internlm2-1.8b", "train_4k", False, False),
+                ("deepseek-v2-lite-16b", "decode_32k", False, True),
+                ("arctic-480b", "train_4k", True, True),
+                ("mamba2-780m", "long_500k", False, False))
+#: the dry run's record keys each ``dryrun`` line carries
+DRYRUN_KEYS = ("arch", "shape", "mesh", "chips", "rank", "status",
+               "trace_s", "flops_per_chip", "bytes_per_chip",
+               "collective_bytes_per_chip", "collectives", "memory",
+               "peak_bytes", "state_bytes", "model_flops_global", "terms",
+               "dominant", "useful_flops_ratio", "roofline_fraction")
+#: the device memory a rank's predicted peak is held against
+CARD_BYTES = 80e9
+
+_DRYRUN_SCRIPT = """
+import json, sys
+from repro_torch.launch import dryrun as D
+for arch, shape, pod, opt in json.loads(sys.argv[1]):
+    rec = D.run_cell(arch, shape, pod, opt=opt)
+    rec["opt"] = opt
+    print(json.dumps(rec), flush=True)
+"""
+
+
+def phase_dryrun(dev, smi, root) -> None:
+    """The dry run (:mod:`repro_torch.launch.dryrun`) on this machine's
+    host: each of :data:`DRYRUN_CELLS` traced as rank 0 of its production
+    mesh under ``FakeTensorMode`` (a subprocess, whose fake process group
+    is its own; nothing runs on the card), one ``dryrun`` line each, status
+    ``ok`` or raise. Then the counter against the card, on internlm2-1.8b's
+    launcher run (8 x 4,096 tokens in 4 microbatches, one device): the dry
+    run's count of that step on fake CPU tensors
+    (:func:`repro_torch.launch.dryrun.measure`) against one real step on
+    the card — the argument bytes equal to the real state's bytes, the
+    FLOPs equal to ``FlopCounterMode`` around the real step (any
+    difference named op by op, then raised), the predicted peak beside
+    ``torch.cuda.max_memory_allocated`` of that step, and the predicted
+    compute and memory terms beside the measured time of a second step."""
+    import os
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src")
+    t0 = time.perf_counter()
+    # the cells run on the host beside the counter's work below
+    proc = subprocess.Popen(
+        [sys.executable, "-c", _DRYRUN_SCRIPT, json.dumps(DRYRUN_CELLS)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+        cwd=ROOT)
+    try:
+        counter = _dryrun_counter(dev, smi, root)
+        out, err = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if proc.returncode != 0:
+        raise AssertionError(f"dryrun: {err[-3000:]}")
+    recs = [json.loads(line) for line in out.splitlines()
+            if line.startswith("{")]
+    if len(recs) != len(DRYRUN_CELLS) or any(r["status"] != "ok"
+                                             for r in recs):
+        raise AssertionError(f"dryrun: {recs}")
+    for rec in recs:
+        emit("dryrun", **{k: rec[k] for k in DRYRUN_KEYS}, opt=rec["opt"],
+             fits_card=rec["peak_bytes"] <= CARD_BYTES, card_bytes=CARD_BYTES,
+             device="none: fake ranks under FakeTensorMode on the host",
+             constants=dict(peak_flops=roofline.PEAK_FLOPS,
+                            hbm_bw=roofline.HBM_BW,
+                            link_bw=roofline.LINK_BW),
+             nvidia_smi=smi)
+    emit("dryrun", **counter, phase_s=time.perf_counter() - t0)
+    if counter["argument_bytes"] != counter["real_state_bytes"]:
+        raise AssertionError(f"dryrun: argument bytes "
+                             f"{counter['argument_bytes']} against the "
+                             f"card's state {counter['real_state_bytes']}")
+    if counter["flops"] != counter["real_flops"]:
+        raise AssertionError(f"dryrun: FLOPs {counter['flops']} against "
+                             f"the card's {counter['real_flops']}: "
+                             f"{counter['flops_diff_by_op']}")
+
+
+def _dryrun_counter(dev, smi, root) -> Dict[str, Any]:
+    """The counter against the card (see :func:`phase_dryrun`): the
+    ``counter_vs_card`` line's fields."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils.flop_counter import FlopCounterMode
+    args = train_launcher.parser().parse_args(launcher_argv(
+        TRAIN_DENSE, pathlib.Path(root) / "dryrun", seq=TRAIN_SEQ,
+        batch=TRAIN_BATCH))
+    cfg, tcfg, data = train_launcher.setup(args)
+    step = TL.make_train_step(cfg, tcfg)
+    batch = data.batch(0)
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        fake = TL.init_train_state(torch.Generator().manual_seed(0), cfg,
+                                   tcfg, "cpu")
+        pred = dryrun.measure(step, (fake, batch), tensor_bytes(fake),
+                              tensor_bytes(fake))
+        del fake
+    state = TL.init_train_state(torch.Generator(device=dev).manual_seed(0),
+                                cfg, tcfg, dev)
+    real_bytes = tensor_bytes(state)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with FlopCounterMode(display=False) as counter:
+        state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    real_by_op = {str(k): int(v) for k, v in
+                  counter.get_flop_counts().get("Global", {}).items()}
+    real_flops = int(counter.get_total_flops())
+    t1 = time.perf_counter()
+    state, _ = step(state, data.batch(1))
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t1
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    diff = {op: (pred["flops_by_op"].get(op, 0), real_by_op.get(op, 0))
+            for op in set(pred["flops_by_op"]) | set(real_by_op)
+            if pred["flops_by_op"].get(op, 0) != real_by_op.get(op, 0)}
+    compute_s = pred["flops"] / roofline.PEAK_FLOPS
+    memory_s = pred["bytes"] / roofline.HBM_BW
+    return dict(run="counter_vs_card", arch=cfg.name, seq=TRAIN_SEQ,
+                global_batch=TRAIN_BATCH, grad_accum=tcfg.grad_accum,
+                argument_bytes=pred["memory"]["argument_bytes"],
+                real_state_bytes=real_bytes, flops=pred["flops"],
+                real_flops=real_flops, flops_by_op=pred["flops_by_op"],
+                flops_diff_by_op=diff,
+                predicted_peak_bytes=pred["peak_bytes"],
+                max_memory_allocated=peak, memory_allocated_before=base,
+                predicted_bytes=pred["bytes"], compute_s=compute_s,
+                memory_s=memory_s, step_s=step_s,
+                compute_fraction=compute_s / step_s,
+                roofline_fraction=max(compute_s, memory_s) / step_s,
+                trace_s=pred["trace_s"], nvidia_smi=smi)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4454,7 +4783,8 @@ def smoke(root: str) -> int:
                          "moe_decode_step", per_slot=True)
     phase_moe_checks(dev, moe_cfg, moe_params)
     lm_mesh_launches, lm_mesh_kernels, tp_rows = phase_lm_mesh(
-        dev, moe_cfg, moe_params, moe_tokens, root)
+        dev, moe_cfg, moe_params, moe_tokens, root,
+        (lm_cfg, lm_params, lm_tokens), floor_ms)
     launches.update(lm_mesh_launches)
 
     ssd = main_rows["ssd_scan"]
@@ -4501,6 +4831,7 @@ def smoke(root: str) -> int:
                            case["renorm"], path=path, calls=case["calls"],
                            floor_ms=floor_ms)
     del train_captured
+    phase_dryrun(dev, smi, root)
 
     kernels = []
     for name, row in main_rows.items():

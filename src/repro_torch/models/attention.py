@@ -11,8 +11,8 @@ on use. Scores and softmax run in float32; the cache keeps the model dtype.
 The functions are pure, as the reference's are: a cache update returns a
 new buffer and leaves the old one as it was.
 
-Under tensor parallelism (``tp=``, :class:`repro_torch.models.layers.TP`,
-full sequence only) a rank computes its heads: GQA its ``n_heads / m``
+Under tensor parallelism (``tp=``, :class:`repro_torch.models.layers.TP`;
+the full sequence, or a cached decode on a mesh) a rank computes its heads: GQA its ``n_heads / m``
 query heads with the KV heads of their groups, MLA its heads of ``wq``
 and ``w_ukv`` (the latent and rotary-key projections whole); ``wo`` is
 row-parallel and the ranks' outputs are summed. The head counts come
@@ -173,6 +173,14 @@ def _cut(p: Dict[str, torch.Tensor], blocks: frozenset, **cuts
             for k, v in p.items()}
 
 
+def _rank_groups(cfg: ModelConfig, rank: int, m: int) -> Tuple[int, int]:
+    """The first KV group and the group count of rank ``rank`` of ``m``'s
+    query heads (:func:`gqa_split` must hold)."""
+    hq = cfg.n_heads // m
+    rep = cfg.n_heads // cfg.n_kv_heads
+    return rank * hq // rep, max(hq // rep, 1)
+
+
 def gqa_rank_params(p: Dict[str, torch.Tensor], cfg: ModelConfig, rank: int,
                     m: int, blocks: frozenset = frozenset()
                     ) -> Dict[str, torch.Tensor]:
@@ -180,11 +188,10 @@ def gqa_rank_params(p: Dict[str, torch.Tensor], cfg: ModelConfig, rank: int,
     hold): its query heads' columns of ``wq`` and rows of ``wo``, its
     groups' columns of ``wk`` and ``wv``. The leaves named in ``blocks``
     are already the rank's blocks."""
-    hd, h, g = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
-    hq = h // m
+    hd = cfg.resolved_head_dim
+    hq = cfg.n_heads // m
     q0 = rank * hq
-    rep = h // g
-    g0, gn = q0 // rep, max(hq // rep, 1)
+    g0, gn = _rank_groups(cfg, rank, m)
     return _cut(p, blocks, wq=lambda w: _cols(w, q0, hq, hd),
                 wk=lambda w: _cols(w, g0, gn, hd),
                 wv=lambda w: _cols(w, g0, gn, hd),
@@ -195,28 +202,36 @@ def gqa_apply(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
               *, causal: bool = True,
               positions: Optional[torch.Tensor] = None,
               cache: Optional[KVCache] = None,
-              kv_input: Optional[torch.Tensor] = None, tp=None
+              kv_input: Optional[torch.Tensor] = None, tp=None,
+              kv_groups: Optional[Tuple[int, int]] = None
               ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """x (B,S,D). kv_input: encoder output for cross-attention (no rope).
 
     With ``cache``: writes this call's K/V at cache.pos and attends over
     the whole cache (decode). Returns (out, new_cache | None).
+    ``kv_groups``: (first, count) of the cache's KV groups the queries
+    attend to (default all of them).
 
     ``tp``: ``wq``/``wo`` are this rank's query heads, ``wk``/``wv`` its
     KV heads where ``tp.blocks`` names them, else whole (then its groups'
     columns are taken); ``x`` enters through ``tp.enter``, ``kv_input``
-    whole, and the output leaves through ``tp.leave``."""
+    whole, and the output leaves through ``tp.leave``. With ``cache``
+    (decode on a mesh) the cache holds the rank's KV heads where
+    ``tp.blocks`` names ``wk``, else every KV head: then every head's
+    K/V is computed and written, the same on every rank, and the rank's
+    queries read their groups."""
     if tp is not None:
-        if cache is not None:
-            raise ValueError("tensor parallelism runs the full sequence, "
-                             "not a cached decode")
-        pr = gqa_rank_params(tp.leaves(p), cfg, tp.rank, tp.size,
-                             tp.blocks)
-        out, _ = gqa_apply(pr, tp.enter(x), cfg, causal=causal,
-                           positions=positions,
-                           kv_input=None if kv_input is None
-                           else tp.whole(kv_input))
-        return tp.leave(out), None
+        leaves = tp.leaves(p)
+        pr = gqa_rank_params(leaves, cfg, tp.rank, tp.size, tp.blocks)
+        if cache is not None and "wk" not in tp.blocks:
+            pr = {**pr, "wk": leaves["wk"], "wv": leaves["wv"]}
+            kv_groups = _rank_groups(cfg, tp.rank, tp.size)
+        out, new_cache = gqa_apply(pr, tp.enter(x), cfg, causal=causal,
+                                   positions=positions, cache=cache,
+                                   kv_input=None if kv_input is None
+                                   else tp.whole(kv_input),
+                                   kv_groups=kv_groups)
+        return tp.leave(out), new_cache
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
     if positions is None:
@@ -236,6 +251,9 @@ def gqa_apply(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
         v_all = _cache_update(cache.v, v, cache.pos)
         new_cache = KVCache(k_all, v_all, cache.pos + s)
         kv_valid = _cache_valid(cache.pos, s, k_all.shape[1])
+        if kv_groups is not None:
+            g0, gn = kv_groups
+            k_all, v_all = k_all[:, :, g0:g0 + gn], v_all[:, :, g0:g0 + gn]
         out = _sdpa(q, k_all, v_all, causal=False, kv_valid=kv_valid)
     else:
         out = _sdpa(q, k, v, causal=causal and kv_input is None)
@@ -291,15 +309,15 @@ def mla_apply(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
 
     ``tp``: ``wq``, ``w_ukv`` and ``wo`` are this rank's heads (as
     ``tp.blocks`` names them), ``w_dkv`` and ``w_kr`` whole; ``x`` enters
-    through ``tp.enter`` and the output leaves through ``tp.leave``."""
+    through ``tp.enter`` and the output leaves through ``tp.leave``. The
+    latent cache (decode on a mesh) is whole on every rank: each writes
+    the same latent and rotary key, and its heads expand them."""
     if tp is not None:
-        if cache is not None:
-            raise ValueError("tensor parallelism runs the full sequence, "
-                             "not a cached decode")
         pr = mla_rank_params(tp.leaves(p), cfg, tp.rank, tp.size,
                              tp.blocks)
-        out, _ = mla_apply(pr, tp.enter(x), cfg, positions=positions)
-        return tp.leave(out), None
+        out, new_cache = mla_apply(pr, tp.enter(x), cfg, positions=positions,
+                                   cache=cache)
+        return tp.leave(out), new_cache
     m: MLAConfig = cfg.mla
     b, s, _ = x.shape
     h = p["wq"].shape[1] // (m.d_nope + m.d_rope)

@@ -15,8 +15,9 @@ one-token recurrence, which launches no kernel. Casts follow the
 reference: dt is cast to x's dtype before scaling x, log_decay stays f32,
 B and C stay in the model dtype, the conv and the state run in f32.
 
-Under tensor parallelism (``tp=``, :class:`repro_torch.models.layers.TP`)
-a rank computes its ``H / m`` heads: the packed ``in_proj`` is whole (its
+Under tensor parallelism (``tp=``, :class:`repro_torch.models.layers.TP`;
+the full sequence, or a cached decode on a mesh) a rank computes its
+``H / m`` heads: the packed ``in_proj`` is whole (its
 blocks at rest cross the x/z/B/C/dt boundaries) and the rank takes the x,
 z and dt columns of its heads with B and C whole; ``conv_w``,
 ``dt_bias``, ``a_log`` and the norm scale are cut the same way (each
@@ -74,23 +75,35 @@ def ssm_rank_params(p: Dict[str, torch.Tensor], cfg: ModelConfig,
     ``out_proj`` (as it is where ``blocks`` names it: already the
     rank's)."""
     s = cfg.ssm
-    d = cfg.d_model
-    di, n, h, pdim = s.d_inner(d), s.d_state, s.n_heads(d), s.head_dim
-    hl = h // m
-    c0, c1 = rank * hl * pdim, (rank + 1) * hl * pdim
-    ip, cw = p["in_proj"], p["conv_w"]
+    di, n = s.d_inner(cfg.d_model), s.d_state
+    hl = s.n_heads(cfg.d_model) // m
+    c0, c1 = rank * hl * s.head_dim, (rank + 1) * hl * s.head_dim
     out = p["out_proj"]
     return {
-        "in_proj": torch.cat([ip[:, c0:c1], ip[:, di + c0:di + c1],
-                              ip[:, 2 * di:2 * di + 2 * n],
-                              ip[:, 2 * di + 2 * n + rank * hl:
-                                 2 * di + 2 * n + (rank + 1) * hl]], 1),
-        "conv_w": torch.cat([cw[:, c0:c1], cw[:, di:di + 2 * n]], 1),
+        "in_proj": _rank_columns(p["in_proj"], cfg, rank, m),
+        "conv_w": _rank_columns(p["conv_w"], cfg, rank, m, conv=True),
         "dt_bias": p["dt_bias"][rank * hl:(rank + 1) * hl],
         "a_log": p["a_log"][rank * hl:(rank + 1) * hl],
         "norm": p["norm"][c0:c1],
         "out_proj": out if "out_proj" in blocks else out[c0:c1],
     }
+
+
+def _rank_columns(t: torch.Tensor, cfg: ModelConfig, rank: int, m: int, *,
+                  conv: bool = False) -> torch.Tensor:
+    """Rank ``rank`` of ``m``'s columns of the last dim of ``t``, laid out
+    as ``in_proj``'s output (x, z, B, C, dt), or with ``conv`` as the conv
+    channels (x, B, C): the x, z and dt columns of its heads, B and C
+    whole."""
+    s = cfg.ssm
+    di, n = s.d_inner(cfg.d_model), s.d_state
+    hl = s.n_heads(cfg.d_model) // m
+    c0, c1 = rank * hl * s.head_dim, (rank + 1) * hl * s.head_dim
+    if conv:
+        return torch.cat([t[..., c0:c1], t[..., di:di + 2 * n]], -1)
+    h0 = 2 * di + 2 * n + rank * hl
+    return torch.cat([t[..., c0:c1], t[..., di + c0:di + c1],
+                      t[..., 2 * di:2 * di + 2 * n], t[..., h0:h0 + hl]], -1)
 
 
 def _split(cfg: ModelConfig, proj: torch.Tensor, di: int):
@@ -124,20 +137,34 @@ def ssm_apply(p: Dict[str, torch.Tensor], u: torch.Tensor, cfg: ModelConfig,
 
     ``tp``: ``out_proj`` is this rank's rows (``tp.blocks``), the other
     leaves whole (see the module docstring); ``u`` enters through
-    ``tp.enter`` and the output leaves through ``tp.leave``."""
+    ``tp.enter`` and the output leaves through ``tp.leave``. With
+    ``cache`` (decode on a mesh) the state is the rank's heads and the
+    conv window holds every channel: the whole projection shifts every
+    channel into the window, the same on every rank, and the rank
+    convolves and scans its own."""
     if tp is None:
         y, new_cache = ssm_gated(p, u, cfg, cache=cache)
         sumsq = torch.sum(y * y, dim=-1, keepdim=True)
         return ssm_project(p, y, sumsq, cfg, u.dtype), new_cache
-    if cache is not None:
-        raise ValueError("tensor parallelism runs the full sequence, not a "
-                         "cached decode")
-    pr = ssm_rank_params(tp.leaves(p), cfg, tp.rank, tp.size, tp.blocks)
-    y, _ = ssm_gated(pr, tp.enter(u), cfg)
+    leaves = tp.leaves(p)
+    pr = ssm_rank_params(leaves, cfg, tp.rank, tp.size, tp.blocks)
+    u = tp.enter(u)
+    if cache is None:
+        y, new_cache = ssm_gated(pr, u, cfg)
+    else:
+        proj = u @ leaves["in_proj"]
+        di = cfg.ssm.d_inner(cfg.d_model)
+        x, _, b, c, _ = _split(cfg, proj, di)
+        window = torch.cat([cache.conv, torch.cat([x, b, c], -1)], 1)
+        y, rank_cache = ssm_gated(
+            pr, u, cfg, proj=_rank_columns(proj, cfg, tp.rank, tp.size),
+            cache=SSMCache(_rank_columns(cache.conv, cfg, tp.rank, tp.size,
+                                         conv=True), cache.state))
+        new_cache = SSMCache(window[:, 1:], rank_cache.state)
     # every rank normalises its own channels by the sum: the gradient of
     # the sum is summed over the ranks too
     sumsq = tp.whole(tp.total(torch.sum(y * y, dim=-1, keepdim=True)))
-    return tp.leave(ssm_project(pr, y, sumsq, cfg, u.dtype)), None
+    return tp.leave(ssm_project(pr, y, sumsq, cfg, u.dtype)), new_cache
 
 
 def ssm_project(p: Dict[str, torch.Tensor], y: torch.Tensor,
@@ -153,15 +180,18 @@ def ssm_project(p: Dict[str, torch.Tensor], y: torch.Tensor,
 
 
 def ssm_gated(p: Dict[str, torch.Tensor], u: torch.Tensor, cfg: ModelConfig,
-              *, cache: Optional[SSMCache] = None
+              *, cache: Optional[SSMCache] = None,
+              proj: Optional[torch.Tensor] = None
               ) -> Tuple[torch.Tensor, Optional[SSMCache]]:
     """The block up to its norm: ``y * silu(z)`` in f32 over the heads
-    the weights hold (all, or a rank's), and the new cache."""
+    the weights hold (all, or a rank's), and the new cache. ``proj``:
+    ``u @ p["in_proj"]``, where the caller has it."""
     s = cfg.ssm
     n, pdim = s.d_state, s.head_dim
     di, h = p["out_proj"].shape[0], p["dt_bias"].shape[0]
     bsz, ln, _ = u.shape
-    proj = u @ p["in_proj"]
+    if proj is None:
+        proj = u @ p["in_proj"]
     x, z, b, c, dt = _split(cfg, proj, di)
     conv_in = torch.cat([x, b, c], dim=-1)              # (B, L, di+2n)
 

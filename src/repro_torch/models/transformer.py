@@ -43,10 +43,15 @@ of the sequence (sequence parallelism) where ``model`` divides the
 sequence. A split that is not head-aligned leaves the layer whole on
 every rank. The MoE layer keeps its whole-width rows (``moe_apply``, or
 ``moe_apply_ep``'s expert blocks under ``catwalk_ep``).
+
+``decode_step(..., mesh=)`` and ``init_serve_state(..., mesh=)`` decode
+on such a mesh with the serve state as each rank's blocks under the
+reference's serve rules (:func:`decode_plan`).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Callable, Dict, List, NamedTuple, Tuple, Union
 
 import torch
@@ -58,7 +63,9 @@ from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
+from repro_torch.optim.tree import tree_map
 from repro_torch.sharding import specs as SH
+from repro_torch.train.checkpoint import _map_with_path
 
 #: the LM families of the reference's model assembly
 FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "audio")
@@ -190,6 +197,20 @@ def _dec_block_init(generator: torch.Generator, cfg: ModelConfig,
 
 #: ``cut(path, leaf)``: what the tree keeps of a leaf just drawn
 Cut = Callable[[Tuple[str, ...], torch.Tensor], torch.Tensor]
+
+
+def block_cut(pspecs, mesh) -> Cut:
+    """The ``cut`` of :func:`init_params` that keeps this rank's block of
+    each leaf under the spec tree ``pspecs`` (a stacked leaf's spec leads
+    with the stack axis, cut off for its layers)."""
+    def cut(path, leaf):
+        spec = pspecs
+        for k in path:
+            spec = spec[k]
+        if any(k in SH.STACK_KEYS for k in path[:-1]):
+            spec = spec[1:]                  # one layer of a stacked leaf
+        return SH.shard_of(leaf, spec, mesh)
+    return cut
 
 
 def init_params(generator: torch.Generator, cfg: ModelConfig,
@@ -408,16 +429,22 @@ def _block_apply(p, x: torch.Tensor, cfg: ModelConfig,
     K/V are computed from ``enc_out`` at every call, as the reference
     does (no cross cache). ``mesh``, ``batch_axes``: see
     :func:`forward`; ``tp``, ``plan``: its tensor-parallel context and
-    this block's part of :func:`tp_plan` (full sequence only)."""
+    this block's part of :func:`tp_plan` (with ``cache``: the decode on a
+    mesh)."""
     split = _blocks(tp, plan)
     attn = A.mla_apply if cfg.mla is not None else A.gqa_apply
     h = L.rmsnorm(_scale(p["norm1"], tp), x, cfg.norm_eps)
     if tp is None:
         a, new_cache = attn(p["attn"], h, cfg, cache=cache)
     else:
-        new_cache = None
-        a = _mixer(lambda y, t: attn(p["attn"], y, cfg, tp=t)[0], h, tp,
-                   split("attn"))
+        caches = []
+
+        def mix(y, t):
+            out, c = attn(p["attn"], y, cfg, cache=cache, tp=t)
+            caches.append(c)
+            return out
+        a = _mixer(mix, h, tp, split("attn"))
+        new_cache = caches[-1]
     if enc_out is not None:
         x, h = _residual_norm(_scale(p["norm_x"], tp), x, a, cfg)
         a = _mixer(lambda y, t: A.gqa_apply(
@@ -610,7 +637,7 @@ def _stack_cache(one, n: int):
 
 
 def init_serve_state(params, cfg: ModelConfig, batch: int, max_len: int, *,
-                     frames=None) -> ServeState:
+                     frames=None, mesh=None) -> ServeState:
     """Zero caches for ``batch`` rows, stacked on a leading layer axis:
     ssm and hybrid, the conv window and the SSD state (``max_len`` does not
     bound a recurrent cache), and for hybrid one GQA K/V cache of
@@ -618,26 +645,68 @@ def init_serve_state(params, cfg: ModelConfig, batch: int, max_len: int, *,
     sites: the weights are shared, the KV streams are not); the attention
     families, the GQA K/V or the MLA latent and rotary key, ``max_len``
     positions each, with one scalar position per layer. audio also encodes
-    ``frames`` (required) once and holds the encoder output."""
+    ``frames`` (required) once and holds the encoder output.
+
+    ``mesh``: this rank's blocks (see :func:`decode_step`); ``params``
+    are laid out by :func:`serve_pspecs`, ``frames`` whole."""
     _check_family(cfg)
     dev = params["embed"].device
+    if mesh is not None:
+        return _mesh_serve_state(params, cfg, batch, max_len, frames, mesh)
+    caches, shared_cache = _zero_caches(cfg, batch, max_len, dev)
+    enc_out = _encode(params, cfg, frames) if cfg.family == "audio" \
+        else None
+    return ServeState(caches, shared_cache, enc_out,
+                      torch.zeros((), dtype=torch.int32, device=dev))
+
+
+def _zero_caches(cfg: ModelConfig, batch: int, max_len: int,
+                 device: Union[str, torch.device]):
+    """(layer caches, hybrid shared caches or None) of
+    :func:`init_serve_state`, zero, on ``device``."""
     dtype = L._dtype(cfg.dtype)
-    shared_cache = enc_out = None
+    dev = torch.device(device)
     if cfg.family in ("ssm", "hybrid"):
         caches = _stack_cache(S.ssm_cache_init(cfg, batch, dtype, dev),
                               cfg.n_layers)
+        shared = None
         if cfg.family == "hybrid":
-            shared_cache = _stack_cache(
+            shared = _stack_cache(
                 A.gqa_cache_init(cfg, batch, max_len, dtype, dev),
                 cfg.n_layers // cfg.hybrid.period)
-    else:
-        init = A.mla_cache_init if cfg.mla is not None else A.gqa_cache_init
-        caches = _stack_cache(init(cfg, batch, max_len, dtype, dev),
-                              cfg.n_layers)
+        return caches, shared
+    init = A.mla_cache_init if cfg.mla is not None else A.gqa_cache_init
+    return _stack_cache(init(cfg, batch, max_len, dtype, dev),
+                        cfg.n_layers), None
+
+
+def _mesh_serve_state(params, cfg: ModelConfig, batch: int, max_len: int,
+                      frames, mesh) -> ServeState:
+    """:func:`init_serve_state` under ``mesh``: this rank's blocks under
+    :func:`repro_torch.sharding.specs.serve_shardings`, zero; audio
+    encodes the rank's rows of ``frames`` (whole) with ``params`` laid out
+    by :func:`serve_pspecs`."""
+    dev = params["embed"].device
+    caches, shared = _zero_caches(cfg, batch, max_len, "meta")
+    enc = None
     if cfg.family == "audio":
-        enc_out = _encode(params, cfg, frames)
-    return ServeState(caches, shared_cache, enc_out,
-                      torch.zeros((), dtype=torch.int32, device=dev))
+        if frames is None:
+            _encode(params, cfg, frames)           # raises, naming frames
+        enc = torch.empty((batch, frames.shape[1], cfg.d_model),
+                          dtype=L._dtype(cfg.dtype), device="meta")
+    meta = ServeState(caches, shared, enc,
+                      torch.zeros((), dtype=torch.int32, device="meta"))
+    state = _map_with_path(meta, lambda key, leaf: torch.zeros(
+        SH.block_shape(leaf.shape, SH.cache_pspec(key, leaf, mesh), mesh),
+        dtype=leaf.dtype, device=dev))
+    if enc is None:
+        return state
+    rows = SH.cache_pspec("enc_out", enc, mesh)[0]
+    tp = _tp_of(_serve_cfg(cfg), mesh, SH.live_axes(mesh, rows))
+    mine = torch.as_tensor(frames)[SH.block_slice(mesh, batch, rows)]
+    enc_out = _encode(_fetch(params, cfg, mesh), _serve_cfg(cfg), mine, tp,
+                      decode_plan(cfg, mesh))
+    return state._replace(enc_out=enc_out)
 
 
 def per_slot_state(state: ServeState, batch: int) -> ServeState:
@@ -694,45 +763,187 @@ def _kv(caches: A.KVCache, i: int) -> A.KVCache:
     return A.KVCache(caches.k[i], caches.v[i], caches.pos[i])
 
 
+def _new_stack(caches):
+    """Empty buffers of a stacked cache's shapes (None for None), which a
+    decode step fills layer by layer (:func:`_put`): the step then holds
+    the old stack, the new one and one layer's update (a list of layers
+    stacked at the end would hold the caches three times over)."""
+    if caches is None:
+        return None
+    return type(caches)(*(torch.empty_like(t) for t in caches))
+
+
+def _put(stack, i: int, cache) -> None:
+    """Write one layer's (or site's) cache at index ``i`` of ``stack``."""
+    for buf, t in zip(stack, cache):
+        buf[i] = t
+
+
 def decode_step(params, cfg: ModelConfig, state: ServeState,
-                tokens) -> Tuple[torch.Tensor, ServeState]:
+                tokens, *, mesh=None) -> Tuple[torch.Tensor, ServeState]:
     """One decode step. tokens (B, 1) -> logits (B, V), new state. ssm and
     hybrid: each layer runs the exact one-token recurrence (no kernel
     launch), and hybrid applies the shared block with its site's cache
     after every ``period``-th layer; the attention families: each layer
     attends over its cache (moe: and runs the router gate once; audio: and
-    cross-attends to ``state.enc_out``)."""
+    cross-attends to ``state.enc_out``).
+
+    ``mesh``: one rank's step of a ``("data", "model")`` (or ``("pod",
+    "data", "model")``) mesh, the step the reference's dry run compiles
+    with ``param_shardings``, ``serve_shardings`` and batch-split tokens.
+    ``params`` are this rank's blocks under :func:`serve_pspecs`, ``state``
+    its blocks under :func:`repro_torch.sharding.specs.serve_shardings`
+    (:func:`init_serve_state` with ``mesh=``; a static batch: scalar
+    positions), ``tokens`` whole. The rank runs its rows (over the DP
+    axes that divide the batch) and, over ``model``, its heads, as
+    :func:`decode_plan` lays them out; it gathers the leaves the plan
+    leaves whole. Every rank returns the whole logits and its blocks of
+    the new state. ``batch_over_model`` and ``act_sp`` do not apply: the
+    reference's decode cell splits the tokens over the DP axes alone."""
     _check_family(cfg)
     dev = params["embed"].device
-    x = L.embed_lookup(params["embed"], _tokens(tokens, dev))
-    caches = state.layer_caches
-    shared = state.shared_cache
+    tokens = _tokens(tokens, dev)
+    b = tokens.shape[0]
+    rows = live = tp = plan = lplan = table = None
+    mine = slice(None)
+    if mesh is not None:
+        if state.pos.dim() != 0:
+            raise ValueError("a decode step on a mesh serves a static batch "
+                             "(scalar positions, not per_slot_state)")
+        rows = SH._fit(mesh, b, SH.dp_axes(mesh))
+        mine = SH.block_slice(mesh, b, rows)
+        live = SH.live_axes(mesh, rows)
+        plan = decode_plan(cfg, mesh)
+        lplan = _layer_plan(plan["layers"])
+        params = _fetch(params, cfg, mesh)
+        table = _state_specs(cfg, state, b, mesh)
+        state = _map_with_path(state, lambda key, leaf: SH.gather(
+            leaf, SH.spec_minus(*table[key]), mesh))
+        cfg = _serve_cfg(cfg)
+        tp = _tp_of(cfg, mesh, live)
+    x = L.embed_lookup(params["embed"], tokens[mine],
+                       tp if tp is not None and _keeps(plan["embed"])
+                       else None)
+    split = _blocks(tp, lplan)
+    caches, shared = state.layer_caches, state.shared_cache
+    new_caches, new_shared = _new_stack(caches), _new_stack(shared)
     if cfg.family in ("ssm", "hybrid"):
-        convs, states, sites = [], [], []
         for i, lp in enumerate(_unstack(params["layers"])[:cfg.n_layers]):
+            def ssm(y, t, lp=lp, i=i):
+                out, c = S.ssm_apply(lp["ssm"], y, cfg, cache=S.SSMCache(
+                    caches.conv[i], caches.state[i]), tp=t)
+                _put(new_caches, i, c)
+                return out
             hn = L.rmsnorm(lp["norm1"], x, cfg.norm_eps)
-            out, new = S.ssm_apply(lp["ssm"], hn, cfg,
-                                   cache=S.SSMCache(caches.conv[i],
-                                                    caches.state[i]))
-            x = x + out
-            convs.append(new.conv)
-            states.append(new.state)
+            x = x + _mixer(ssm, hn, tp, split("ssm"))
             site = _shared_site(cfg, i)
             if site is not None:
-                x, _, new_site = _block_apply(
-                    params["shared"], x, cfg,
-                    cache=_kv(state.shared_cache, site))
-                sites.append(new_site)
-        new_caches = S.SSMCache(torch.stack(convs), torch.stack(states))
-        if sites:
-            shared = A.KVCache(*(torch.stack(t) for t in zip(*sites)))
+                # the site's cache holds every row: the block runs on all
+                whole, _, new_site = _block_apply(
+                    params["shared"], SH.gather(x, (rows, None, None), mesh),
+                    cfg, cache=_kv(shared, site))
+                x = whole[mine]
+                _put(new_shared, site, new_site)
     else:
-        layers = []
         for i, lp in enumerate(_unstack(params["layers"])[:cfg.n_layers]):
             x, _, new = _block_apply(lp, x, cfg, cache=_kv(caches, i),
-                                     enc_out=state.enc_out)
-            layers.append(new)
-        new_caches = A.KVCache(*(torch.stack(t) for t in zip(*layers)))
-    new_state = ServeState(new_caches, shared, state.enc_out, state.pos + 1)
+                                     enc_out=state.enc_out, mesh=mesh,
+                                     batch_axes=live, tp=tp, plan=lplan)
+            _put(new_caches, i, new)
+    new_state = ServeState(new_caches, new_shared, state.enc_out,
+                           state.pos + 1)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return x[:, 0] @ _head(params, cfg), new_state
+    logits = x[:, 0] @ _head(params, cfg)
+    if mesh is None:
+        return logits, new_state
+    if tp is not None and _keeps(plan["embed"] if cfg.tie_embeddings
+                                 else plan["lm_head"]):
+        logits = SH.gather(logits, (None, "model"), mesh)
+
+    def back(key, leaf):
+        cut = SH.spec_minus(*table[key])
+        if not any(SH.split(mesh, e) for e in cut):
+            return leaf
+        return SH.shard_of(leaf, cut, mesh)
+    return (SH.gather(logits, (rows, None), mesh),
+            _map_with_path(new_state, back))
+
+
+# ================================================== decoding on a mesh ====
+def _serve_cfg(cfg: ModelConfig) -> ModelConfig:
+    """The config a decode step on a mesh plans with: the rows over the DP
+    axes alone and no sequence split (one token)."""
+    if not (cfg.batch_over_model or cfg.act_sp):
+        return cfg
+    return dataclasses.replace(cfg, batch_over_model=False, act_sp=False)
+
+
+def serve_pspecs(cfg: ModelConfig, mesh) -> Dict[str, Any]:
+    """The layout of the parameters a decode step on ``mesh`` takes: the
+    reference's ``param_shardings`` in its decode cell (the vocabulary
+    over ``model``, whatever ``batch_over_model`` says)."""
+    return SH.memo(mesh, ("serve_pspecs", cfg), lambda: SH.param_pspecs(
+        init_params(torch.Generator(), cfg, device="meta"), mesh))
+
+
+def decode_plan(cfg: ModelConfig, mesh) -> Dict[str, Any]:
+    """Per parameter, the part of its :func:`serve_pspecs` spec a decode
+    step on ``mesh`` keeps split: :func:`tp_plan` of the serve config,
+    but the hybrid's shared block whole, since its site caches are whole
+    over ``model`` and the batch (``cache_pspec`` reads only
+    ``layer_caches`` as a stack, so it splits the leading site axis alone,
+    over the DP axes where they divide it), and the block runs on every
+    row."""
+    def make():
+        plan = tp_plan(_serve_cfg(cfg), mesh)
+        if "shared" in plan:
+            plan = dict(plan, shared=tree_map(lambda s: (None,) * len(s),
+                                              plan["shared"]))
+        return plan
+    return SH.memo(mesh, ("decode_plan", cfg), make)
+
+
+def _fetch(params, cfg: ModelConfig, mesh):
+    """``params`` (blocks under :func:`serve_pspecs`) with every leaf
+    gathered as far as :func:`decode_plan` leaves it whole."""
+    fetch = SH.memo(mesh, ("decode_fetch", cfg), lambda: tree_map(
+        SH.spec_minus, serve_pspecs(cfg, mesh), decode_plan(cfg, mesh)))
+    return tree_map(lambda x, f: SH.gather(x, f, mesh), params, fetch)
+
+
+def _state_specs(cfg: ModelConfig, state: ServeState, batch: int, mesh
+                 ) -> Dict[str, Tuple[SH.Spec, SH.Spec]]:
+    """Per leaf of a serve state of ``batch`` rows (by key; ``state``: a
+    rank's blocks): its spec at rest (``cache_pspec`` of the whole leaf)
+    and the part the decode step keeps split. The GQA caches keep their
+    KV heads split where :func:`decode_plan` keeps ``wk`` split (else
+    every rank attends over every head, or its groups of them), the
+    hybrid's site caches nothing; every other leaf stays as it is."""
+    attn = state.shared_cache if cfg.family == "hybrid" \
+        else state.layer_caches
+    max_len = attn.k.shape[2] if isinstance(attn, A.KVCache) else 1
+    enc = None if state.enc_out is None else tuple(state.enc_out.shape[1:])
+    return SH.memo(mesh, ("state_specs", cfg, batch, max_len, enc),
+                   lambda: _make_state_specs(cfg, batch, max_len, enc, mesh))
+
+
+def _make_state_specs(cfg, batch, max_len, enc, mesh):
+    kv = cfg.family not in ("ssm", "hybrid") and cfg.mla is None
+    kv_split = kv and _keeps(decode_plan(cfg, mesh)["layers"]["attn"]["wk"])
+    caches, shared = _zero_caches(cfg, batch, max_len, "meta")
+    whole = ServeState(caches, shared, None if enc is None else torch.empty(
+        (batch,) + enc, device="meta"), torch.zeros((), device="meta"))
+    table = {}
+
+    def one(key, leaf):
+        rest = SH.cache_pspec(key, leaf, mesh)
+        name = SH._leaf_name(key)
+        keep = rest
+        if name.startswith("shared_cache"):
+            keep = (None,) * len(rest)
+        elif kv and not kv_split and name in ("layer_caches/k",
+                                              "layer_caches/v"):
+            keep = rest[:3] + (None,) + rest[4:]
+        table[key] = (rest, keep)
+    _map_with_path(whole, one)
+    return table

@@ -525,6 +525,20 @@ def spec_axes(spec: Spec) -> Tuple[str, ...]:
                  for a in _axes(entry))
 
 
+def block_shape(shape: Sequence[int], spec: Spec, mesh) -> Tuple[int, ...]:
+    """The shape of a rank's block of a whole tensor of ``shape`` under the
+    resolved ``spec`` (each entry's axes divide their dim)."""
+    return tuple(int(d) // axis_size(mesh, e)
+                 for d, e in zip(shape, spec)) + tuple(shape[len(spec):])
+
+
+def spec_minus(rest: Spec, keep: Spec) -> Spec:
+    """The entries of ``rest`` that ``keep`` does not keep: what a step
+    gathers of a block laid out by ``rest`` to use it laid out by
+    ``keep``, and cuts again after."""
+    return tuple(None if k is not None else r for r, k in zip(rest, keep))
+
+
 def split(mesh, entry: Axis) -> Axis:
     """``entry`` where it spreads a dim over more than one rank, else
     None: over axes of one rank in all, every rank's block is whole, as
@@ -566,6 +580,18 @@ def shard_of(x: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
     return x[idx].clone()
 
 
+def rank_table(mesh) -> list:
+    """The mesh's global ranks by coordinate, as nested lists of Python
+    ints, read once a mesh. The read runs with any fake tensor mode set
+    aside, so a step traced under ``FakeTensorMode`` on a fake mesh (the
+    dry run, :mod:`repro_torch.launch.dryrun`) never reads a tensor."""
+    def read():
+        from torch._subclasses.fake_tensor import unset_fake_temporarily
+        with unset_fake_temporarily():
+            return mesh.mesh.tolist()
+    return memo(mesh, "ranks", read)
+
+
 def _gather_plan(mesh, axis: str):
     """This rank's group along ``axis``, its size, and the order that puts
     the group's all-gather pieces (which come in the group's rank order)
@@ -574,11 +600,14 @@ def _gather_plan(mesh, axis: str):
     group = mesh.get_group(axis)
     members = dist.get_process_group_ranks(group)
     d = axis_names(mesh).index(axis)
-    coord = list(mesh.get_coordinate())
+    coord = list(_coords(mesh).values())
     order = []
-    for i in range(int(mesh.shape[d])):
+    for i in range(_sizes(mesh)[axis]):
         coord[d] = i
-        order.append(members.index(int(mesh.mesh[tuple(coord)])))
+        rank = rank_table(mesh)
+        for c in coord:
+            rank = rank[c]
+        order.append(members.index(rank))
     return group, len(members), (None if order == sorted(order)
                                  else order)
 

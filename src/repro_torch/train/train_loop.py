@@ -78,17 +78,8 @@ def init_train_state(generator: torch.Generator, cfg: ModelConfig,
     draws as without a mesh: each parameter is cut as soon as it is drawn
     (a stacked one layer by layer), and the moments and the error buffer
     are made as blocks."""
-    cut = None
-    if mesh is not None:
-        pspecs = state_pspecs(cfg, tcfg, mesh).params
-
-        def cut(path, leaf):
-            spec = pspecs
-            for k in path:
-                spec = spec[k]
-            if any(k in SH.STACK_KEYS for k in path[:-1]):
-                spec = spec[1:]              # one layer of a stacked leaf
-            return SH.shard_of(leaf, spec, mesh)
+    cut = None if mesh is None \
+        else T.block_cut(state_pspecs(cfg, tcfg, mesh).params, mesh)
     params = T.init_params(generator, cfg, device, cut=cut)
     opt = O.init_adamw(params, tcfg.optimizer)
     ef = GC.init_ef(params) if tcfg.compressing else None
@@ -221,11 +212,6 @@ def state_pspecs(cfg: ModelConfig, tcfg: TrainConfig, mesh) -> TrainState:
                            replicate_embed=cfg.batch_over_model)
 
 
-def _minus(rest: SH.Spec, keep: SH.Spec) -> SH.Spec:
-    """The entries of ``rest`` that ``keep`` does not keep."""
-    return tuple(None if k is not None else r for r, k in zip(rest, keep))
-
-
 def _mesh_grads(cfg: ModelConfig, tcfg: TrainConfig, mesh):
     """``grads(params, batch) -> (loss, parts, gradients)`` of the mesh
     step: ``params`` this rank's blocks under :func:`state_pspecs`, the
@@ -235,7 +221,7 @@ def _mesh_grads(cfg: ModelConfig, tcfg: TrainConfig, mesh):
     pspecs = state_pspecs(cfg, tcfg, mesh).params
     fspecs = T.tp_plan(cfg, mesh)
     # what the forward gathers of each block
-    fetch = tree_map(_minus, pspecs, fspecs)
+    fetch = tree_map(SH.spec_minus, pspecs, fspecs)
     ga = tcfg.grad_accum
 
     def grads_fn(blocks, batch: Dict[str, Any]):

@@ -471,3 +471,126 @@ def tp_suite(mesh, module_cases, grad_cases, layout_cases) -> Dict[str, Any]:
     return dict(modules=tp_modules(mesh, module_cases),
                 grads=tp_grads(mesh, grad_cases),
                 layout=tp_layout(mesh, layout_cases))
+
+
+# ------------------------------------------------------- decode on a mesh
+
+def _state_key(key: str) -> str:
+    """A serve-state leaf's key without the NamedTuple dots
+    (``".layer_caches/.k"`` -> ``"layer_caches/k"``)."""
+    return "/".join(seg.lstrip(".") for seg in key.split("/"))
+
+
+def decode_suite(mesh, cases) -> Dict[str, Any]:
+    """Each case: the reference's whole parameters, its prefilled serve
+    state and its state after the steps (flat, by :func:`_state_key`), the
+    tokens of each step and, for audio, the frames and the encoder output.
+    The rank takes its blocks of the parameters (``serve_pspecs``) and of
+    the prefilled state (``serve_shardings``; their shapes must be those
+    of ``init_serve_state(mesh=)``'s blocks), decodes with
+    ``decode_step(mesh=)`` and returns the whole logits of every step and,
+    per state leaf, the largest difference of its final block from its
+    block of the reference's final state, beside that leaf's largest
+    |value|."""
+    import torch
+    from repro_torch import convert
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding import specs
+    from repro_torch.train.checkpoint import _map_with_path
+    out: Dict[str, Any] = {}
+    for name, c in cases.items():
+        cfg = _decode_cfg(c)
+        params = convert.lm_params_from_numpy(c["p"], cfg, device="cpu")
+        blocks = specs.shard_tree(params, T.serve_pspecs(cfg, mesh), mesh)
+        frames = None if c.get("frames") is None \
+            else torch.from_numpy(c["frames"])
+        b, n = c["tokens"].shape
+        blank = T.init_serve_state(blocks, cfg, b, c["max_len"],
+                                   frames=frames, mesh=mesh)
+        res: Dict[str, Any] = {}
+
+        def block(key, arr, like=None):
+            arr = np.asarray(arr)
+            spec = specs.cache_pspec(key, arr, mesh)
+            t = specs.shard_of(torch.from_numpy(arr), spec, mesh)
+            if like is not None:
+                if tuple(t.shape) != tuple(like.shape):
+                    raise AssertionError(f"{name} {key}: block "
+                                         f"{tuple(like.shape)}, expected "
+                                         f"{tuple(t.shape)}")
+                t = t.to(like.dtype)
+            return t
+        if frames is not None:
+            want = block(".enc_out", c["enc_out"])
+            res["enc_err"] = (float((blank.enc_out - want).abs().max()),
+                              float(np.abs(c["enc_out"]).max()))
+        state = _map_with_path(blank, lambda key, leaf: block(
+            key, c["state"][_state_key(key)], leaf))
+        logits = []
+        for t in range(n):
+            lg, state = T.decode_step(blocks, cfg, state,
+                                      torch.from_numpy(c["tokens"][:, t:t + 1]),
+                                      mesh=mesh)
+            logits.append(_np(lg))
+        errs = {}
+
+        def err(key, leaf):
+            want = c["final"][_state_key(key)]
+            got = leaf.float() - block(key, want).float()
+            errs[_state_key(key)] = (float(got.abs().max()) if got.numel()
+                                     else 0.0,
+                                     float(np.abs(np.asarray(
+                                         want, dtype=np.float64)).max()))
+        _map_with_path(state, err)
+        res.update(logits=logits, state_err=errs)
+        out[name] = res
+    return out
+
+
+def _decode_cfg(c):
+    """The port's float32 smoke config of a decode case: ``--opt`` and
+    a drop-free capacity where the case asks for them, and its edits."""
+    from repro_torch.configs import registry
+    from repro_torch.launch.dryrun import apply_opt
+    cfg = dataclasses.replace(registry.get_config(c["arch"] + "-smoke"),
+                              dtype="float32", **c.get("edit", {}))
+    if c.get("opt"):
+        cfg = apply_opt(cfg)
+    if c.get("capacity") is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=c["capacity"]))
+    return cfg
+
+
+# ------------------------------------------------------------ the dry run
+
+def dryrun_suite(mesh, cases) -> Dict[str, Any]:
+    """Each case: a float32 smoke config (:func:`_decode_cfg`) and a
+    shape; the
+    rank's step of the cell (``dryrun.build_step``) run once on real CPU
+    tensors under ``op_cost.OpCost`` (``dryrun.trace_cell(fake=False)``):
+    its argument bytes, FLOPs and collectives, and the rank's
+    coordinates."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun as D
+    from repro_torch.sharding import specs
+    out: Dict[str, Any] = {}
+    for name, c in cases.items():
+        cfg = _decode_cfg(c)
+        got = D.trace_cell(cfg, ShapeConfig(**c["shape"]), mesh,
+                           c.get("opt", False), fake=False)
+        out[name] = dict(argument_bytes=got["memory"]["argument_bytes"],
+                         state_bytes=got["state_bytes"], flops=got["flops"],
+                         collectives=got["collectives"])
+    out["coords"] = [specs.coordinate(mesh, a) for a in ("data", "model")]
+    # the meshes of launch.mesh over this real group of four ranks
+    from repro_torch.launch import mesh as M
+    dev = M.make_dev_mesh(mesh.shape[0], mesh.shape[1])
+    same = M.fake_mesh(tuple(mesh.shape), ("data", "model"))
+    out["meshes"] = [(tuple(m.shape), tuple(m.mesh_dim_names),
+                      m.device_type) for m in (dev, same)]
+    try:
+        M.make_production_mesh()
+    except ValueError as e:
+        out["refused"] = str(e)
+    return out

@@ -64,6 +64,10 @@ def test_importing_every_port_module_leaves_jax_out(monkeypatch):
                      "repro_torch.train.train_loop",
                      "repro_torch.launch.train",
                      "repro_torch.launch.dryrun",
+                     "repro_torch.launch.input_specs",
+                     "repro_torch.launch.mesh",
+                     "repro_torch.roofline.analysis",
+                     "repro_torch.roofline.op_cost",
                      "repro_torch.sharding.specs",
                      "repro_torch.kernels.rnl_shard"):
         assert required in modules
