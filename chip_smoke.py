@@ -89,26 +89,39 @@ through ``forward(..., mesh=)`` bit-exact against the forward without a
 mesh at one gate launch a layer; every rank's part of the first MoE layer
 for 2-, 4- and 8-way model by 1- and 2-way data tilings launched one
 after another, each tiling's summed parts against ``moe_apply`` at a
-drop-free capacity, its drops at capacity 1.0 and its time; every
+drop-free capacity, its drops at capacity 1.0 and its time; the same
+tilings of the plain MoE layer's rank parts (each part E / m experts with
+its d_ff block, the whole batch's capacity and drops, one gate launch a
+part) combined as the collectives would and held against the whole
+layer, and the plain layer's prefill through the mesh bit-exact; every
 rank's part of one layer under 2-, 4- and 8-way tensor parallelism
 (internlm2-1.8b's dense block, deepseek's MLA attention, mamba2-780m's
 SSM block with the SSD kernel on the rank's heads, the
 vocabulary-parallel cross-entropy over internlm2's head), combined as
 the collectives would and held against the whole layer, with the
 state bytes per rank from the spec tree; the
-mesh train step of deepseek (``--opt``) at the smoke size bit-exact
-against the single-device step; and 16 steps of ``decode_step(...,
+mesh train step of deepseek (``--opt`` and the plain layer) at the
+smoke size bit-exact against the single-device step; and 16 steps of
+``decode_step(...,
 mesh=)`` after a 4 x 2,048 prefill for deepseek (``--opt``: one gate
 launch a layer a step), internlm2-1.8b and mamba2-780m at full width,
-each bit-exact against the decode without a mesh. The training phase then repeats
+each bit-exact against the decode without a mesh (zamba2-1.2b's too, in
+its family phase: its site caches gathered one site at a time). Before
+training, llama3.2-3b's forward at full width on one (16, 16) rank's rows
+of prefill_32k (2 x 32,768 tokens, every head: attention scored in blocks
+of queries) peaks within 1 % of the dry run's count of the same step, and
+its blocked float32 logits equal its whole-attention ones within 1e-4 of
+scale. The training phase then repeats
 internlm2-1.8b's and mamba2-780m's (``--opt``) full-width launcher runs
 through the mesh step on a world-size-1 mesh (the state made as blocks
 by ``init_train_state(mesh=)``), each held bit for bit against the
 single-device run's losses and final state. Last, the dry run
-(``repro_torch.launch.dryrun``) traces four production cells on the host
-(fake ranks, no device) and its counter is held against one real step of
-internlm2-1.8b's launcher run on the card: the argument bytes and the
-FLOPs equal, the predicted peak beside ``max_memory_allocated``. Phases
+(``repro_torch.launch.dryrun``) traces seven production cells on the host
+(fake ranks, no device; each line says whether the rank fits the card)
+and its counter is held against one real step of internlm2-1.8b's
+launcher run on the card: the argument bytes and the FLOPs equal, the
+predicted peak beside ``max_memory_allocated``, which must lie below
+the step's peak before the chunked loss. Phases
 print one JSON line each; the last line is ``{"ok": true, "device": {...}}``. Any
 failure raises and exits non-zero; without CUDA it exits non-zero at
 once.
@@ -3267,6 +3280,111 @@ def lm_mesh_tiles(cfg, p, xt) -> None:
             del blocks
 
 
+def lm_plain_tiles(cfg, p, xt, mesh) -> None:
+    """Every rank's part of the plain MoE layer under a mesh
+    (``moe._plain_part``: its experts over ``model``, their d_ff over the
+    data axis, the capacity and the drops the whole batch's) for each
+    m-way model by d-way data tiling of the first MoE layer on the
+    prefill's tokens, through ``_plain_part``'s rank stages launched one
+    after another and combined as its collectives would: each part routes
+    its rows (``_route``, one gate launch), the ids of every part make the
+    batch's relocation (``_relocation``), the data parts' rows fill each
+    model rank's slots (``_fill_slots``, summed), each part runs its
+    experts' d_ff block (``_expert_ffn``, summed over the data parts), and
+    each part's float32 combine of its rows from its experts
+    (``_rows_combine``) is summed over the model ranks and rounded once,
+    the whole shared experts added. Each part holds E / m experts; the
+    parts against ``moe_apply`` on all the tokens within
+    :data:`EP_TILE_TOL` of scale (bf16); the parts' drops summed equal to
+    the whole layer's; each data block size's gate call held against its
+    plain version. ``_plain_part`` itself, on the world-size-1 ``mesh``
+    with every expert (its collectives the identity), equals ``moe_apply``
+    bit for bit in its output and within float32 rounding in its aux
+    loss, with one gate launch."""
+    M = lm.M
+    e, k, f = cfg.moe.n_experts, cfg.moe.top_k, cfg.moe.d_expert
+    t, d_model = xt.shape
+    want, want_aux = M.moe_apply(p, xt[None], cfg.moe)
+    mg.reset_launches()
+    got, got_aux = M._plain_part(p, xt[None], cfg.moe, mesh, ())
+    torch.cuda.synchronize()
+    aux_err = abs(float(got_aux["aux_loss"]) - float(want_aux["aux_loss"]))
+    if not torch.equal(got, want) or mg.LAUNCHES["moe_gate_topk"] != 1 \
+            or not aux_err <= 1e-6 * abs(float(want_aux["aux_loss"])):
+        raise AssertionError(
+            f"lm_plain _plain_part at world size 1: output equal "
+            f"{torch.equal(got, want)}, aux off by {aux_err}, "
+            f"{mg.LAUNCHES['moe_gate_topk']} gate launches")
+    emit("lm_plain_part", mesh=list(mesh.shape), tokens=t, experts=e,
+         bit_exact_vs_moe_apply=True, aux_abs_err=aux_err,
+         gate_launches=1)
+    del got
+    want = want[0].float()
+    scale = float(want.abs().max())
+    cap = M._capacity(t, cfg.moe)
+    whole_drops = _drops(M._route(p, xt, cfg.moe)[2], e, cap)
+    for d in LM_MESH_DATA:
+        logits = lm.L._f32(xt[:t // d]) @ p["router"]
+        check_gate(f"lm_plain_tile/T{t // d}", logits, k, True, timed=False,
+                   path="lm_plain_tiles", calls=1)
+    for m in LM_MESH_MODEL:
+        for d in LM_MESH_DATA:
+            n, e_loc, f_loc = t // d, e // m, f // d
+            stand_in = StandInMesh(d, m)
+            block = {name: specs.block_shape(p[name].shape, spec, stand_in)
+                     for name, spec in M.plain_block_specs(
+                         cfg.moe, stand_in).items()}
+            rows = [xt[j * n:(j + 1) * n] for j in range(d)]
+            mg.reset_launches()
+            routes = [M._route(p, x_j, cfg.moe) for x_j in rows]
+            torch.cuda.synchronize()
+            per_part = mg.LAUNCHES["moe_gate_topk"] / d
+            ids = torch.cat([r[2] for r in routes])
+            routed = [torch.zeros((n, d_model), dtype=torch.float32,
+                                  device=xt.device) for _ in range(d)]
+            drops = 0
+            for i in range(m):
+                e_lo = i * e_loc
+                slot_src, token_slot = M._relocation(ids, cap, e_lo, e_loc)
+                drops += int(((ids >= e_lo) & (ids < e_lo + e_loc)).sum()
+                             - (slot_src < t).sum())
+                expert_in = sum(M._fill_slots(x_j, slot_src, j * n)
+                                for j, x_j in enumerate(rows))
+                expert_out = 0
+                for j in range(d):
+                    part = {name: p[name][e_lo:e_lo + e_loc]
+                            for name in ("w_gate", "w_up", "w_down")}
+                    fs = slice(j * f_loc, (j + 1) * f_loc)
+                    part = {"w_gate": part["w_gate"][:, :, fs],
+                            "w_up": part["w_up"][:, :, fs],
+                            "w_down": part["w_down"][:, fs]}
+                    if {name: tuple(w.shape) for name, w in part.items()} \
+                            != block:
+                        raise AssertionError(f"lm_plain tile: part "
+                                             f"blocks, the rule's {block}")
+                    expert_out = expert_out + M._expert_ffn(
+                        part, expert_in.reshape(e_loc, cap, d_model))
+                for j in range(d):
+                    routed[j] += M._rows_combine(expert_out, token_slot,
+                                                 routes[j][1], j * n)
+            out = torch.cat([r.to(xt.dtype) + lm.L.mlp_apply(p["shared"], x_j)
+                             for r, x_j in zip(routed, rows)])
+            err = float((out.float() - want).abs().max()) / scale
+            if not err <= EP_TILE_TOL or drops != whole_drops \
+                    or per_part != 1:
+                raise AssertionError(
+                    f"lm_plain tiles ({d}, {m}): error {err} of scale, "
+                    f"drops {drops} against {whole_drops}, {per_part} gate "
+                    f"launches a part")
+            emit("lm_plain_tiles", mesh=[d, m], parts=d * m,
+                 tokens_per_part=n, experts_per_part=e_loc,
+                 d_ff_per_part=f_loc, capacity=cap,
+                 capacity_factor=cfg.moe.capacity_factor,
+                 max_err_over_scale=err, tol=EP_TILE_TOL, drops=drops,
+                 whole_layer_drops=whole_drops, assignments=t * k,
+                 gate_launches_per_part=per_part)
+
+
 def lm_mesh_train(dev, mesh) -> Dict[str, Dict[str, int]]:
     """The mesh train step at world size 1 (``make_train_step(...,
     mesh=)`` on blocks cut by ``state_pspecs``) against the single-device
@@ -3277,7 +3395,7 @@ def lm_mesh_train(dev, mesh) -> Dict[str, Dict[str, int]]:
     mamba2 run the mesh step at full width in the training phase
     (:func:`lm_mesh_train_full`). Returns the mesh run's launch counts."""
     out = {}
-    for arch, opt in ((TRAIN_MOE, True),):
+    for arch, opt in ((TRAIN_MOE, True), (TRAIN_MOE, False)):
         cfg = lm_registry.get_config(arch + "-smoke")
         if opt:
             cfg = dryrun.apply_opt(cfg)
@@ -3317,7 +3435,8 @@ def lm_mesh_train(dev, mesh) -> Dict[str, Dict[str, int]]:
             raise AssertionError(f"lm_mesh train {arch}: the mesh step "
                                  f"differs from the single-device step "
                                  f"({got} vs {want})")
-        name = f"lm_mesh_train_{arch.split('-')[0]}"
+        name = f"lm_mesh_train_{arch.split('-')[0]}" + (
+            "" if opt else "_plain")
         emit("lm_mesh", run=name, arch=cfg.name, opt=opt, dtype=cfg.dtype,
              dispatch=cfg.moe.dispatch if cfg.moe else None,
              batch_over_model=cfg.batch_over_model, steps=LM_MESH_STEPS,
@@ -3598,10 +3717,11 @@ def prefilled_state(params, cfg, tokens, max_len: int):
     """The serve state after a prefill of ``tokens`` (B, S): one
     ``forward`` over them with each layer's mixer input captured, and the
     caches written from those inputs as the decode would write them token
-    by token — GQA's roped K and V, MLA's latent and roped rotary key, the
-    Mamba2 conv window (the last K - 1 conv inputs) and SSD state (the
-    scan's inputs summed under their decays: the recurrence's final
-    state, in float32) — with every position at S."""
+    by token — GQA's roped K and V (the hybrid's: each shared-block
+    site's), MLA's latent and roped rotary key, the Mamba2 conv window
+    (the last K - 1 conv inputs) and SSD state (the scan's inputs summed
+    under their decays: the recurrence's final state, in float32) — with
+    every position at S."""
     from repro_torch.kernels import ops
     from repro_torch.models import attention as A
     from repro_torch.models import layers as L
@@ -3637,7 +3757,7 @@ def prefilled_state(params, cfg, tokens, max_len: int):
     pos = torch.arange(s, device=tokens.device, dtype=torch.int32)[None]
     with torch.no_grad():
         for i, lp in enumerate(lm._unstack(params["layers"])):
-            if cfg.family == "ssm":
+            if cfg.family in ("ssm", "hybrid"):
                 u, ld, bb = seen["scan"][i]
                 cum = torch.cumsum(ld, -1)
                 w = torch.exp(cum[..., -1:] - cum)
@@ -3658,6 +3778,15 @@ def prefilled_state(params, cfg, tokens, max_len: int):
                 caches.v[i, :, :s] = (h @ p["wv"]).reshape(b, s, -1, hd)
         if isinstance(caches, lm.A.KVCache):
             caches.pos.fill_(s)
+        if cfg.family == "hybrid":
+            # each shared-block site's K/V from its captured input
+            sites, p = state.shared_cache, params["shared"]["attn"]
+            hd = cfg.resolved_head_dim
+            for j, h in enumerate(seen["x"]):
+                k = (h @ p["wk"]).reshape(b, s, -1, hd)
+                sites.k[j, :, :s] = L.apply_rope(k, pos, cfg.rope_theta)
+                sites.v[j, :, :s] = (h @ p["wv"]).reshape(b, s, -1, hd)
+            sites.pos.fill_(s)
     return state._replace(pos=torch.full_like(state.pos, s))
 
 
@@ -3814,6 +3943,25 @@ def phase_lm_mesh(dev, cfg, params, tokens, root, decode, floor_ms
         with torch.no_grad():
             p, xt = _moe_input(params, opt, tokens)
             lm_mesh_tiles(opt, p, xt)
+            lm_plain_tiles(cfg, p, xt, mesh)
+            # the plain layer through the mesh: bit for bit at world size 1
+            want, want_aux = lm.forward(params, cfg, tokens,
+                                        logits_mode="last")
+            mg.reset_launches()
+            got, got_aux = lm.forward(params, cfg, tokens,
+                                      logits_mode="last", mesh=mesh)
+            torch.cuda.synchronize()
+            runs["lm_mesh_prefill_plain"] = launch_counts()
+            if not (torch.equal(got, want) and torch.equal(got_aux, want_aux)
+                    ) or mg.LAUNCHES["moe_gate_topk"] != cfg.n_layers:
+                raise AssertionError("lm_mesh prefill (plain MoE): the mesh "
+                                     "forward differs from the forward "
+                                     "without one")
+            emit("lm_mesh", run="lm_mesh_prefill_plain", arch=cfg.name,
+                 dispatch=cfg.moe.dispatch,
+                 gate_launches=mg.LAUNCHES["moe_gate_topk"],
+                 bit_exact_vs_single=True)
+            del got, want
         del p, xt
         runs["lm_tp_tiles"], tp_rows = lm_tp_tiles(dev, cfg, params, tokens)
         tp_bytes_lines()
@@ -3835,7 +3983,9 @@ def phase_lm_mesh(dev, cfg, params, tokens, root, decode, floor_ms
     finally:
         dist.destroy_process_group()
     kernel = {"lm_mesh_prefill": "moe_gate_topk",
+              "lm_mesh_prefill_plain": "moe_gate_topk",
               "lm_mesh_train_deepseek": "moe_gate_topk",
+              "lm_mesh_train_deepseek_plain": "moe_gate_topk",
               "lm_tp_tiles": "ssd_scan",
               "lm_mesh_decode_deepseek": "moe_gate_topk"}
     return runs, kernel, tp_rows
@@ -3937,8 +4087,8 @@ def phase_family_checks(dev, cfg, params) -> None:
                                 if state.enc_out is not None else 0))
 
 
-def phase_family(dev, arch) -> Tuple[Dict[str, Dict[str, int]],
-                                     Dict[str, Optional[str]]]:
+def phase_family(dev, arch, root) -> Tuple[Dict[str, Dict[str, int]],
+                                           Dict[str, Optional[str]]]:
     """One of the last three LM families at full width and depth, alone on
     the card: random bf16 weights from a seeded generator, its two paths
     (a capture pass that also warms them: every SSD call the prefill makes
@@ -3947,8 +4097,11 @@ def phase_family(dev, arch) -> Tuple[Dict[str, Dict[str, int]],
     for the earlier paths), the measured run of each path with its launch
     counts, the
     prefill's host-clock time, a profile of the prefill and of a decode
-    step, and :func:`phase_family_checks`. Returns each path's launch
-    counts and kernel."""
+    step, and :func:`phase_family_checks`. The hybrid also decodes
+    through ``decode_step(..., mesh=)`` on an NCCL world-size-1 mesh
+    (:func:`lm_mesh_decode`: its site caches gathered one site at a time,
+    bit for bit with the decode without a mesh). Returns each path's
+    launch counts and kernel."""
     cfg = lm_registry.get_config(arch)
     params = lm.init_params(torch.Generator(device=dev).manual_seed(0), cfg,
                             device=dev)
@@ -3998,7 +4151,130 @@ def phase_family(dev, arch) -> Tuple[Dict[str, Dict[str, int]],
                          frames=None if "frames" not in extra
                          else extra["frames"][:len(decode_prompts)])
     phase_family_checks(dev, cfg, params)
-    return launches, {path.name: path.kernel for path in paths}
+    kernels = {path.name: path.kernel for path in paths}
+    if cfg.family == "hybrid":
+        import torch.distributed as dist
+        dist.init_process_group(
+            "nccl", init_method=(pathlib.Path(root)
+                                 / "rendezvous-hybrid").as_uri(),
+            rank=0, world_size=1, timeout=datetime.timedelta(minutes=2))
+        try:
+            launches["lm_mesh_decode_zamba2"] = lm_mesh_decode(
+                dev, specs.lm_mesh(), "lm_mesh_decode_zamba2", cfg, params,
+                tokens, None, None)
+        finally:
+            dist.destroy_process_group()
+        kernels["lm_mesh_decode_zamba2"] = None
+    return launches, kernels
+
+
+# ====================================================== blocked attention
+
+#: llama3.2-3b at full width, bf16, random weights: 24 heads, which do
+#: not split over a model axis of 16, so one (16, 16) rank of
+#: ``prefill_32k`` scores every head of its 2 rows of 32,768 tokens; depth
+#: cut to ATTN_LAYERS of 28 (each layer's f32 score passes take ~1 s)
+ATTN_ARCH = "llama3.2-3b"
+ATTN_B, ATTN_S, ATTN_LAYERS = 2, 32768, 8
+#: the card's peak against the dry run's count of the same step
+#: (``max_memory_allocated`` over the predicted live bytes)
+ATTN_PEAK_TOL = 0.01
+#: blocked against whole attention: float32 (TF32 off) on 2 x 4,096
+#: tokens, blocks of ATTN_CHECK_BLOCK queries against one block, logits
+#: within the float32 forwards' tolerance of their scale
+ATTN_CHECK_S, ATTN_CHECK_BLOCK, ATTN_CHECK_TOL = 4096, 512, 1e-4
+
+
+def phase_attention(dev, smi) -> None:
+    """Attention scored in blocks of queries on the card
+    (``attention._by_query_blocks``). (1) llama3.2-3b's forward
+    (:data:`ATTN_LAYERS` layers, ``logits_mode="last"``, no gradient) on
+    :data:`ATTN_B` x
+    :data:`ATTN_S` tokens, one device: whole scores would need ~200 GB a
+    layer; the card's ``max_memory_allocated`` against the dry run's count
+    of the same step on fake CPU tensors (:func:`repro_torch.launch.dryrun.
+    measure`), within :data:`ATTN_PEAK_TOL` (TF32 on for this run alone:
+    the f32 score products' precision moves no byte). (2) Its float32
+    forward on 2 x :data:`ATTN_CHECK_S` tokens with blocks of
+    :data:`ATTN_CHECK_BLOCK` queries against one block of every query:
+    every logit within :data:`ATTN_CHECK_TOL` of their scale."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.models import attention as A
+    cfg = dataclasses.replace(lm_registry.get_config(ATTN_ARCH),
+                              n_layers=ATTN_LAYERS)
+    host = torch.from_numpy(np.random.default_rng(21).integers(
+        0, cfg.vocab_size, (ATTN_B, ATTN_S)))
+
+    def step(params, tokens):
+        with torch.no_grad():
+            return lm.forward(params, cfg, tokens, logits_mode="last")[0]
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        fake = lm.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+        pred = dryrun.measure(step, (fake, host), tensor_bytes(fake) +
+                              tensor_bytes(host), tensor_bytes(fake))
+        del fake
+    params = lm.init_params(torch.Generator(device=dev).manual_seed(0), cfg,
+                            device=dev)
+    tokens = host.to(dev)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        t0 = time.perf_counter()
+        logits = step(params, tokens)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    peak = torch.cuda.max_memory_allocated()
+    finite = bool(torch.isfinite(logits).all())
+    rel = peak / pred["peak_bytes"] - 1
+    emit("attention", run="llama_prefill_rank", arch=cfg.name,
+         batch=ATTN_B, seq=ATTN_S, heads=cfg.n_heads, dtype=cfg.dtype,
+         score_block_bytes=A.SCORE_BLOCK_BYTES,
+         queries_per_block=A.SCORE_BLOCK_BYTES // (
+             4 * ATTN_B * cfg.n_heads * ATTN_S),
+         whole_scores_bytes_per_layer=4 * ATTN_B * cfg.n_heads * ATTN_S ** 2,
+         predicted_peak_bytes=pred["peak_bytes"],
+         max_memory_allocated=peak, memory_allocated_before=base,
+         peak_over_predicted=peak / pred["peak_bytes"], tol=ATTN_PEAK_TOL,
+         forward_ms=ms, tf32=True, finite=finite,
+         trace_s=pred["trace_s"], nvidia_smi=smi)
+    if not finite or abs(rel) > ATTN_PEAK_TOL:
+        raise AssertionError(f"attention: llama {ATTN_B} x {ATTN_S}: peak "
+                             f"{peak} against the dry run's "
+                             f"{pred['peak_bytes']}, finite {finite}")
+    del logits
+    f32 = tree_unflatten(params, [t.float() for t in tree_leaves(params)])
+    del params
+    f32cfg = dataclasses.replace(cfg, dtype="float32")
+    short = tokens[:, :ATTN_CHECK_S]
+    row = 4 * ATTN_B * cfg.n_heads * ATTN_CHECK_S
+    out = {}
+    budget = A.SCORE_BLOCK_BYTES
+    try:
+        for name, blocks in (("whole", 1 << 62),
+                             ("blocked", ATTN_CHECK_BLOCK * row)):
+            A.SCORE_BLOCK_BYTES = blocks
+            with torch.no_grad():
+                out[name] = lm.forward(f32, f32cfg, short)[0]
+    finally:
+        A.SCORE_BLOCK_BYTES = budget
+    scale = float(out["whole"].abs().max())
+    err = float((out["blocked"] - out["whole"]).abs().max()) / scale
+    emit("attention", run="blocked_vs_whole", arch=cfg.name, dtype="float32",
+         batch=ATTN_B, seq=ATTN_CHECK_S, queries_per_block=ATTN_CHECK_BLOCK,
+         blocks=ATTN_CHECK_S // ATTN_CHECK_BLOCK, max_err_over_scale=err,
+         tol=ATTN_CHECK_TOL, nvidia_smi=smi)
+    if not err <= ATTN_CHECK_TOL:
+        raise AssertionError(f"attention: blocked logits differ from the "
+                             f"whole form's by {err} of scale")
+    del f32, out
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 # ================================================================ training
@@ -4562,11 +4838,22 @@ def phase_train_autograd(dev, smi) -> None:
 
 #: the dry run's cells on the card's host (arch, shape, two pods, --opt):
 #: a dense train step, the expert-parallel decode, arctic's train state on
-#: two pods, mamba2's 524,288-token decode
+#: two pods, mamba2's 524,288-token decode, and three cells the layout
+#: repairs brought under 80 GB a rank (the plain MoE layer's expert
+#: blocks, attention in blocks of queries over 24 heads whole, the
+#: cross-entropy over token chunks of a 256,206-word vocabulary); each in
+#: a process of its own, all at once
 DRYRUN_CELLS = (("internlm2-1.8b", "train_4k", False, False),
                 ("deepseek-v2-lite-16b", "decode_32k", False, True),
                 ("arctic-480b", "train_4k", True, True),
-                ("mamba2-780m", "long_500k", False, False))
+                ("mamba2-780m", "long_500k", False, False),
+                ("deepseek-v2-lite-16b", "train_4k", False, False),
+                ("llama3.2-3b", "prefill_32k", False, False),
+                ("seamless-m4t-medium", "train_4k", False, False))
+#: the peak of internlm2's launcher step on an NVIDIA H100 80GB HBM3 (700
+#: W) before the chunked loss and AdamW's update by pieces: the counter's
+#: step must peak below it
+COUNTER_PREVIOUS_PEAK = 50_276_892_160
 #: the dry run's record keys each ``dryrun`` line carries
 DRYRUN_KEYS = ("arch", "shape", "mesh", "chips", "rank", "status",
                "trace_s", "flops_per_chip", "bytes_per_chip",
@@ -4592,7 +4879,8 @@ def phase_dryrun(dev, smi, root) -> None:
     mesh under ``FakeTensorMode`` (a subprocess, whose fake process group
     is its own; nothing runs on the card), one ``dryrun`` line each, status
     ``ok`` or raise. Then the counter against the card, on internlm2-1.8b's
-    launcher run (8 x 4,096 tokens in 4 microbatches, one device): the dry
+    launcher run (8 x 4,096 tokens in 4 microbatches, one device; its peak
+    below :data:`COUNTER_PREVIOUS_PEAK` or raise): the dry
     run's count of that step on fake CPU tensors
     (:func:`repro_torch.launch.dryrun.measure`) against one real step on
     the card — the argument bytes equal to the real state's bytes, the
@@ -4605,21 +4893,24 @@ def phase_dryrun(dev, smi, root) -> None:
     env["PYTHONPATH"] = str(ROOT / "src")
     t0 = time.perf_counter()
     # the cells run on the host beside the counter's work below
-    proc = subprocess.Popen(
-        [sys.executable, "-c", _DRYRUN_SCRIPT, json.dumps(DRYRUN_CELLS)],
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _DRYRUN_SCRIPT, json.dumps([cell])],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
-        cwd=ROOT)
+        cwd=ROOT) for cell in DRYRUN_CELLS]
+    recs = []
     try:
         counter = _dryrun_counter(dev, smi, root)
-        out, err = proc.communicate(timeout=600)
+        for proc in procs:
+            out, err = proc.communicate(timeout=600)
+            if proc.returncode != 0:
+                raise AssertionError(f"dryrun: {err[-3000:]}")
+            recs += [json.loads(line) for line in out.splitlines()
+                     if line.startswith("{")]
     finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
-    if proc.returncode != 0:
-        raise AssertionError(f"dryrun: {err[-3000:]}")
-    recs = [json.loads(line) for line in out.splitlines()
-            if line.startswith("{")]
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
     if len(recs) != len(DRYRUN_CELLS) or any(r["status"] != "ok"
                                              for r in recs):
         raise AssertionError(f"dryrun: {recs}")
@@ -4631,7 +4922,13 @@ def phase_dryrun(dev, smi, root) -> None:
                             hbm_bw=roofline.HBM_BW,
                             link_bw=roofline.LINK_BW),
              nvidia_smi=smi)
-    emit("dryrun", **counter, phase_s=time.perf_counter() - t0)
+    emit("dryrun", **counter,
+         previous_max_memory_allocated=COUNTER_PREVIOUS_PEAK,
+         phase_s=time.perf_counter() - t0)
+    if counter["max_memory_allocated"] >= COUNTER_PREVIOUS_PEAK:
+        raise AssertionError(f"dryrun: internlm2's step peaks at "
+                             f"{counter['max_memory_allocated']}, not below "
+                             f"{COUNTER_PREVIOUS_PEAK}")
     if counter["argument_bytes"] != counter["real_state_bytes"]:
         raise AssertionError(f"dryrun: argument bytes "
                              f"{counter['argument_bytes']} against the "
@@ -4806,11 +5103,12 @@ def smoke(root: str) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     for arch in (VLM_ARCH, AUDIO_ARCH, HYBRID_ARCH):
-        family_launches, family_kernels = phase_family(dev, arch)
+        family_launches, family_kernels = phase_family(dev, arch, root)
         launches.update(family_launches)
         kernel_of.update(family_kernels)
         gc.collect()
         torch.cuda.empty_cache()
+    phase_attention(dev, smi)
     phase_train_checks(dev, root)
     phase_train_autograd(dev, smi)
     train = train_paths(root, smi)

@@ -22,15 +22,20 @@ rank's part (:func:`gqa_rank_params`, :func:`mla_rank_params`).
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import MLAConfig, ModelConfig
 from repro_torch.models import layers as L
 
 NEG_INF = -1e30
+#: the f32 scores one block of queries holds at most: attention scores its
+#: queries block by block (:func:`_by_query_blocks`); where a gradient is
+#: wanted, the backward holds several such blocks at once
+SCORE_BLOCK_BYTES = 2 << 30
 
 
 class KVCache(NamedTuple):
@@ -70,9 +75,8 @@ def _cache_update(buf: torch.Tensor, new: torch.Tensor,
     big = buf.shape[1]
     steps = torch.arange(s, dtype=torch.int64, device=buf.device)
     if pos.dim() == 0:
-        start = pos.to(torch.int64).clamp(0, max(big - s, 0))
         out = buf.clone()
-        out[:, start + steps] = new
+        out[:, cache_index(pos, s, big)] = new
         return out
     t_idx = pos.to(torch.int64)[:, None] + steps[None, :]
     t_idx = torch.where((t_idx >= 0) & (t_idx < big), t_idx, big)
@@ -80,6 +84,14 @@ def _cache_update(buf: torch.Tensor, new: torch.Tensor,
     out = torch.cat([buf, buf.new_zeros((b, 1) + tuple(buf.shape[2:]))], 1)
     out[b_idx, t_idx] = new
     return out[:, :big]
+
+
+def cache_index(pos: torch.Tensor, s: int, big: int) -> torch.Tensor:
+    """The cache positions a write of ``s`` tokens at a scalar ``pos``
+    lands on in a cache of ``big`` positions (:func:`_cache_update`: its
+    start clamped to ``[0, big - s]``)."""
+    start = pos.to(torch.int64).clamp(0, max(big - s, 0))
+    return start + torch.arange(s, dtype=torch.int64, device=pos.device)
 
 
 def _cache_valid(pos: torch.Tensor, s: int, s_max: int) -> torch.Tensor:
@@ -106,8 +118,11 @@ def _inv_sqrt(d: int) -> float:
 
 def _softmax(scores: torch.Tensor) -> torch.Tensor:
     """``jax.nn.softmax``'s steps: ``exp(x - max) / sum`` (``torch.softmax``
-    multiplies by the reciprocal of the sum instead)."""
-    z = torch.exp(scores - torch.amax(scores, dim=-1, keepdim=True))
+    multiplies by the reciprocal of the sum instead), the max without a
+    gradient, as ``jax.nn.softmax`` stops it (so the backward keeps no
+    copy of the scores)."""
+    z = torch.exp(scores - torch.amax(scores.detach(), dim=-1,
+                                      keepdim=True))
     return z / torch.sum(z, dim=-1, keepdim=True)
 
 
@@ -124,28 +139,68 @@ def gqa_init(generator: torch.Generator, cfg: ModelConfig,
     }
 
 
+def _by_query_blocks(fn: Callable[..., torch.Tensor],
+                     queries: Tuple[torch.Tensor, ...], row_bytes: int,
+                     keys: Tuple[torch.Tensor, ...]) -> torch.Tensor:
+    """``fn(*query_blocks)`` over blocks of queries (dim 1 of every tensor
+    of ``queries``), as many a block as hold :data:`SCORE_BLOCK_BYTES` of
+    scores at ``row_bytes`` a query, joined along dim 1. ``fn`` reads
+    ``keys`` (every key, whole) itself. Each block scores every key, so
+    each query's softmax is whole. Where a
+    gradient is wanted each block runs under ``torch.utils.checkpoint``:
+    its scores are recomputed in the backward instead of kept."""
+    sq = queries[0].shape[1]
+    remat = torch.is_grad_enabled() and any(
+        t.requires_grad for t in queries + keys)
+    n = max(1, SCORE_BLOCK_BYTES // max(1, row_bytes))
+    outs = []
+    for lo in range(0, sq, n):
+        part = tuple(t[:, lo:lo + n] for t in queries)
+        outs.append(torch.utils.checkpoint.checkpoint(
+            fn, *part, use_reentrant=False, preserve_rng_state=False)
+            if remat else fn(*part))
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+
+
 def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
           causal: bool,
           kv_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """q (B,Sq,H,D); k/v (B,Sk,G,D) with H = G*rep. f32 softmax."""
+    """q (B,Sq,H,D); k/v (B,Sk,G,D) with H = G*rep. f32 softmax, over
+    blocks of queries (:func:`_by_query_blocks`)."""
     b, sq, h, dh = q.shape
-    g = k.shape[2]
-    rep = h // g
-    qf = L._f32(q.reshape(b, sq, g, rep, dh))
-    kf, vf = L._f32(k), L._f32(v)
-    scores = torch.einsum("bsgrd,btgd->bgrst", qf, kf) * _inv_sqrt(dh)
     sk = k.shape[1]
+    rows = torch.arange(sq, device=q.device)[None]
+    # (B, G, D, Sk) and (B, G, Sk, D): the keys and values every block reads
+    kt = L._f32(k).permute(0, 2, 3, 1).contiguous()
+    vf = L._f32(v).permute(0, 2, 1, 3).contiguous()
+    return _by_query_blocks(
+        lambda qb, ib: _sdpa_block(qb, ib[0], kt, vf, causal, kv_valid),
+        (q, rows), 4 * b * h * sk, (kt, vf))
+
+
+def _sdpa_block(q: torch.Tensor, rows: torch.Tensor, kt: torch.Tensor,
+                vf: torch.Tensor, causal: bool,
+                kv_valid: Optional[torch.Tensor]) -> torch.Tensor:
+    """One block of :func:`_sdpa`: queries ``q`` (B, n, H, D) at indices
+    ``rows`` of the query axis, against every key (``kt`` (B, G, D, Sk),
+    ``vf`` (B, G, Sk, D), f32). The products are batched over (B, G) with
+    the group's queries (rep x n) as rows."""
+    b, n, h, dh = q.shape
+    g, sk = kt.shape[1], kt.shape[3]
+    rep = h // g
+    qf = L._f32(q).reshape(b, n, g, rep, dh).permute(0, 2, 3, 1, 4)
+    scores = (qf.reshape(b, g, rep * n, dh) @ kt).reshape(
+        b, g, rep, n, sk) * _inv_sqrt(dh)
     if causal:
-        mask = torch.arange(sq, device=q.device)[:, None] \
-            >= torch.arange(sk, device=q.device)[None, :]
-        scores = torch.where(mask[None, None, None], scores, NEG_INF)
+        mask = rows[:, None] >= torch.arange(sk, device=q.device)[None, :]
+        scores = torch.where(mask, scores, NEG_INF)
     if kv_valid is not None:                      # decode: mask empty slots
         kvm = (kv_valid[:, None, None, None, :] if kv_valid.dim() == 2
-               else kv_valid[None, None, None, None, :])
+               else kv_valid)
         scores = torch.where(kvm, scores, NEG_INF)
-    probs = _softmax(scores)
-    out = torch.einsum("bgrst,btgd->bsgrd", probs, vf)
-    return out.reshape(b, sq, h, dh).to(q.dtype)
+    probs = _softmax(scores).reshape(b, g, rep * n, sk)
+    out = (probs @ vf).reshape(b, g, rep, n, dh).permute(0, 3, 1, 2, 4)
+    return out.reshape(b, n, h, dh).to(q.dtype)
 
 
 def gqa_split(cfg: ModelConfig, m: int) -> bool:
@@ -344,24 +399,44 @@ def mla_apply(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
     kv = (c_kv @ p["w_ukv"]).reshape(b, c_kv.shape[1], h, m.d_nope + m.d_v)
     k_nope, v = kv[..., :m.d_nope], kv[..., m.d_nope:]
 
-    scores = torch.einsum("bshd,bthd->bhst", L._f32(q_nope), L._f32(k_nope))
-    scores = scores + torch.einsum("bshd,btd->bhst", L._f32(q_rope),
-                                   L._f32(k_rope))
-    scores = scores * _inv_sqrt(m.d_nope + m.d_rope)
-    sk = scores.shape[-1]
-    if cache is None:
-        mask = positions[:, :, None] >= torch.arange(
-            sk, device=x.device)[None, None, :]
-        scores = torch.where(mask[:, None], scores, NEG_INF)
-    else:
-        kvm = (kv_valid[:, None, None, :] if kv_valid.dim() == 2
-               else kv_valid[None, None, None, :])
-        scores = torch.where(kvm, scores, NEG_INF)
-    probs = _softmax(scores)
-    out = torch.einsum("bhst,bthd->bshd", probs, L._f32(v))
+    kv_mask = None
+    if cache is not None:
+        kv_mask = (kv_valid[:, None, None, :] if kv_valid.dim() == 2
+                   else kv_valid)
+    # (B, H, d_nope, Sk), (B, 1, d_rope, Sk), (B, H, Sk, d_v): every block
+    # reads them
+    knt = L._f32(k_nope).permute(0, 2, 3, 1).contiguous()
+    krt = L._f32(k_rope).transpose(1, 2)[:, None].contiguous()
+    vf = L._f32(v).permute(0, 2, 1, 3).contiguous()
+    out = _by_query_blocks(
+        lambda qn, qr, pos: _mla_block(qn, qr, pos, knt, krt, vf, kv_mask,
+                                       m),
+        (q_nope, q_rope, positions), 4 * b * h * c_kv.shape[1],
+        (knt, krt, vf))
     # f32 scores and values, rounded to the model dtype before wo
     out = out.reshape(b, s, -1).to(x.dtype)
     return out @ p["wo"], new_cache
+
+
+def _mla_block(q_nope: torch.Tensor, q_rope: torch.Tensor,
+               positions: torch.Tensor, knt: torch.Tensor, krt: torch.Tensor,
+               vf: torch.Tensor, kv_mask: Optional[torch.Tensor],
+               m: MLAConfig) -> torch.Tensor:
+    """One block of queries of MLA's score pass (``positions`` theirs),
+    against every key (f32: ``knt`` (B, H, d_nope, Sk), ``krt`` (B, 1,
+    d_rope, Sk), ``vf`` (B, H, Sk, d_v)): causal by position without a
+    cache, ``kv_mask`` with one. Returns (B, n, H, d_v) in f32."""
+    scores = L._f32(q_nope).transpose(1, 2) @ knt
+    scores = scores + L._f32(q_rope).transpose(1, 2) @ krt
+    scores = scores * _inv_sqrt(m.d_nope + m.d_rope)
+    sk = scores.shape[-1]
+    if kv_mask is None:
+        mask = positions[:, :, None] >= torch.arange(
+            sk, device=scores.device)[None, None, :]
+        scores = torch.where(mask[:, None], scores, NEG_INF)
+    else:
+        scores = torch.where(kv_mask, scores, NEG_INF)
+    return (_softmax(scores) @ vf).transpose(1, 2)
 
 
 def mla_cache_init(cfg: ModelConfig, batch: int, max_len: int,

@@ -20,6 +20,9 @@ from repro_torch.sharding import specs as SH
 
 #: the mesh axis tensor parallelism splits over
 MODEL = "model"
+#: the float32 logits one chunk of tokens holds at most in the chunked
+#: cross-entropy (:func:`head_cross_entropy`)
+CE_CHUNK_BYTES = 1 << 30
 
 
 class TP(NamedTuple):
@@ -230,16 +233,93 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     the sum of the exponentials summed over ``model``, the gold logit
     taken from the rank that holds it, all in float32 (see
     :func:`vocab_max`, :func:`vocab_sumexp`, :func:`vocab_gold`)."""
-    logits = _f32(logits)
     if tp is None:
-        logz = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
-    else:
-        mx = SH.all_reduce(vocab_max(logits), MODEL, tp.mesh, op="max")
-        logz = torch.log(tp.total(vocab_sumexp(logits, mx))) + mx
-        gold = tp.total(vocab_gold(logits, labels,
-                                   tp.rank * logits.shape[-1]))
-    nll = logz - gold
+        return _mean_nll(_token_nll(logits, labels), mask, total)
+    logits = _f32(logits)
+    mx = SH.all_reduce(vocab_max(logits), MODEL, tp.mesh, op="max")
+    logz = torch.log(tp.total(vocab_sumexp(logits, mx))) + mx
+    gold = tp.total(vocab_gold(logits, labels, tp.rank * logits.shape[-1]))
+    return _mean_nll(logz - gold, mask, total)
+
+
+def head_cross_entropy(x: torch.Tensor, head: torch.Tensor,
+                       labels: torch.Tensor, mask: torch.Tensor | None = None,
+                       *, total: torch.Tensor | None = None) -> torch.Tensor:
+    """``cross_entropy(x @ head, labels, mask, total=total)`` with the
+    head's product and the loss taken a chunk of tokens at a time (as many
+    as hold :data:`CE_CHUNK_BYTES` of float32 logits): the whole
+    (tokens, V) logits and their float32 copy are never held. x (..., D),
+    head (D, V), labels (...). No chunk's logits are saved for the
+    backward (:class:`_HeadNLL` recomputes them). Each token's loss, and
+    the sum and the division after, are :func:`cross_entropy`'s."""
+    n = labels.numel()
+    xs, ls = x.reshape(n, x.shape[-1]), labels.reshape(n)
+    rows = max(1, CE_CHUNK_BYTES // (4 * head.shape[-1]))
+    nll = _HeadNLL.apply(xs, head, ls, rows)
+    return _mean_nll(nll.reshape(labels.shape), mask, total)
+
+
+def _head_nll(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor
+              ) -> torch.Tensor:
+    """Each token's loss of one chunk of :func:`head_cross_entropy`."""
+    return _token_nll(x @ head, labels)
+
+
+class _HeadNLL(torch.autograd.Function):
+    """Each token's loss of ``xs @ head`` ((n, D) by (D, V)) against the
+    labels ``ls`` (n,), ``rows`` tokens at a time. The backward recomputes
+    a chunk's logits, takes the gradient of its float32 loss as autograd
+    does (``exp(logits - logsumexp)`` times the token's gradient, less
+    that at its label, rounded to the head's dtype) and its products with
+    the head in that dtype; the head's gradient adds every chunk's product
+    in float32 (exact products of the rounded operands) and is rounded to
+    its dtype once, as one product over every token is."""
+
+    @staticmethod
+    def forward(ctx, xs, head, ls, rows):
+        ctx.save_for_backward(xs, head, ls)
+        ctx.rows = rows
+        parts = [_head_nll(xs[lo:lo + rows], head, ls[lo:lo + rows])
+                 for lo in range(0, ls.shape[0], rows)]
+        return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+    @staticmethod
+    def backward(ctx, g_nll):
+        xs, head, ls = ctx.saved_tensors
+        rows = ctx.rows
+        want_x, want_head = ctx.needs_input_grad[:2]
+        acc = torch.zeros(head.shape, dtype=_f32(head).dtype,
+                          device=head.device) if want_head else None
+        dxs = []
+        for lo in range(0, ls.shape[0], rows):
+            x_c, gn = xs[lo:lo + rows], g_nll[lo:lo + rows, None]
+            logits = _f32(x_c @ head)
+            g = torch.exp(logits - torch.logsumexp(logits, -1, keepdim=True)
+                          ) * gn
+            del logits
+            g.scatter_add_(1, ls[lo:lo + rows, None].long(), -gn)
+            g = g.to(head.dtype)
+            if want_x:
+                dxs.append(g @ head.T)
+            if want_head:
+                # out= rather than addmm_: the FLOP counter (the dry run)
+                # knows addmm, not its in-place form
+                torch.addmm(acc, _f32(x_c).T, _f32(g), out=acc)
+        dx = (dxs[0] if len(dxs) == 1 else torch.cat(dxs)) if want_x \
+            else None
+        return dx, None if acc is None else acc.to(head.dtype), None, None
+
+
+def _token_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Each token's ``logsumexp`` minus its gold logit, in float32."""
+    logits = _f32(logits)
+    logz = torch.logsumexp(logits, dim=-1)
+    return logz - torch.gather(logits, -1, labels[..., None].long())[..., 0]
+
+
+def _mean_nll(nll: torch.Tensor, mask: torch.Tensor | None,
+              total: torch.Tensor | None) -> torch.Tensor:
+    """The mean of :func:`cross_entropy` over its tokens' losses."""
     if total is not None:
         kept = nll if mask is None else nll * mask.to(nll.dtype)
         return torch.sum(kept) / torch.clamp(total.to(nll.dtype), min=1.0)

@@ -79,21 +79,28 @@ def _expert_ffn(p, x: torch.Tensor) -> torch.Tensor:
 def _aux_loss(probs_full: torch.Tensor, idx: torch.Tensor,
               e: int) -> torch.Tensor:
     """Switch-style load balancing: E * sum_e f_e * p_e."""
+    return _balance(torch.mean(probs_full, dim=0), idx, e)
+
+
+def _balance(importance: torch.Tensor, idx: torch.Tensor,
+             e: int) -> torch.Tensor:
+    """:func:`_aux_loss` from the mean router probability of each expert
+    (``importance``, (E,)) and every assignment's expert (``idx``)."""
     load = torch.zeros((e,), dtype=torch.float32, device=idx.device)
     load = load.index_add(0, idx.reshape(-1).to(torch.int64),
                           torch.ones(idx.numel(), dtype=torch.float32,
                                      device=idx.device))
     load = load / torch.clamp(load.sum(), min=1.0)
-    importance = torch.mean(probs_full, dim=0)
     return e * torch.sum(load * importance)
 
 
-def _combine(contrib: torch.Tensor, probs: torch.Tensor) -> torch.Tensor:
+def _combine(contrib: torch.Tensor, probs: torch.Tensor,
+             f32: bool = False) -> torch.Tensor:
     """sum over k of contrib (T, k, D) * probs (T, k), both in the model
     dtype: the reference's compiled combine takes the product and the sum
-    in f32 and rounds once, to the model dtype."""
-    return torch.sum(L._f32(contrib) * L._f32(probs)[..., None],
-                     dim=1).to(contrib.dtype)
+    in f32 and rounds once, to the model dtype (``f32``: not yet)."""
+    out = torch.sum(L._f32(contrib) * L._f32(probs)[..., None], dim=1)
+    return out if f32 else out.to(contrib.dtype)
 
 
 def _capacity(t: int, cfg: MoEConfig) -> int:
@@ -110,18 +117,17 @@ def _route(p, xt: torch.Tensor, cfg: MoEConfig):
     return probs_full, probs.to(xt.dtype), idx
 
 
-def _relocate_ffn(p, xt: torch.Tensor, probs: torch.Tensor,
-                  idx: torch.Tensor, cap: int, e_lo: int, e_loc: int
-                  ) -> torch.Tensor:
-    """The Catwalk relocation dispatch over experts ``e_lo .. e_lo +
-    e_loc`` (the leading axis of ``p``'s stacks): each such assignment of
-    ``idx`` (T, k) lands in its expert's block of ``cap`` slots in token
-    order, past ``cap`` in the trash slot ``e_loc * cap``, as do the other
-    experts' assignments; the (e_loc, cap, D) FFN runs and each token sums
-    its kept contributions weighted by ``probs`` (T, k). Returns (T, D)."""
-    t, d = xt.shape
-    k = idx.shape[1]
-    dev = xt.device
+def _relocation(idx: torch.Tensor, cap: int, e_lo: int, e_loc: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The Catwalk relocation of the assignments ``idx`` (T, k) to experts
+    ``e_lo .. e_lo + e_loc``: stably sorted by expert in token order, each
+    in its expert's block of ``cap`` slots, past ``cap`` dropped, as are
+    the other experts' assignments. Returns (the source token of each of
+    the ``e_loc * cap`` slots, T for an empty one; each assignment's slot
+    in token order (T*k,), ``e_loc * cap`` (the trash slot) where it is
+    dropped)."""
+    t, k = idx.shape
+    dev = idx.device
     flat = idx.reshape(-1).to(torch.int64)                       # (T*k,)
     mine = (flat >= e_lo) & (flat < e_lo + e_loc)
     flat_e = torch.where(mine, flat - e_lo, e_loc)       # e_loc = trash
@@ -139,14 +145,33 @@ def _relocate_ffn(p, xt: torch.Tensor, probs: torch.Tensor,
     slot_src = torch.full((e_loc * cap + 1,), t, dtype=torch.int64,
                           device=dev)
     slot_src[slot] = torch.where(keep, flat_tok[order], t)
-    xt_pad = torch.cat([xt, xt.new_zeros((1, d))], 0)
-    expert_in = xt_pad[slot_src[:-1]].reshape(e_loc, cap, d)
-    expert_out = _expert_ffn(p, expert_in)
+    # per-assignment slot in TOKEN order (inverse relocation)
+    return slot_src[:-1], slot[torch.argsort(order)]
+
+
+def _gather_slots(expert_out: torch.Tensor, token_slot: torch.Tensor
+                  ) -> torch.Tensor:
+    """Each assignment's row of ``expert_out`` (E_loc, C, D) at its slot
+    ``token_slot`` (T*k,), zero at the trash slot: (T*k, D)."""
+    e_loc, cap, d = expert_out.shape
     eo_flat = torch.cat([expert_out.reshape(e_loc * cap, d),
                          expert_out.new_zeros((1, d))], 0)
-    # per-assignment slot in TOKEN order (inverse relocation)
-    token_slot = slot[torch.argsort(order)]                      # (T*k,)
-    return _combine(eo_flat[token_slot].reshape(t, k, d), probs)
+    return eo_flat[token_slot]
+
+
+def _relocate_ffn(p, xt: torch.Tensor, probs: torch.Tensor,
+                  idx: torch.Tensor, cap: int, e_lo: int, e_loc: int
+                  ) -> torch.Tensor:
+    """The Catwalk relocation dispatch (:func:`_relocation`) over experts
+    ``e_lo .. e_lo + e_loc`` (the leading axis of ``p``'s stacks) of the
+    tokens ``xt`` (T, D): the (e_loc, cap, D) FFN runs and each token sums
+    its kept contributions weighted by ``probs`` (T, k). Returns (T, D)."""
+    t, d = xt.shape
+    slot_src, token_slot = _relocation(idx, cap, e_lo, e_loc)
+    xt_pad = torch.cat([xt, xt.new_zeros((1, d))], 0)
+    expert_in = xt_pad[slot_src].reshape(e_loc, cap, d)
+    contrib = _gather_slots(_expert_ffn(p, expert_in), token_slot)
+    return _combine(contrib.reshape(t, idx.shape[1], d), probs)
 
 
 def _local_dispatch_ffn(p_loc, xt: torch.Tensor, cfg: MoEConfig, e_lo: int,
@@ -177,19 +202,40 @@ def _rows_entry(mesh, batch_axes) -> SH.Axis:
     return live or None
 
 
+def plain_block_specs(cfg: MoEConfig, mesh) -> Dict[str, SH.Spec]:
+    """Spec of each unstacked expert stack as the plain layer under
+    ``mesh`` takes it (:func:`moe_apply`): as it rests under
+    :func:`repro_torch.sharding.specs.param_pspec` (the experts over
+    ``model``, their d_ff over the DP axes that divide it) where ``model``
+    has more than one rank and divides the experts, else an empty dict
+    (every leaf whole)."""
+    m = SH.axis_size(mesh, "model") if "model" in SH.axis_names(mesh) else 1
+    if m == 1 or cfg.n_experts % m or cfg.dispatch == "dense":
+        return {}
+    f = SH._fit(mesh, cfg.d_expert, SH.dp_axes(mesh))
+    return {"w_gate": ("model", None, f), "w_up": ("model", None, f),
+            "w_down": ("model", f, None)}
+
+
 def moe_apply(p, x: torch.Tensor, cfg: MoEConfig, *, mesh=None,
               batch_axes=None
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x (B, S, D) -> (out, {'aux_loss': scalar}).
 
     Under ``mesh``, ``x`` is this rank's block of rows over ``batch_axes``
-    (default the mesh's DP axes) and ``p`` is whole: the rows of every
-    rank are gathered (:func:`repro_torch.sharding.specs.gather_along`),
-    the whole layer runs on each rank, and each keeps its own rows. The
-    aux loss is then the whole batch's on every rank; its gradient enters
-    a sum of the ranks' gradients once
+    (default the mesh's DP axes), the same on every ``model`` rank; the
+    capacity, the drops and the aux loss are the whole batch's. Where
+    ``p``'s expert stacks are this rank's blocks
+    (:func:`plain_block_specs`), the rank computes its experts' slots of
+    the whole batch (:func:`_plain_part`). Where they are whole (and the
+    router and shared experts always), the rows of every rank are gathered
+    (:func:`repro_torch.sharding.specs.gather_along`), the whole layer
+    runs on each rank and each keeps its own rows; the aux loss's gradient
+    then enters a sum of the ranks' gradients once
     (:func:`repro_torch.sharding.specs.count_once`)."""
     entry = _rows_entry(mesh, batch_axes)
+    if mesh is not None and p["w_gate"].shape[0] < cfg.n_experts:
+        return _plain_part(p, x, cfg, mesh, SH.live_axes(mesh, entry))
     if entry is not None:
         whole = SH.gather_along(x, 0, entry, mesh)
         out, stats = moe_apply(p, whole, cfg)
@@ -213,6 +259,102 @@ def moe_apply(p, x: torch.Tensor, cfg: MoEConfig, *, mesh=None,
         out = out + L.mlp_apply(p["shared"], xt)
     aux = cfg.router_aux_loss * _aux_loss(probs_full, idx, e)
     return out.reshape(b, s, d), {"aux_loss": aux}
+
+
+def _plain_part(p, x: torch.Tensor, cfg: MoEConfig, mesh,
+                rows: Tuple[str, ...]
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """:func:`moe_apply` with the expert stacks as this rank's blocks
+    (``rows``: the axes of more than one rank the rows are split over, not
+    ``model``). The layer of the reference's ``expert_in`` pinned to
+    ``("model", None, None)``:
+
+    * the rank routes its own rows (one gate launch) and the ids are
+      gathered over ``rows``, so every rank relocates every assignment of
+      the batch (global token order, the whole batch's capacity) and knows
+      its experts' slots;
+    * each rank fills the slots its rows own and a sum over ``rows`` fills
+      them all: no rank holds the whole batch's (E, C, D) buffer or other
+      experts' rows;
+    * the rank's experts run on their slots with their d_ff block, and a
+      sum over the DP axes that split the d_ff completes them;
+    * each rank combines its rows' contributions from its experts in
+      float32; the sum over ``model`` completes the routed output, which
+      is rounded once, and the whole shared experts add theirs.
+
+    The aux loss is the whole batch's (the experts' mean probability
+    summed over ``rows``). Gradients: every sum over an axis the rows are
+    split over sums its gradient back (each rank's rows' loss is a part of
+    the batch's), the rows and the gate probabilities enter the ranks'
+    experts through :func:`repro_torch.sharding.specs.copy_to` over
+    ``model``."""
+    if "model" in rows:
+        raise ValueError("the plain MoE layer takes its expert blocks with "
+                         "the rows replicated over 'model'")
+    e, f = cfg.n_experts, cfg.d_expert
+    e_loc, f_loc = p["w_gate"].shape[0], p["w_gate"].shape[2]
+    f_axes = () if f_loc == f else SH.live_axes(
+        mesh, SH._fit(mesh, f, SH.dp_axes(mesh)))
+    if f_loc * SH.axis_size(mesh, f_axes) != f \
+            or e_loc * SH.axis_size(mesh, "model") != e:
+        raise ValueError(f"expert blocks {tuple(p['w_gate'].shape)} are "
+                         f"not this rank's under plain_block_specs")
+    b, s, d = x.shape
+    t_loc = b * s
+    xt = x.reshape(t_loc, d)
+    entry = rows or None
+    t = t_loc * SH.axis_size(mesh, entry)
+    r0 = SH.block_slice(mesh, t, entry).start
+    probs_full, probs, idx = _route(p, xt, cfg)
+    ids = SH.gather(idx, (entry, None), mesh)                    # (T, k)
+    slot_src, token_slot = _relocation(
+        ids, _capacity(t, cfg), SH.coordinate(mesh, "model") * e_loc, e_loc)
+    # the sum over the rows' axes fills every slot (its gradient, summed
+    # back, reaches each slot's owner)
+    filled = _fill_slots(SH.copy_to(xt, "model", mesh), slot_src, r0)
+    union = tuple(a for a in SH.dp_axes(mesh) if a in rows or a in f_axes)
+    expert_in = SH.copy_to(SH.sum_over(filled, rows, mesh), union, mesh)
+    part = _expert_ffn(p, expert_in.reshape(e_loc, -1, d))
+    expert_out = SH.copy_to(SH.sum_over(part, f_axes, mesh),
+                            tuple(a for a in f_axes if a in rows), mesh)
+    routed = _rows_combine(expert_out, token_slot,
+                           SH.copy_to(probs, "model", mesh), r0)
+    out = SH.sum_over(routed, "model", mesh).to(x.dtype)
+    if cfg.n_shared:
+        out = out + L.mlp_apply(p["shared"], xt)
+    # a true division, as the mean's (a Python divisor would go through
+    # its reciprocal on the card)
+    importance = SH.sum_over(torch.sum(probs_full, dim=0), rows, mesh) \
+        / torch.tensor(float(t), device=xt.device)
+    aux = cfg.router_aux_loss * _balance(importance, ids, e)
+    return out.reshape(b, s, d), {"aux_loss": aux}
+
+
+def _fill_slots(xt: torch.Tensor, slot_src: torch.Tensor, r0: int
+                ) -> torch.Tensor:
+    """The slots (``slot_src``, from :func:`_relocation` over the whole
+    batch) whose source tokens are this rank's rows ``xt`` (T_loc, D),
+    global rows ``r0 .. r0 + T_loc``, filled with them; every other slot
+    zero: (E_loc * C, D). The ranks' fills summed are the whole batch's
+    dispatch buffer."""
+    t_loc, d = xt.shape
+    local = slot_src - r0
+    mine = (local >= 0) & (local < t_loc)
+    pad = torch.cat([xt, xt.new_zeros((1, d))], 0)
+    return pad[torch.where(mine, local, t_loc)]
+
+
+def _rows_combine(expert_out: torch.Tensor, token_slot: torch.Tensor,
+                  probs: torch.Tensor, r0: int) -> torch.Tensor:
+    """The float32 combine (:func:`_combine`, not rounded) of this rank's
+    rows, global rows ``r0 .. r0 + T_loc`` with top-k probabilities
+    ``probs`` (T_loc, k), from the experts of ``expert_out`` (E_loc, C, D)
+    at the whole batch's ``token_slot``: (T_loc, D). The sum over the
+    ranks of every expert block is the routed output."""
+    t_loc, k = probs.shape
+    own = token_slot[r0 * k:(r0 + t_loc) * k]
+    contrib = _gather_slots(expert_out, own)
+    return _combine(contrib.reshape(t_loc, k, -1), probs, f32=True)
 
 
 # ---------------------------------------------------------------------------

@@ -41,8 +41,11 @@ each row-parallel projection's partial outputs summed over ``model``;
 under ``act_sp`` the residual stream between layers is the rank's block
 of the sequence (sequence parallelism) where ``model`` divides the
 sequence. A split that is not head-aligned leaves the layer whole on
-every rank. The MoE layer keeps its whole-width rows (``moe_apply``, or
-``moe_apply_ep``'s expert blocks under ``catwalk_ep``).
+every rank. The MoE layer keeps its whole-width rows and its experts
+over ``model`` (``moe_apply``'s rank part, or ``moe_apply_ep``'s expert
+blocks under ``catwalk_ep``). Attention scores its queries a block at a
+time, and a loss over a whole vocabulary takes the head's product a chunk
+of tokens at a time (:func:`hidden`).
 
 ``decode_step(..., mesh=)`` and ``init_serve_state(..., mesh=)`` decode
 on such a mesh with the serve state as each rank's blocks under the
@@ -293,7 +296,10 @@ def tp_plan(cfg: ModelConfig, mesh) -> Dict[str, Any]:
     shared experts) where d_ff divides; Mamba2's ``out_proj`` where its
     heads divide (``in_proj`` stays whole: its blocks at rest cross the
     x/z/B/C/dt boundaries). Under ``catwalk_ep`` the expert-parallel MoE
-    layers' blocks (:func:`repro_torch.models.moe.ep_block_specs`).
+    layers' blocks (:func:`repro_torch.models.moe.ep_block_specs`); else,
+    over ``model`` (not under ``batch_over_model``), the plain MoE layers'
+    expert stacks as they rest where ``model`` divides the experts
+    (:func:`repro_torch.models.moe.plain_block_specs`).
     Computed once a ``(cfg, mesh)``
     (:func:`repro_torch.sharding.specs.memo`)."""
     return SH.memo(mesh, ("tp_plan", cfg), lambda: _tp_plan(cfg, mesh))
@@ -305,8 +311,12 @@ def _tp_plan(cfg: ModelConfig, mesh) -> Dict[str, Any]:
                              replicate_embed=cfg.batch_over_model)
     ep = (cfg.moe is not None and cfg.moe.dispatch == "catwalk_ep"
           and M.ep_model_size(cfg.moe, mesh) is not None)
-    ep_keep = M.ep_block_specs(cfg.moe, mesh, cfg.moe.ep_fsdp) if ep else {}
     tp = "model" in SH.axis_names(mesh) and not cfg.batch_over_model
+    moe_keep = {}
+    if ep:
+        moe_keep = M.ep_block_specs(cfg.moe, mesh, cfg.moe.ep_fsdp)
+    elif cfg.moe is not None and tp:
+        moe_keep = M.plain_block_specs(cfg.moe, mesh)
     m = SH.axis_size(mesh, "model") if tp else 1
     heads = {}
     if cfg.family != "ssm":
@@ -328,7 +338,7 @@ def _tp_plan(cfg: ModelConfig, mesh) -> Dict[str, Any]:
         inner = path[1:] if stacked else path
         if inner[0] == "moe":
             name = "/".join(inner[1:])
-            keep = ep_keep.get(name)
+            keep = moe_keep.get(name)
             if keep is None:
                 return (None,) * len(spec)
             return ((None,) if stacked else ()) + keep
@@ -561,10 +571,40 @@ def forward(params, cfg: ModelConfig, tokens, *, patches=None, frames=None,
     :func:`repro_torch.sharding.specs.lm_batch_axes`; the mesh train step
     passes :func:`repro_torch.sharding.specs.lm_row_axes`).
     """
-    _check_family(cfg)
     if logits_mode not in ("all", "last"):
         raise ValueError(f"logits_mode must be 'all' or 'last', got "
                          f"{logits_mode!r}")
+    x, aux, n_prefix = _trunk(params, cfg, tokens, patches, frames, mesh,
+                              batch_axes)
+    if logits_mode == "all":
+        return x[:, n_prefix:] @ _head(params, cfg), aux
+    logits = x[:, -1:] @ _head(params, cfg)
+    if vocab_parallel(cfg, mesh):
+        logits = SH.gather_along(logits, 2, "model", mesh, summed=False)
+    return logits, aux
+
+
+def hidden(params, cfg: ModelConfig, tokens, *, patches=None, frames=None,
+           mesh=None, batch_axes=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(x, aux_loss): what :func:`forward` with ``logits_mode="all"``
+    multiplies by the head (:func:`_head`), the final-normed hidden state
+    of the text positions (B, S, D), so a loss can take the head's product
+    a chunk of tokens at a time
+    (:func:`repro_torch.models.layers.head_cross_entropy`). Arguments as
+    :func:`forward`'s; under :func:`vocab_parallel` the head is the rank's
+    block of the vocabulary."""
+    x, aux, n_prefix = _trunk(params, cfg, tokens, patches, frames, mesh,
+                              batch_axes)
+    return x[:, n_prefix:], aux
+
+
+def _trunk(params, cfg: ModelConfig, tokens, patches, frames, mesh,
+           batch_axes) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """(x, aux_loss, prefix length) of :func:`forward`: x (B, Np + S, D)
+    the final-normed hidden state the head multiplies (under tensor
+    parallelism whole on every rank, entered for a column-parallel
+    head)."""
+    _check_family(cfg)
     dev = params["embed"].device
     tp = _tp_of(cfg, mesh, SH.lm_batch_axes(mesh, cfg.batch_over_model)
                 if batch_axes is None else batch_axes)
@@ -607,20 +647,13 @@ def forward(params, cfg: ModelConfig, tokens, *, patches=None, frames=None,
                 cfg, lp, x)
             aux = aux + layer_aux
     x = L.rmsnorm(_scale(params["final_norm"], tp), x, cfg.norm_eps)
-    head = _head(params, cfg)
     if tp is not None and _keeps(plan["embed"] if cfg.tie_embeddings
                                  else plan["lm_head"]):
         # column-parallel: this rank's block of the vocabulary
-        x = tp.enter(x)
-        if logits_mode == "last":
-            return SH.gather_along(x[:, -1:] @ head, 2, "model", mesh,
-                                   summed=False), aux
-        return x[:, n_prefix:] @ head, aux
+        return tp.enter(x), aux, n_prefix
     if tp is not None:
         x = tp.seq_in(x)
-    if logits_mode == "last":
-        return x[:, -1:] @ head, aux
-    return x[:, n_prefix:] @ head, aux
+    return x, aux, n_prefix
 
 
 # ========================================================= serving =======
@@ -837,13 +870,16 @@ def decode_step(params, cfg: ModelConfig, state: ServeState,
             hn = L.rmsnorm(lp["norm1"], x, cfg.norm_eps)
             x = x + _mixer(ssm, hn, tp, split("ssm"))
             site = _shared_site(cfg, i)
-            if site is not None:
-                # the site's cache holds every row: the block runs on all
-                whole, _, new_site = _block_apply(
-                    params["shared"], SH.gather(x, (rows, None, None), mesh),
-                    cfg, cache=_kv(shared, site))
-                x = whole[mine]
+            if site is None:
+                continue
+            if mesh is None:
+                x, _, new_site = _block_apply(params["shared"], x, cfg,
+                                              cache=_kv(shared, site))
                 _put(new_shared, site, new_site)
+            else:
+                x = _site_step(params["shared"], x, cfg, shared, new_shared,
+                               site, mine, rows,
+                               table[".shared_cache/.k"][0][0], mesh)
     else:
         for i, lp in enumerate(_unstack(params["layers"])[:cfg.n_layers]):
             x, _, new = _block_apply(lp, x, cfg, cache=_kv(caches, i),
@@ -870,6 +906,43 @@ def decode_step(params, cfg: ModelConfig, state: ServeState,
 
 
 # ================================================== decoding on a mesh ====
+def _site_step(p, x: torch.Tensor, cfg: ModelConfig, shared: A.KVCache,
+               new_shared: A.KVCache, site: int, mine: slice, rows: SH.Axis,
+               entry: SH.Axis, mesh) -> torch.Tensor:
+    """The shared block at ``site`` of a decode step on ``mesh``, on the
+    rank's rows ``mine`` of the batch (``x``; over the entry ``rows``).
+    ``shared``: the rank's blocks of the site caches at rest (every row;
+    the site axis over ``entry`` or whole, as ``cache_pspec`` lays it
+    out; the positions whole). The site's cache is fetched from the ranks
+    that hold it only now (a sum over ``entry`` to which only they add it:
+    one site on every rank, dropped after), and the block reads the
+    rank's rows of it. The new token's K/V of every row is gathered over
+    ``rows`` and written, on the ranks that hold the site, into their
+    block of the new stack ``new_shared``; every rank writes the site's
+    new position."""
+    n_loc = shared.k.shape[0]
+    j, owner = site % n_loc, site // n_loc
+    held = SH.block_slice(mesh, shared.pos.shape[0], SH.split(mesh, entry)
+                          ).start // n_loc == owner
+    k_site, v_site = shared.k[j], shared.v[j]
+    if SH.split(mesh, entry):
+        k_site, v_site = (SH.all_reduce(t, entry, mesh) if held else
+                          SH.all_reduce(torch.zeros_like(t), entry, mesh,
+                                        copy=False)
+                          for t in (k_site, v_site))
+    x, _, new = _block_apply(p, x, cfg, cache=A.KVCache(
+        k_site[mine], v_site[mine], shared.pos[site]))
+    new_shared.pos[site] = new.pos
+    at = A.cache_index(shared.pos[site], 1, k_site.shape[1])
+    for buf, old, upd in ((new_shared.k, k_site, new.k),
+                          (new_shared.v, v_site, new.v)):
+        token = SH.gather(upd[:, at], (rows, None, None, None), mesh)
+        if held:
+            buf[j] = old
+            buf[j][:, at] = token
+    return x
+
+
 def _serve_cfg(cfg: ModelConfig) -> ModelConfig:
     """The config a decode step on a mesh plans with: the rows over the DP
     axes alone and no sequence split (one token)."""
@@ -892,8 +965,8 @@ def decode_plan(cfg: ModelConfig, mesh) -> Dict[str, Any]:
     but the hybrid's shared block whole, since its site caches are whole
     over ``model`` and the batch (``cache_pspec`` reads only
     ``layer_caches`` as a stack, so it splits the leading site axis alone,
-    over the DP axes where they divide it), and the block runs on every
-    row."""
+    over the DP axes where they divide it): the block runs on the rank's
+    rows with every head (:func:`_site_step`)."""
     def make():
         plan = tp_plan(_serve_cfg(cfg), mesh)
         if "shared" in plan:
@@ -917,8 +990,9 @@ def _state_specs(cfg: ModelConfig, state: ServeState, batch: int, mesh
     rank's blocks): its spec at rest (``cache_pspec`` of the whole leaf)
     and the part the decode step keeps split. The GQA caches keep their
     KV heads split where :func:`decode_plan` keeps ``wk`` split (else
-    every rank attends over every head, or its groups of them), the
-    hybrid's site caches nothing; every other leaf stays as it is."""
+    every rank attends over every head, or its groups of them); every
+    other leaf stays as it is (the hybrid's site caches too: a site's is
+    gathered only when its block runs, :func:`_site_step`)."""
     attn = state.shared_cache if cfg.family == "hybrid" \
         else state.layer_caches
     max_len = attn.k.shape[2] if isinstance(attn, A.KVCache) else 1
@@ -939,9 +1013,7 @@ def _make_state_specs(cfg, batch, max_len, enc, mesh):
         rest = SH.cache_pspec(key, leaf, mesh)
         name = SH._leaf_name(key)
         keep = rest
-        if name.startswith("shared_cache"):
-            keep = (None,) * len(rest)
-        elif kv and not kv_split and name in ("layer_caches/k",
+        if kv and not kv_split and name in ("layer_caches/k",
                                               "layer_caches/v"):
             keep = rest[:3] + (None,) + rest[4:]
         table[key] = (rest, keep)

@@ -26,6 +26,11 @@ import torch
 
 from repro_torch.optim.tree import tree_leaves, tree_map, tree_unzip
 
+#: the elements of a leaf :func:`adamw_update` updates at once (rows of
+#: its leading axis): the update's float32 temporaries are a few such
+#: pieces, not a few float32 copies of the largest leaf
+UPDATE_CHUNK = 1 << 26
+
 
 @dataclasses.dataclass(frozen=True)
 class AdamWConfig:
@@ -101,7 +106,9 @@ def adamw_update(cfg: AdamWConfig, params, grads, state: AdamWState, *,
                  grad_norm: torch.Tensor | None = None
                  ) -> Tuple[Any, AdamWState, Dict[str, torch.Tensor]]:
     """One AdamW step: returns (new params, new state, {grad_norm, lr});
-    the inputs are left as they were. ``grad_norm``: the global norm to
+    the inputs are left as they were. A leaf is updated a piece of
+    :data:`UPDATE_CHUNK` elements at a time (rows of its leading axis).
+    ``grad_norm``: the global norm to
     clip by, where ``params``, ``grads`` and the moments are one rank's
     blocks of whole trees (the norm of the whole gradients); default the
     norm of ``grads``."""
@@ -128,7 +135,21 @@ def adamw_update(cfg: AdamWConfig, params, grads, state: AdamWState, *,
         p2 = p.to(torch.float32) - lr * delta
         return p2.to(p.dtype), m2.to(m.dtype), v2.to(v.dtype)
 
+    def upd_rows(p, g, m, v):
+        # elementwise: the same values a piece at a time
+        n = p.numel() // max(p.shape[0], 1) if p.dim() else p.numel()
+        rows = max(1, UPDATE_CHUNK // max(n, 1))
+        if p.dim() == 0 or rows >= p.shape[0]:
+            return upd(p, g, m, v)
+        out = (torch.empty_like(p), torch.empty_like(m), torch.empty_like(v))
+        for lo in range(0, p.shape[0], rows):
+            part = slice(lo, lo + rows)
+            for buf, new in zip(out, upd(p[part], g[part], m[part],
+                                         v[part])):
+                buf[part] = new
+        return out
+
     new_params, new_m, new_v = tree_unzip(
-        tree_map(upd, params, grads, state.m, state.v), 3)
+        tree_map(upd_rows, params, grads, state.m, state.v), 3)
     metrics = {"grad_norm": gnorm, "lr": lr}
     return new_params, AdamWState(new_m, new_v, step), metrics

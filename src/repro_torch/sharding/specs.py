@@ -722,15 +722,16 @@ def live_axes(mesh, axes: Axis) -> Tuple[str, ...]:
     return tuple(a for a in _axes(axes) if sizes[a] > 1)
 
 
-def all_reduce(x: torch.Tensor, axes: Axis, mesh, op: str = "sum"
-               ) -> torch.Tensor:
+def all_reduce(x: torch.Tensor, axes: Axis, mesh, op: str = "sum",
+               copy: bool = True) -> torch.Tensor:
     """The sum (``op="max"``: the largest value) of ``x`` over every rank
-    of ``axes``, elementwise (a new tensor; ``x`` itself when every axis
-    has one rank). No gradient."""
+    of ``axes``, elementwise (a new tensor, or with ``copy=False`` ``x``
+    itself, reduced in place; ``x`` itself when every axis has one rank).
+    No gradient."""
     live = live_axes(mesh, axes)
     if not live:
         return x
-    x = x.detach().clone()
+    x = x.detach().clone() if copy else x.detach()
     red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
     for a in live:
         dist.all_reduce(x, op=red, group=memo(

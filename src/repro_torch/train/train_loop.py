@@ -106,19 +106,23 @@ def loss_fn(params, cfg: ModelConfig, batch: Dict[str, Any], *, mesh=None,
     extra = {k: batch[k] for k in ("patches", "frames") if k in batch}
     if mesh is not None and batch_axes is None:
         batch_axes = SH.lm_batch_axes(mesh, cfg.batch_over_model)
-    logits, aux = T.forward(params, cfg, batch["tokens"], **extra,
-                            mesh=mesh, batch_axes=batch_axes)
     labels = torch.as_tensor(batch["labels"], device=dev)
     mask = batch.get("mask")
     if mask is not None:
         mask = torch.as_tensor(mask, device=dev)
     rows = SH.live_axes(mesh, batch_axes)
-    tp = L.TP(mesh) if T.vocab_parallel(cfg, mesh) else None
-    if rows:
-        total = SH.all_reduce(L.token_count(labels, mask), rows, mesh)
-        ce = L.cross_entropy(logits, labels, mask, total=total, tp=tp)
+    total = SH.all_reduce(L.token_count(labels, mask), rows, mesh) \
+        if rows else None
+    if T.vocab_parallel(cfg, mesh):
+        logits, aux = T.forward(params, cfg, batch["tokens"], **extra,
+                                mesh=mesh, batch_axes=batch_axes)
+        ce = L.cross_entropy(logits, labels, mask, total=total,
+                             tp=L.TP(mesh))
     else:
-        ce = L.cross_entropy(logits, labels, mask, tp=tp)
+        x, aux = T.hidden(params, cfg, batch["tokens"], **extra, mesh=mesh,
+                          batch_axes=batch_axes)
+        ce = L.head_cross_entropy(x, T._head(params, cfg), labels, mask,
+                                  total=total)
     return ce + aux, {"ce": ce, "aux": aux}
 
 

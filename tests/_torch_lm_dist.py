@@ -90,6 +90,83 @@ def ep_suite(mesh, cases) -> Dict[str, Any]:
     return out
 
 
+def plain_moe_suite(mesh, cases) -> Dict[str, Any]:
+    """Each case: an MoE config (catwalk dispatch), whole parameters, rows
+    ``x`` and loss weights ``w``. Every rank takes its blocks of the
+    expert stacks under ``moe.plain_block_specs`` (the router and the
+    shared experts whole) and its rows over the DP axes, runs
+    ``moe_apply(..., mesh=)`` and returns: the output gathered whole, the
+    aux loss, its experts' count and their drops (the assignments of the
+    batch to its experts past their capacity, from the relocation of the
+    gathered ids), and the gradients of ``sum(out * w) + aux`` (each rank's
+    rows' part; a leaf's summed over the rows' axes its block does not
+    split, then gathered whole) and of the rows."""
+    import torch
+    from repro_torch.configs.base import MoEConfig
+    from repro_torch.models import moe as M
+    from repro_torch.sharding import specs
+    from repro_torch.train.checkpoint import _map_with_path
+    out: Dict[str, Any] = {}
+    for name, c in cases.items():
+        cfg = MoEConfig(**c["cfg"])
+        bspecs = M.plain_block_specs(cfg, mesh)
+        spec_of = {}
+
+        def block(key, leaf):
+            spec = bspecs.get(key, (None,) * leaf.dim())
+            spec_of[key] = spec
+            return specs.shard_of(leaf, spec, mesh).requires_grad_()
+        pb = _map_with_path(_tree(c["p"]), block)
+        x, entry = _rows(mesh, torch.from_numpy(c["x"]))
+        x.requires_grad_()
+        y, stats = M.moe_apply(pb, x, cfg, mesh=mesh)
+        # this rank's experts' drops, from the batch's relocation
+        t = x.shape[0] * x.shape[1] * specs.axis_size(mesh, entry)
+        e_loc = pb["w_gate"].shape[0]
+        e_lo = specs.coordinate(mesh, "model") * e_loc
+        ids = specs.gather(M._route(pb, x.detach().reshape(
+            -1, x.shape[-1]), cfg)[2], (entry, None), mesh)
+        slot_src, _ = M._relocation(ids, M._capacity(t, cfg), e_lo, e_loc)
+        assigned = int(((ids >= e_lo) & (ids < e_lo + e_loc)).sum())
+        w, _ = _rows(mesh, torch.from_numpy(c["w"]))
+        (torch.sum(y * w) + stats["aux_loss"]).backward()
+        rows = specs.live_axes(mesh, entry)
+
+        def whole(key, leaf):
+            spec = spec_of[key]
+            g = specs.all_reduce(leaf.grad, tuple(
+                a for a in rows if a not in specs.spec_axes(spec)), mesh)
+            return _np(specs.gather(g, spec, mesh))
+        out[name] = dict(
+            y=_np(specs.gather(y, (entry, None, None), mesh)),
+            aux=float(stats["aux_loss"].detach()), experts=e_loc,
+            drops=assigned - int((slot_src < t).sum()),
+            grads=_map_with_path(pb, whole),
+            x_grad=_np(specs.gather(x.grad, (entry, None, None), mesh)))
+    out["coords"] = [specs.coordinate(mesh, a) for a in ("data", "model")]
+    return out
+
+
+def plain_part_whole(mesh, cases) -> Dict[str, Any]:
+    """Each case on a one-rank mesh: ``moe._plain_part`` with every expert
+    (its collectives the identity) and ``moe_apply`` without a mesh, on
+    the same whole parameters and rows; both outputs and aux losses."""
+    import torch
+    from repro_torch.configs.base import MoEConfig
+    from repro_torch.models import moe as M
+    out: Dict[str, Any] = {}
+    for name, c in cases.items():
+        cfg = MoEConfig(**c["cfg"])
+        p, x = _tree(c["p"]), torch.from_numpy(c["x"])
+        with torch.no_grad():
+            y, stats = M._plain_part(p, x, cfg, mesh, ())
+            want, want_stats = M.moe_apply(p, x, cfg)
+        out[name] = dict(y=_np(y), aux=float(stats["aux_loss"]),
+                         want=_np(want), want_aux=float(
+                             want_stats["aux_loss"]))
+    return out
+
+
 # ---------------------------------------------------------- the mesh step
 
 def _configs(c):
@@ -407,7 +484,8 @@ def tp_layout(mesh, cases) -> Dict[str, Any]:
     drawn by ``init_train_state(mesh=)``. (1) One mesh step without
     compression and one with, the leaves gathered outside the
     activations' collectives recorded: the state's parameter blocks the
-    step gathers (by key) and any other gather (a gradient's). (2) The
+    step gathers (by key) and any other gather of a float tensor (a
+    gradient's). (2) The
     forward's residual stream: the sequence length of every block's
     input."""
     import torch
@@ -421,7 +499,9 @@ def tp_layout(mesh, cases) -> Dict[str, Any]:
     record: Dict[str, Any] = {}
 
     def spy_gather(x, spec, mesh_):
-        if not inside[0] and any(specs.split(mesh_, e) for e in spec):
+        # the plain MoE layer's int32 expert ids are an activation's
+        if not inside[0] and x.is_floating_point() \
+                and any(specs.split(mesh_, e) for e in spec):
             key = record["ids"].get(id(x))
             record["params" if key else "other"].append(key or tuple(
                 x.shape))
@@ -481,7 +561,7 @@ def _state_key(key: str) -> str:
     return "/".join(seg.lstrip(".") for seg in key.split("/"))
 
 
-def decode_suite(mesh, cases) -> Dict[str, Any]:
+def decode_suite(mesh, cases, pods=None) -> Dict[str, Any]:
     """Each case: the reference's whole parameters, its prefilled serve
     state and its state after the steps (flat, by :func:`_state_key`), the
     tokens of each step and, for audio, the frames and the encoder output.
@@ -491,12 +571,16 @@ def decode_suite(mesh, cases) -> Dict[str, Any]:
     ``decode_step(mesh=)`` and returns the whole logits of every step and,
     per state leaf, the largest difference of its final block from its
     block of the reference's final state, beside that leaf's largest
-    |value|."""
+    |value|. ``pods``: decode on a ``("pod", "data", "model")`` mesh of
+    that shape over the same ranks instead."""
     import torch
     from repro_torch import convert
+    from repro_torch.launch.mesh import fake_mesh
     from repro_torch.models import transformer as T
     from repro_torch.sharding import specs
     from repro_torch.train.checkpoint import _map_with_path
+    if pods is not None:
+        mesh = fake_mesh(tuple(pods), ("pod", "data", "model"))
     out: Dict[str, Any] = {}
     for name, c in cases.items():
         cfg = _decode_cfg(c)

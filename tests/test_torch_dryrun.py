@@ -18,6 +18,16 @@
   ``FakeTensorMode`` (a subprocess: the fake process group is the
   process's own).
 
+* The cells the layout repairs brought under an H100's 80 GB a rank
+  (:data:`REPAIRED`: the plain MoE layer's expert blocks, attention
+  scored in blocks of queries, the cross-entropy over token chunks,
+  zamba2's site caches gathered one at a time), each traced by the dry
+  run in a subprocess of its own: the rank's peak under 80 GB, and its
+  argument bytes equal, byte for byte, to the sums of the reference's
+  per-device shard shapes of the cell's state and batch
+  (``param_shardings`` / ``serve_shardings`` / ``data_shardings`` on
+  ``jax.eval_shape`` trees over its production mesh of host devices).
+
 The fake process group and the reference's dry run (which sets
 ``XLA_FLAGS`` for its process) run in subprocesses only.
 """
@@ -35,6 +45,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import _torch_dist as TD  # noqa: E402
+import test_torch_dryrun_bytes as DB  # noqa: E402
 from repro_torch.configs import registry as treg  # noqa: E402
 from repro_torch.configs.base import SHAPES  # noqa: E402
 from repro_torch.launch import input_specs as tIS  # noqa: E402
@@ -190,3 +201,57 @@ def test_fake_rank_counts_equal_a_real_rank(fake_and_real, rank, name):
     assert got["flops"] == want["flops"] > 0
     assert got["collectives"] == want["collectives"]
     assert sum(v for k, v in got["collectives"].items() if k != "count") > 0
+
+
+# ------------------------------------------------------ the repaired cells
+
+#: cells over 80 GB a rank before the layout repairs: (arch, shape,
+#: multi-pod)
+REPAIRED = {
+    "deepseek_train": ("deepseek-v2-lite-16b", "train_4k", False),
+    "llama_prefill": ("llama3.2-3b", "prefill_32k", False),
+    "llama_train": ("llama3.2-3b", "train_4k", False),
+    "seamless_train": ("seamless-m4t-medium", "train_4k", False),
+    "zamba2_long_2pod": ("zamba2-1.2b", "long_500k", True),
+}
+#: an H100's memory, in bytes
+CARD_BYTES = 80e9
+
+_REPAIRED_PORT = r"""
+import json, sys
+from repro_torch.launch import dryrun as D
+arch, shape, pod = json.loads(sys.argv[1])
+rec = D.run_cell(arch, shape, pod)
+print(json.dumps(dict(status=rec["status"], peak=rec.get("peak_bytes"),
+                      argument=rec.get("memory", {}).get("argument_bytes"),
+                      error=rec.get("error"))))
+"""
+
+@pytest.fixture(scope="module")
+def repaired():
+    """Each repaired cell's dry-run record (one subprocess a cell) and the
+    reference's argument bytes of every cell (one subprocess), all run at
+    once."""
+    pytest.importorskip("jax")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-c", _REPAIRED_PORT, json.dumps(cell)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+        cwd=ROOT) for name, cell in REPAIRED.items()}
+    procs["reference"] = DB._run(DB._REFERENCE, env, {
+        name: (arch, shape, False, pod, False)
+        for name, (arch, shape, pod) in REPAIRED.items()})
+    out = {}
+    for name, proc in procs.items():
+        stdout, stderr = proc.communicate(timeout=900)
+        assert proc.returncode == 0, f"{name}: {stderr[-3000:]}"
+        out[name] = json.loads(stdout.strip().splitlines()[-1])
+    return out
+
+
+@pytest.mark.parametrize("name", list(REPAIRED))
+def test_repaired_cell_fits_the_card(repaired, name):
+    got = repaired[name]
+    assert got["status"] == "ok", got["error"]
+    assert 0 < got["peak"] < CARD_BYTES
+    assert got["argument"] == repaired["reference"][name]["argument"] > 0

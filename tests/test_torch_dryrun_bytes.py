@@ -80,6 +80,12 @@ for name, (arch, shape_name, opt, pod, state_only) in json.loads(
         data = nbytes(batch, SH.data_shardings(
             mesh, batch, over_model=cfg.batch_over_model))
         out[name] = dict(state=state, argument=state + data)
+    elif shape.kind == "prefill":
+        ps = jax.eval_shape(lambda: T.init_params(jax.random.PRNGKey(0), cfg))
+        state = nbytes(ps, SH.param_shardings(ps, mesh))
+        out[name] = dict(state=state, argument=state + nbytes(
+            batch, SH.data_shardings(mesh, batch,
+                                     over_model=cfg.batch_over_model)))
     else:
         ps = jax.eval_shape(lambda: T.init_params(jax.random.PRNGKey(0), cfg))
         b = shape.global_batch
@@ -125,8 +131,10 @@ print(json.dumps(out))
 """
 
 
-def _run(code, env):
-    return subprocess.Popen([sys.executable, "-c", code, json.dumps(CELLS)],
+def _run(code, env, cells=CELLS):
+    """``code`` on ``cells`` in a subprocess (the reference's side is
+    :data:`_REFERENCE`, which takes train, prefill and decode cells)."""
+    return subprocess.Popen([sys.executable, "-c", code, json.dumps(cells)],
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                             text=True, env=env, cwd=ROOT)
 

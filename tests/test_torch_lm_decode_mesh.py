@@ -2,8 +2,12 @@
 ``init_serve_state(..., mesh=)``, on four CPU ranks joined by gloo
 (``tests/_torch_dist.py`` spawns them; the rank body is
 ``tests/_torch_lm_dist.py:decode_suite``), on ``("data", "model")`` meshes
-of ``(1, 4)``, ``(2, 2)`` and ``(4, 1)`` ranks, against the reference's
-single-device ``decode_step``. Float32, smoke sizes, 4 rows.
+of ``(1, 4)``, ``(2, 2)`` and ``(4, 1)`` ranks, and zamba2 and the two
+plain MoE families on ``("pod", "data", "model")`` meshes of ``(2, 1,
+2)`` and ``(2, 2, 1)`` over the same ranks (zamba2's two site caches
+rest split over ``pod``: a site's is gathered only when its block runs),
+against the reference's single-device ``decode_step``. Float32, smoke
+sizes, 4 rows.
 
 The reference prefills its serve state with :data:`PREFILL` tokens and
 decodes :data:`STEPS` more; each rank takes its blocks of the weights
@@ -42,6 +46,12 @@ import _torch_lm_dist as LD  # noqa: E402
 import test_torch_train as TT  # noqa: E402
 
 MESHES = [(1, 4), (2, 2), (4, 1)]
+#: ``("pod", "data", "model")`` meshes over the same four ranks, and the
+#: cases decoded there: zamba2's site caches rest split over ``pod``
+#: (each pod holds one of the two sites), the plain MoE layers' experts
+#: over ``model``
+POD_MESHES = [(2, 1, 2), (2, 2, 1)]
+POD_CASES = ("hybrid", "moe", "arctic")
 B, PREFILL, STEPS, MAX_LEN = 4, 3, 4, 12
 TOL = 1e-5
 
@@ -128,8 +138,11 @@ def ranks(cases, tmp_path_factory):
 
     def get(shape):
         if shape not in cache:
+            args = (cases[0],) if len(shape) == 2 else (
+                {k: cases[0][k] for k in POD_CASES}, shape)
             cache[shape] = TD.run(
-                "_torch_lm_dist:decode_suite", shape, args=(cases[0],),
+                "_torch_lm_dist:decode_suite", shape if len(shape) == 2
+                else (2, 2), args=args,
                 tmp_dir=tmp_path_factory.mktemp("lm_decode"), kind="lm")
         return cache[shape]
     return get
@@ -138,6 +151,30 @@ def ranks(cases, tmp_path_factory):
 @pytest.mark.parametrize("name", list(CASES))
 @pytest.mark.parametrize("shape", MESHES)
 def test_mesh_decode_matches_the_reference(ranks, cases, shape, name):
+    _check_logits(ranks, cases, shape, name)
+
+
+@pytest.mark.parametrize("name", list(CASES))
+@pytest.mark.parametrize("shape", MESHES)
+def test_mesh_decode_state_blocks_match_the_reference(ranks, cases, shape,
+                                                      name):
+    _check_state(ranks, cases, shape, name)
+
+
+@pytest.mark.parametrize("name", POD_CASES)
+@pytest.mark.parametrize("shape", POD_MESHES)
+def test_pod_mesh_decode_matches_the_reference(ranks, cases, shape, name):
+    _check_logits(ranks, cases, shape, name)
+
+
+@pytest.mark.parametrize("name", POD_CASES)
+@pytest.mark.parametrize("shape", POD_MESHES)
+def test_pod_mesh_decode_state_blocks_match_the_reference(ranks, cases,
+                                                          shape, name):
+    _check_state(ranks, cases, shape, name)
+
+
+def _check_logits(ranks, cases, shape, name):
     want = cases[1][name]
     for rank in ranks(shape):
         got = rank[name]
@@ -151,10 +188,7 @@ def test_mesh_decode_matches_the_reference(ranks, cases, shape, name):
             assert err <= TOL * scale
 
 
-@pytest.mark.parametrize("name", list(CASES))
-@pytest.mark.parametrize("shape", MESHES)
-def test_mesh_decode_state_blocks_match_the_reference(ranks, cases, shape,
-                                                      name):
+def _check_state(ranks, cases, shape, name):
     for rank in ranks(shape):
         errs = rank[name]["state_err"]
         assert set(errs) == set(cases[0][name]["final"])

@@ -28,7 +28,8 @@ float32, at the smoke sizes.
 * The leaves the step gathers: a hook on ``specs.gather`` outside the
   activations' collectives sees exactly the parameter blocks the plan
   leaves out (KV heads that do not divide ``model``, Mamba2's
-  ``in_proj``, the MoE layer's expert stacks), and without compression
+  ``in_proj``, the MoE layer's shared experts, and its expert stacks
+  where ``model`` has one rank), and without compression
   no other gather (no rank builds a whole gradient of a split leaf).
 * Under ``act_sp`` every block's input is the rank's block of the
   sequence (its length over the ``model`` ranks).
@@ -98,7 +99,9 @@ STEPS = {
     "phi3v": dict(arch=VLM, extra="patches"),
     "seamless": dict(arch=AUDIO, extra="frames"),
 }
-#: the parameter blocks the mesh step gathers, per mesh and case
+#: the parameter blocks the mesh step gathers, per mesh and case: the
+#: plain MoE layer keeps its expert blocks where ``model`` has more than
+#: one rank (it gathers only the shared experts' d_ff)
 MOE = ["layers/moe/shared/w_down", "layers/moe/shared/w_gate",
        "layers/moe/shared/w_up", "layers/moe/w_down", "layers/moe/w_gate",
        "layers/moe/w_up"]
@@ -110,16 +113,16 @@ KV_AUDIO = ["encoder/attn/wk", "encoder/attn/wv", "layers/attn/wk",
 GATHERED = {
     (1, 4): {"internlm2": ["layers/attn/wk", "layers/attn/wv"],
              "internlm2_sp": ["layers/attn/wk", "layers/attn/wv"],
-             "mamba2": ["layers/ssm/in_proj"], "deepseek": MOE,
+             "mamba2": ["layers/ssm/in_proj"], "deepseek": MOE[:3],
              "zamba2": ["layers/ssm/in_proj", "shared/attn/wk",
                         "shared/attn/wv"],
-             "internlm2_sp_h6": GQA, "deepseek_sp": MOE,
-             "arctic": KV + MOE[3:], "phi3v": KV, "seamless": KV_AUDIO},
+             "internlm2_sp_h6": GQA, "deepseek_sp": MOE[:3],
+             "arctic": KV, "phi3v": KV, "seamless": KV_AUDIO},
     (2, 2): {"internlm2": [], "internlm2_sp": [],
-             "mamba2": ["layers/ssm/in_proj"], "deepseek": MOE,
+             "mamba2": ["layers/ssm/in_proj"], "deepseek": MOE[:3],
              "zamba2": ["layers/ssm/in_proj"],
-             "internlm2_sp_h6": GQA, "deepseek_sp": MOE,
-             "arctic": MOE[3:], "phi3v": [], "seamless": []},
+             "internlm2_sp_h6": GQA, "deepseek_sp": MOE[:3],
+             "arctic": [], "phi3v": [], "seamless": []},
     (4, 1): {"internlm2": [], "internlm2_sp": [], "mamba2": [],
              "zamba2": [], "deepseek": MOE[3:], "internlm2_sp_h6": [],
              "deepseek_sp": MOE[3:], "arctic": MOE[3:], "phi3v": [],
