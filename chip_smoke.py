@@ -106,7 +106,10 @@ smoke size bit-exact against the single-device step; and 16 steps of
 mesh=)`` after a 4 x 2,048 prefill for deepseek (``--opt``: one gate
 launch a layer a step), internlm2-1.8b and mamba2-780m at full width,
 each bit-exact against the decode without a mesh (zamba2-1.2b's too, in
-its family phase: its site caches gathered one site at a time). Before
+its family phase: its site caches gathered one site at a time), and
+again with the state donated (``decode_step(..., donate=True)``): the
+logits and final state bit-exact against the functional mesh run's, the
+step's memory beyond its state lower by about the cache stack. Before
 training, llama3.2-3b's forward at full width on one (16, 16) rank's rows
 of prefill_32k (2 x 32,768 tokens, every head: attention scored in blocks
 of queries) peaks within 1 % of the dry run's count of the same step, and
@@ -116,12 +119,14 @@ internlm2-1.8b's and mamba2-780m's (``--opt``) full-width launcher runs
 through the mesh step on a world-size-1 mesh (the state made as blocks
 by ``init_train_state(mesh=)``), each held bit for bit against the
 single-device run's losses and final state. Last, the dry run
-(``repro_torch.launch.dryrun``) traces seven production cells on the host
+(``repro_torch.launch.dryrun``) traces ten production cells on the host
 (fake ranks, no device; each line says whether the rank fits the card)
 and its counter is held against one real step of internlm2-1.8b's
-launcher run on the card: the argument bytes and the FLOPs equal, the
-predicted peak beside ``max_memory_allocated``, which must lie below
-the step's peak before the chunked loss. Phases
+launcher run on the card, whose state is donated as the launcher donates
+it: the argument bytes and the FLOPs equal, ``max_memory_allocated``
+within 1 % of the predicted peak and below the functional step's peak;
+two donated steps equal two functional ones (losses and every leaf's
+checksum). Phases
 print one JSON line each; the last line is ``{"ok": true, "device": {...}}``. Any
 failure raises and exits non-zero; without CUDA it exits non-zero at
 once.
@@ -235,13 +240,15 @@ N_PROMPTS, NEW_TOKENS = 8, 32
 #: the MoE path: deepseek-v2-lite-16b (configs/deepseek_v2_lite_16b.py) at
 #: full width and depth, bf16; prefill of B x S tokens (T = 8,192, as the
 #: mamba2 prefill); continuous serving of benchmarks/bench_serve_lm.py's
-#: request population, halved (24 requests of 1-24 prompt tokens, 16 new
-#: tokens each, max_len 24 + 16 + 2) through 6 slots. Six slots is top_k:
-#: the catwalk capacity is then t = 6, so no assignment can drop and each
-#: row's tokens depend on its own request only.
+#: request population, quartered (12 requests of 1-24 prompt tokens, 16
+#: new tokens each, max_len 24 + 16 + 2) through 6 slots: each request is
+#: served three times more (wave, alone, the capture pass), all
+#: host-bound: at 24 requests the path took up to 247 s. Six slots is
+#: top_k: the catwalk capacity is then t = 6, so no assignment can drop
+#: and each row's tokens depend on its own request only.
 MOE_ARCH = "deepseek-v2-lite-16b"
 MOE_PREFILL_B, MOE_PREFILL_S = 4, 2048
-MOE_REQUESTS, MOE_MAX_PROMPT, MOE_NEW_TOKENS, MOE_SLOTS = 24, 24, 16, 6
+MOE_REQUESTS, MOE_MAX_PROMPT, MOE_NEW_TOKENS, MOE_SLOTS = 12, 24, 16, 6
 #: the requests also served alone through one slot, reported beside the
 #: gated checks (each such serve takes ~2.5 s of host time)
 MOE_ONE_SLOT = 6
@@ -3800,8 +3807,14 @@ def lm_mesh_decode(dev, mesh, name, cfg, params, tokens, kernel,
     run's gate calls are captured (the first run) and each distinct one is
     held against its plain version; the second mesh run is counted: the
     gate once per layer a step where ``kernel`` names it, no launch at all
-    otherwise. Each run's ms per step (host clock, synchronised) is
-    reported. Returns the counted run's launch counts."""
+    otherwise. A mesh run with the state donated (``donate=True``, on a
+    copy of the prefilled state) must launch the same and give the same
+    logits and final state bit for bit, with ``max_memory_allocated``
+    beyond the state it starts from lower than the functional mesh run's
+    (from a copy it drops after the first step) by 0.9-1.25 cache stacks:
+    the functional step holds a new stack beside the old one. Each run's
+    ms per step (host clock, synchronised) is reported. Returns the
+    counted run's launch counts."""
     b, s = tokens.shape
     state = prefilled_state(params, cfg, tokens, s + DECODE_STEPS)
     blocks = lm.init_serve_state(params, cfg, b, s + DECODE_STEPS, mesh=mesh)
@@ -3813,17 +3826,24 @@ def lm_mesh_decode(dev, mesh, name, cfg, params, tokens, kernel,
     steps = torch.from_numpy(np.random.default_rng(11).integers(
         0, cfg.vocab_size, (DECODE_STEPS, b, 1))).to(dev)
 
-    def run(mesh_=None):
-        st, out = state, []
+    def run(mesh_=None, donate=False, fresh=False):
+        # fresh: from a copy of the state, held only by the steps
+        box = [ckpt._map_with_path(state, lambda _, t: t.clone())
+               if fresh else state]
+        out = []
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
         t0 = time.perf_counter()
         with torch.no_grad():
             for t in range(DECODE_STEPS):
-                logits, st = lm.decode_step(params, cfg, st, steps[t],
-                                            mesh=mesh_)
+                logits, st = lm.decode_step(params, cfg, box.pop(), steps[t],
+                                            mesh=mesh_, donate=donate)
+                box.append(st)
                 out.append(logits)
         torch.cuda.synchronize()
-        return out, st, 1e3 * (time.perf_counter() - t0) / DECODE_STEPS
+        ms = 1e3 * (time.perf_counter() - t0) / DECODE_STEPS
+        return out, box.pop(), ms, torch.cuda.max_memory_allocated() - base
     got = []
     cases = capture(lambda: run(mesh), result=got)
     for i, case in enumerate(cases):
@@ -3832,31 +3852,52 @@ def lm_mesh_decode(dev, mesh, name, cfg, params, tokens, kernel,
         check_gate(f"{name}#{i}", case["logits"], case["k"], case["renorm"],
                    path=name, calls=case["calls"], floor_ms=floor_ms)
     reset_launches()
-    mesh_logits, mesh_state, mesh_ms = run(mesh)
+    mesh_logits, mesh_state, mesh_ms, mesh_extra = run(mesh, fresh=True)
     counts = launch_counts()
-    want_logits, want_state, single_ms = run()
+    reset_launches()
+    don_logits, don_state, don_ms, don_extra = run(mesh, donate=True,
+                                                   fresh=True)
+    don_counts = launch_counts()
+    want_logits, want_state, single_ms, _ = run()
     want = {k: 0 for k in counts}
     if kernel is not None:
         want[kernel] = cfg.n_layers * DECODE_STEPS
-    if counts != want:
-        raise AssertionError(f"{name}: launches {counts}, expected {want}")
-    same = all(torch.equal(g, w) for g, w in zip(mesh_logits, want_logits)) \
-        and all(torch.equal(g, w) for g, w in zip(
-            tree_leaves_state(mesh_state), tree_leaves_state(want_state)))
-    if not same:
+    if counts != want or don_counts != want:
+        raise AssertionError(f"{name}: launches {counts}, donated "
+                             f"{don_counts}, expected {want}")
+
+    def same(got_logits, got_state):
+        return all(torch.equal(g, w)
+                   for g, w in zip(got_logits, want_logits)) and all(
+            torch.equal(g, w) for g, w in zip(
+                tree_leaves_state(got_state), tree_leaves_state(want_state)))
+    if not same(mesh_logits, mesh_state):
         raise AssertionError(f"{name}: the mesh decode differs from the "
                              f"decode without a mesh")
-    _, _, mesh_ms2 = run(mesh)
-    _, _, single_ms2 = run()
+    if not same(don_logits, don_state):
+        raise AssertionError(f"{name}: the donated mesh decode differs")
+    stack = tensor_bytes((state.layer_caches, state.shared_cache))
+    saved = mesh_extra - don_extra
+    if not 0.9 <= saved / stack <= 1.25:
+        raise AssertionError(f"{name}: the donated decode holds {saved} "
+                             f"bytes less than the functional one, against "
+                             f"a cache stack of {stack}")
+    del mesh_state, don_state, don_logits
+    _, _, mesh_ms2, _ = run(mesh)
+    _, _, single_ms2, _ = run()
     emit("lm_mesh", run=name, arch=cfg.name, dispatch=cfg.moe.dispatch
          if cfg.moe else None, mesh=list(mesh.shape), batch=b, prefill=s,
          steps=DECODE_STEPS, gate_calls_checked=len(cases),
          launches={k: v for k, v in counts.items() if v},
-         bit_exact_vs_single=True,
+         bit_exact_vs_single=True, donated_bit_exact=True,
          ms_per_step=statistics.median([mesh_ms, mesh_ms2]),
          single_ms_per_step=statistics.median([single_ms, single_ms2]),
+         donated_ms_per_step=don_ms,
          ms_per_step_all=[mesh_ms, mesh_ms2],
          single_ms_per_step_all=[single_ms, single_ms2],
+         cache_stack_bytes=stack, max_memory_allocated_over_state=mesh_extra,
+         donated_max_memory_allocated_over_state=don_extra,
+         donated_saved_bytes=saved, donated_saved_stacks=saved / stack,
          nvidia_smi=smi_line())
     return counts
 
@@ -4321,10 +4362,10 @@ def launcher_argv(arch: str, ckpt_dir, *, smoke=False, steps=TRAIN_STEPS,
 
 def launcher_step_fn(argv: List[str]):
     """The train step the launcher builds for ``argv`` (its config and
-    train config), and its data."""
+    train config; the state donated), and its data."""
     cfg, tcfg, data = train_launcher.setup(
         train_launcher.parser().parse_args(argv))
-    return cfg, TL.make_train_step(cfg, tcfg), data
+    return cfg, TL.make_train_step(cfg, tcfg, donate=True), data
 
 
 def train_paths(root, smi) -> List[Tuple[Path, List[str]]]:
@@ -4421,15 +4462,16 @@ def phase_train(paths_argv, smi, root
              launches=counts, launches_per_step=per_step)
         check_launches(path, counts, cases, st)
         launches[path.name], captured[path.name] = counts, cases
-        if path.name != "train_moe_smoke":
-            phase_profile_train(path.name, argv, out["state"], smi)
         ref = None
         if path.name in LM_MESH_FULL:
-            # the single run's losses and state on the host: its state and
-            # the mesh run's are never on the card together
+            # the single run's losses and state on the host (before the
+            # profiled step writes over the state): its state and the mesh
+            # run's are never on the card together
             ref = dict(losses=out["losses"], step_s=out["step_s"],
                        max_memory_allocated=st["max_memory_allocated"],
                        state=host_leaves(out["state"]))
+        if path.name != "train_moe_smoke":
+            phase_profile_train(path.name, argv, out["state"], smi)
         del out, got
         gc.collect()
         torch.cuda.empty_cache()
@@ -4470,7 +4512,8 @@ def lm_mesh_train_full(path, argv, ref, root) -> Dict[str, int]:
     1)`` mesh: the launcher's config, train config and data for ``argv``
     (``--opt`` where :data:`LM_MESH_FULL` says), the state made as blocks
     by ``init_train_state(mesh=)`` from the launcher's seed, and
-    TRAIN_STEPS steps of ``make_train_step(mesh=)`` on the launcher's
+    TRAIN_STEPS steps of ``make_train_step(mesh=, donate=True)`` (the
+    launcher's mesh step) on the launcher's
     batches. Every loss and every leaf of the gathered final state must
     equal the single-device launcher run's (``ref``, on the host) bit for
     bit, and the path's kernel must launch as often as in that run and no
@@ -4495,7 +4538,8 @@ def lm_mesh_train_full(path, argv, ref, root) -> Dict[str, int]:
         t0 = time.perf_counter()
         state = TL.init_train_state(torch.Generator(device=dev).manual_seed(
             0), cfg, tcfg, device=dev, mesh=mesh)
-        step = TL.make_train_step(cfg, tcfg, mesh=mesh)
+        # the launcher's mesh step: its state donated
+        step = TL.make_train_step(cfg, tcfg, mesh=mesh, donate=True)
         losses, step_s = [], []
         for i in range(TRAIN_STEPS):
             ts = time.perf_counter()
@@ -4545,8 +4589,8 @@ def lm_mesh_train_full(path, argv, ref, root) -> Dict[str, int]:
 
 
 def phase_profile_train(name, argv, state, smi) -> None:
-    """One more launcher step (its 4 microbatches, compression and AdamW)
-    from ``state`` under the profiler (device activity only), ended by a
+    """One more launcher step (its 4 microbatches, compression and AdamW;
+    ``state`` donated to it) from ``state`` under the profiler (device activity only), ended by a
     synchronise: device busy time, idle share (an upper estimate: the
     profiler's host cost), device ops and the top ones; the SSD launches
     in it."""
@@ -4838,22 +4882,32 @@ def phase_train_autograd(dev, smi) -> None:
 
 #: the dry run's cells on the card's host (arch, shape, two pods, --opt):
 #: a dense train step, the expert-parallel decode, arctic's train state on
-#: two pods, mamba2's 524,288-token decode, and three cells the layout
+#: two pods, mamba2's 524,288-token decode, three cells the layout
 #: repairs brought under 80 GB a rank (the plain MoE layer's expert
 #: blocks, attention in blocks of queries over 24 heads whole, the
-#: cross-entropy over token chunks of a 256,206-word vocabulary); each in
-#: a process of its own, all at once
+#: cross-entropy over token chunks of a 256,206-word vocabulary), arctic's
+#: decode with and without --opt, which the donated serve state brings
+#: under 80 GB, and zamba2's decode, whose arguments alone are over it;
+#: each in a process of its own, all at once
 DRYRUN_CELLS = (("internlm2-1.8b", "train_4k", False, False),
                 ("deepseek-v2-lite-16b", "decode_32k", False, True),
                 ("arctic-480b", "train_4k", True, True),
                 ("mamba2-780m", "long_500k", False, False),
                 ("deepseek-v2-lite-16b", "train_4k", False, False),
                 ("llama3.2-3b", "prefill_32k", False, False),
-                ("seamless-m4t-medium", "train_4k", False, False))
+                ("seamless-m4t-medium", "train_4k", False, False),
+                ("arctic-480b", "decode_32k", False, False),
+                ("arctic-480b", "decode_32k", False, True),
+                ("zamba2-1.2b", "decode_32k", False, False))
+#: the cells that must fit the card: arctic's decode (its state donated)
+DRYRUN_MUST_FIT = (("arctic-480b", "decode_32k", False, False),
+                   ("arctic-480b", "decode_32k", False, True))
 #: the peak of internlm2's launcher step on an NVIDIA H100 80GB HBM3 (700
-#: W) before the chunked loss and AdamW's update by pieces: the counter's
-#: step must peak below it
-COUNTER_PREVIOUS_PEAK = 50_276_892_160
+#: W) with a functional step (the old and the new state both held in
+#: AdamW's update): the counter's donated step must peak below it
+COUNTER_PREVIOUS_PEAK = 44_390_841_856
+#: the card's peak of the counter's step against the dry run's count
+COUNTER_PEAK_TOL = 0.01
 #: the dry run's record keys each ``dryrun`` line carries
 DRYRUN_KEYS = ("arch", "shape", "mesh", "chips", "rank", "status",
                "trace_s", "flops_per_chip", "bytes_per_chip",
@@ -4878,16 +4932,20 @@ def phase_dryrun(dev, smi, root) -> None:
     host: each of :data:`DRYRUN_CELLS` traced as rank 0 of its production
     mesh under ``FakeTensorMode`` (a subprocess, whose fake process group
     is its own; nothing runs on the card), one ``dryrun`` line each, status
-    ``ok`` or raise. Then the counter against the card, on internlm2-1.8b's
-    launcher run (8 x 4,096 tokens in 4 microbatches, one device; its peak
-    below :data:`COUNTER_PREVIOUS_PEAK` or raise): the dry
-    run's count of that step on fake CPU tensors
+    ``ok`` or raise (:data:`DRYRUN_MUST_FIT` at most 80 GB a rank). Then
+    the counter against the card, on internlm2-1.8b's launcher step (8 x
+    4,096 tokens in 4 microbatches, one device, the state donated as the
+    launcher donates it; its peak below :data:`COUNTER_PREVIOUS_PEAK` or
+    raise): the dry run's count of that step on fake CPU tensors
     (:func:`repro_torch.launch.dryrun.measure`) against one real step on
     the card — the argument bytes equal to the real state's bytes, the
     FLOPs equal to ``FlopCounterMode`` around the real step (any
-    difference named op by op, then raised), the predicted peak beside
-    ``torch.cuda.max_memory_allocated`` of that step, and the predicted
-    compute and memory terms beside the measured time of a second step."""
+    difference named op by op, then raised), ``torch.cuda.
+    max_memory_allocated`` of that step within :data:`COUNTER_PEAK_TOL` of
+    the predicted peak, and the predicted compute and memory terms beside
+    the measured time of a second step. The two donated steps must equal
+    two functional ones from the same initial state: losses and each
+    leaf's checksum (:func:`leaf_checksums`)."""
     import os
     env = dict(os.environ)
     env["PYTHONPATH"] = str(ROOT / "src")
@@ -4915,6 +4973,11 @@ def phase_dryrun(dev, smi, root) -> None:
                                              for r in recs):
         raise AssertionError(f"dryrun: {recs}")
     for rec in recs:
+        cell = (rec["arch"], rec["shape"], rec["mesh"] == "2x16x16",
+                rec["opt"])
+        if cell in DRYRUN_MUST_FIT and rec["peak_bytes"] > CARD_BYTES:
+            raise AssertionError(f"dryrun: {cell} peaks at "
+                                 f"{rec['peak_bytes']} a rank")
         emit("dryrun", **{k: rec[k] for k in DRYRUN_KEYS}, opt=rec["opt"],
              fits_card=rec["peak_bytes"] <= CARD_BYTES, card_bytes=CARD_BYTES,
              device="none: fake ranks under FakeTensorMode on the host",
@@ -4929,6 +4992,21 @@ def phase_dryrun(dev, smi, root) -> None:
         raise AssertionError(f"dryrun: internlm2's step peaks at "
                              f"{counter['max_memory_allocated']}, not below "
                              f"{COUNTER_PREVIOUS_PEAK}")
+    if abs(counter["peak_ratio"] - 1) > COUNTER_PEAK_TOL:
+        raise AssertionError(f"dryrun: internlm2's step peaks at "
+                             f"{counter['max_memory_allocated']}, "
+                             f"{counter['peak_ratio']} of the predicted "
+                             f"{counter['predicted_peak_bytes']}")
+    if counter["max_memory_allocated"] \
+            >= counter["functional_max_memory_allocated"]:
+        raise AssertionError(f"dryrun: the donated step's peak "
+                             f"{counter['max_memory_allocated']} is not "
+                             f"below the functional step's")
+    if not counter["donated_equals_functional"]:
+        raise AssertionError(f"dryrun: the donated steps' losses "
+                             f"{counter['losses']} or checksums differ from "
+                             f"the functional steps' "
+                             f"{counter['functional_losses']}")
     if counter["argument_bytes"] != counter["real_state_bytes"]:
         raise AssertionError(f"dryrun: argument bytes "
                              f"{counter['argument_bytes']} against the "
@@ -4937,6 +5015,22 @@ def phase_dryrun(dev, smi, root) -> None:
         raise AssertionError(f"dryrun: FLOPs {counter['flops']} against "
                              f"the card's {counter['real_flops']}: "
                              f"{counter['flops_diff_by_op']}")
+
+
+def leaf_checksums(state) -> Dict[str, int]:
+    """Each tensor leaf's bit patterns summed as int64 (mod 2 ** 64: exact
+    in any order), by checkpoint key: two states whose leaves differ in
+    any element differ here but for a collision."""
+    ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    out: Dict[str, int] = {}
+
+    def one(key, leaf):
+        if isinstance(leaf, torch.Tensor):
+            bits = leaf.reshape(-1).view(ints[leaf.element_size()])
+            out[key] = int(torch.sum(bits, dtype=torch.int64))
+        return leaf
+    ckpt._map_with_path(state, one)
+    return out
 
 
 def _dryrun_counter(dev, smi, root) -> Dict[str, Any]:
@@ -4948,7 +5042,8 @@ def _dryrun_counter(dev, smi, root) -> Dict[str, Any]:
         TRAIN_DENSE, pathlib.Path(root) / "dryrun", seq=TRAIN_SEQ,
         batch=TRAIN_BATCH))
     cfg, tcfg, data = train_launcher.setup(args)
-    step = TL.make_train_step(cfg, tcfg)
+    # the launcher's step: its state donated
+    step = TL.make_train_step(cfg, tcfg, donate=True)
     batch = data.batch(0)
     with FakeTensorMode(allow_non_fake_inputs=True):
         fake = TL.init_train_state(torch.Generator().manual_seed(0), cfg,
@@ -4963,17 +5058,34 @@ def _dryrun_counter(dev, smi, root) -> Dict[str, Any]:
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     with FlopCounterMode(display=False) as counter:
-        state, _ = step(state, batch)
+        state, m0 = step(state, batch)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     real_by_op = {str(k): int(v) for k, v in
                   counter.get_flop_counts().get("Global", {}).items()}
     real_flops = int(counter.get_total_flops())
     t1 = time.perf_counter()
-    state, _ = step(state, data.batch(1))
+    state, m1 = step(state, data.batch(1))
     torch.cuda.synchronize()
     step_s = time.perf_counter() - t1
+    losses = [float(m0["loss"]), float(m1["loss"])]
+    sums = leaf_checksums(state)
     del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the same two steps functional, from the same initial state
+    functional = TL.make_train_step(cfg, tcfg)
+    state = TL.init_train_state(torch.Generator(device=dev).manual_seed(0),
+                                cfg, tcfg, dev)
+    torch.cuda.reset_peak_memory_stats()
+    f_losses = []
+    for i in range(2):
+        state, m = functional(state, data.batch(i))
+        f_losses.append(float(m["loss"]))
+    torch.cuda.synchronize()
+    f_peak = torch.cuda.max_memory_allocated()
+    f_sums = leaf_checksums(state)
+    del state, m
     gc.collect()
     torch.cuda.empty_cache()
     diff = {op: (pred["flops_by_op"].get(op, 0), real_by_op.get(op, 0))
@@ -4988,7 +5100,14 @@ def _dryrun_counter(dev, smi, root) -> Dict[str, Any]:
                 real_flops=real_flops, flops_by_op=pred["flops_by_op"],
                 flops_diff_by_op=diff,
                 predicted_peak_bytes=pred["peak_bytes"],
+                predicted_memory=pred["memory"],
                 max_memory_allocated=peak, memory_allocated_before=base,
+                peak_ratio=peak / pred["peak_bytes"], donate=True,
+                losses=losses, functional_losses=f_losses,
+                functional_max_memory_allocated=f_peak,
+                leaves_checked=len(sums),
+                donated_equals_functional=losses == f_losses
+                and sums == f_sums,
                 predicted_bytes=pred["bytes"], compute_s=compute_s,
                 memory_s=memory_s, step_s=step_s,
                 compute_fraction=compute_s / step_s,

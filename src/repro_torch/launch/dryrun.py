@@ -20,9 +20,11 @@ and memory analyses; here the step runs op by op on fake tensors. So a
 record has ``trace_s`` where the reference's has ``lower_s`` and
 ``compile_s``, no ``raw_cost_analysis``, and ``code_bytes`` null. Its
 ``memory`` counts the arguments as the reference's in-shardings do (the
-state's blocks and the rank's block of the batch), the outputs, and as
+state's blocks and the rank's block of the batch), the outputs (those
+that are a donated argument's tensors once, as ``alias_bytes``), and as
 temporaries the most the step held beyond both; ``peak_bytes`` is the
-most it held at once.
+most it held at once. The train and decode steps donate their state, as
+the reference's jit does.
 
 Results go to ``experiments/dryrun_torch/<mesh><tag>.json``, appended cell
 by cell, so an interrupted sweep resumes where it left off.
@@ -62,7 +64,7 @@ from repro_torch.models import transformer as T
 from repro_torch.optim import optimizers as O
 from repro_torch.optim.tree import tree_map
 from repro_torch.roofline import analysis as R
-from repro_torch.roofline.op_cost import OpCost, tensor_bytes
+from repro_torch.roofline.op_cost import OpCost, aliased_bytes, tensor_bytes
 from repro_torch.sharding import specs as SH
 from repro_torch.train import train_loop as TL
 
@@ -138,16 +140,18 @@ def build_step(cfg: ModelConfig, shape: ShapeConfig, mesh, opt: bool = False,
 
     * train: the mesh train step (:func:`train_config`; its gradients end
       in the parameters' layout, which the reference pins under ``--opt``
-      alone) on a state made as blocks, the whole batch in;
+      alone) on a state made as blocks, the whole batch in, the state
+      donated (the reference's ``donate_argnums=(0,)``);
     * prefill: ``forward(..., logits_mode="last", mesh=)`` without a
       gradient on the rank's rows (the batch over the DP axes, and
       ``model`` under ``batch_over_model``), the parameters under
       ``param_pspecs``, each gathered as far as ``tp_plan`` leaves it
       whole;
-    * decode: ``decode_step(..., mesh=)`` without a gradient on a serve
-      state of the shape's length (``init_serve_state(mesh=)``; audio
-      encodes its frames there), the parameters under ``serve_pspecs``,
-      the tokens whole.
+    * decode: ``decode_step(..., mesh=, donate=True)`` without a gradient
+      on a serve state of the shape's length (``init_serve_state(mesh=)``;
+      audio encodes its frames there; donated, as the reference's
+      ``donate_argnums=(1,)``), the parameters under ``serve_pspecs``, the
+      tokens whole.
 
     ``argument_bytes``: the state's blocks and the rank's block of the
     batch, the bytes of the reference's in-shardings."""
@@ -156,7 +160,7 @@ def build_step(cfg: ModelConfig, shape: ShapeConfig, mesh, opt: bool = False,
     if shape.kind == "train":
         tcfg = train_config(cfg, opt)
         state = TL.init_train_state(gen, cfg, tcfg, device, mesh=mesh)
-        step = TL.make_train_step(cfg, tcfg, mesh=mesh)
+        step = TL.make_train_step(cfg, tcfg, mesh=mesh, donate=True)
         return step, (state, batch), tensor_bytes(state) + _block_bytes(
             batch, mesh, cfg.batch_over_model)
     if shape.kind == "prefill":
@@ -194,7 +198,8 @@ def build_step(cfg: ModelConfig, shape: ShapeConfig, mesh, opt: bool = False,
 
     def decode(params, state, tokens):
         with torch.no_grad():
-            return T.decode_step(params, cfg, state, tokens, mesh=mesh)
+            return T.decode_step(params, cfg, state, tokens, mesh=mesh,
+                                 donate=True)
     return decode, (params, state, batch["tokens"]), tensor_bytes(
         params) + tensor_bytes(state) + _block_bytes(batch, mesh, False)
 
@@ -203,8 +208,11 @@ def measure(step: Callable, args: Tuple[Any, ...], arg_bytes: int,
             state_bytes: int) -> Dict[str, Any]:
     """Run ``step(*args)`` once under :class:`OpCost` (its arguments held
     through it) and return the counts, the memory (``arg_bytes`` as the
-    arguments' bytes, the outputs' bytes, as temporaries the most held
-    beyond both), ``state_bytes`` and the run's host time. Call it inside
+    arguments' bytes, the outputs' bytes, of which ``alias_bytes`` those of
+    outputs whose storage is an argument's (a donated state, XLA's
+    ``alias_size_in_bytes``), as temporaries the most held beyond the
+    arguments and the outputs that are not an argument's),
+    ``state_bytes`` and the run's host time. Call it inside
     ``FakeTensorMode`` to count without computing."""
     cost = OpCost()
     cost.hold(args)
@@ -214,6 +222,7 @@ def measure(step: Callable, args: Tuple[Any, ...], arg_bytes: int,
         out = step(*args)
     trace_s = time.perf_counter() - t0
     out_bytes = tensor_bytes(out)
+    alias_bytes = aliased_bytes(out, args)
     del out
     return {
         "trace_s": trace_s, "flops": cost.flops, "bytes": cost.bytes,
@@ -223,7 +232,9 @@ def measure(step: Callable, args: Tuple[Any, ...], arg_bytes: int,
         "collective_bytes": cost.collective_bytes,
         "peak_bytes": cost.peak_bytes,
         "memory": {"argument_bytes": arg_bytes, "output_bytes": out_bytes,
-                   "temp_bytes": max(cost.peak_bytes - held - out_bytes, 0),
+                   "alias_bytes": alias_bytes,
+                   "temp_bytes": max(cost.peak_bytes - held - out_bytes
+                                     + alias_bytes, 0),
                    "code_bytes": None}}
 
 

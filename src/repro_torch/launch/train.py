@@ -14,8 +14,10 @@ this same loop on a ``("data", "model")`` mesh
 world)`` by ``data_par = world // model_par`` ranks, as the reference's
 mesh branch does: each rank holds its blocks of the state and runs the
 mesh step (:func:`repro_torch.train.train_loop.make_train_step` with
-``mesh=``). Every rank reads the whole global batch (the stream is
-deterministic) and the step takes the rank's rows of it. The blocks are
+``mesh=``). On one device and on a mesh the step donates its state
+(``donate=True``), as the reference jits it with ``donate_argnums``.
+Every rank reads the whole global batch (the stream is deterministic)
+and the step takes the rank's rows of it. The blocks are
 made as such: each parameter is cut as soon as it is drawn, the moments
 and the error buffer are made as blocks. Each checkpoint is
 gathered leaf by leaf to the host of the rank at the mesh origin, which
@@ -157,7 +159,9 @@ def main(argv: Optional[Sequence[str]] = None, *,
          hooks: Sequence[Hook] = ()) -> Dict[str, Any]:
     """Run the launcher with ``argv`` (``None``: the command line).
     ``hooks`` are called as ``hook(step_index, state, metrics)`` after each
-    step and its checkpoint. Returns the final state (this rank's blocks
+    step and its checkpoint; the step donates its state (``make_train_step(
+    ..., donate=True)``), so a hook that keeps the state past its call
+    copies it first. Returns the final state (this rank's blocks
     under a mesh), the start step, each step's loss and seconds (host
     clock, ended by reading the loss), and the mesh (``None`` on one
     device)."""
@@ -195,7 +199,9 @@ def _run(args: argparse.Namespace, dev: torch.device,
 
     gen = torch.Generator(device=dev).manual_seed(0)
     state = TL.init_train_state(gen, cfg, tcfg, device=dev, mesh=mesh)
-    step_fn = TL.make_train_step(cfg, tcfg, mesh=mesh)
+    # the reference jits the step with donate_argnums=(0,): the state is
+    # updated in place and held once
+    step_fn = TL.make_train_step(cfg, tcfg, mesh=mesh, donate=True)
 
     mgr = CK.CheckpointManager(args.ckpt_dir, keep=3, every=args.ckpt_every,
                                async_save=True)

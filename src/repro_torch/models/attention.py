@@ -9,7 +9,10 @@ shared rotary key (d_rope) instead of full per-head K/V, and expands them
 on use. Scores and softmax run in float32; the cache keeps the model dtype.
 
 The functions are pure, as the reference's are: a cache update returns a
-new buffer and leaves the old one as it was.
+new buffer and leaves the old one as it was. With ``donate=True`` (a
+decode step that donates its state, as the reference's dry run and
+launcher let XLA do) the update writes into the cache's own buffers and
+advances its position in place, after every read of the old position.
 
 Under tensor parallelism (``tp=``, :class:`repro_torch.models.layers.TP`;
 the full sequence, or a cached decode on a mesh) a rank computes its heads: GQA its ``n_heads / m``
@@ -63,27 +66,39 @@ def _cache_positions(pos: torch.Tensor, s: int) -> torch.Tensor:
 
 
 def _cache_update(buf: torch.Tensor, new: torch.Tensor,
-                  pos: torch.Tensor) -> torch.Tensor:
-    """``buf`` (B, S, ...) with ``new`` (B, s, ...) written at ``pos``.
+                  pos: torch.Tensor, donate: bool = False) -> torch.Tensor:
+    """``buf`` (B, S, ...) with ``new`` (B, s, ...) written at ``pos``: a
+    new buffer, or with ``donate`` ``buf`` itself, written in place.
 
     Scalar ``pos``: one slice shared by all rows, its start clamped to
     ``[0, S - s]`` as the reference's ``dynamic_update_slice`` clamps it.
     Per-slot ``(B,)`` pos: row r lands at ``pos[r]``; writes past S are
     dropped (the reference's ``mode='drop'``): they go to a trash row past
-    the end, which is cut off, so no index leaves the buffer."""
+    the end, which is cut off, so no index leaves the buffer (in place:
+    only the writes that land are made)."""
     b, s = new.shape[:2]
     big = buf.shape[1]
     steps = torch.arange(s, dtype=torch.int64, device=buf.device)
     if pos.dim() == 0:
-        out = buf.clone()
+        out = buf if donate else buf.clone()
         out[:, cache_index(pos, s, big)] = new
         return out
     t_idx = pos.to(torch.int64)[:, None] + steps[None, :]
-    t_idx = torch.where((t_idx >= 0) & (t_idx < big), t_idx, big)
+    lands = (t_idx >= 0) & (t_idx < big)
     b_idx = torch.arange(b, device=buf.device)[:, None].expand(b, s)
+    if donate:
+        buf[b_idx[lands], t_idx[lands]] = new[lands]
+        return buf
+    t_idx = torch.where(lands, t_idx, big)
     out = torch.cat([buf, buf.new_zeros((b, 1) + tuple(buf.shape[2:]))], 1)
     out[b_idx, t_idx] = new
     return out[:, :big]
+
+
+def _advance(pos: torch.Tensor, s: int, donate: bool) -> torch.Tensor:
+    """The cache position after ``s`` writes (``donate``: ``pos`` itself,
+    advanced in place)."""
+    return pos.add_(s) if donate else pos + s
 
 
 def cache_index(pos: torch.Tensor, s: int, big: int) -> torch.Tensor:
@@ -258,12 +273,14 @@ def gqa_apply(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
               positions: Optional[torch.Tensor] = None,
               cache: Optional[KVCache] = None,
               kv_input: Optional[torch.Tensor] = None, tp=None,
-              kv_groups: Optional[Tuple[int, int]] = None
+              kv_groups: Optional[Tuple[int, int]] = None,
+              donate: bool = False
               ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """x (B,S,D). kv_input: encoder output for cross-attention (no rope).
 
     With ``cache``: writes this call's K/V at cache.pos and attends over
-    the whole cache (decode). Returns (out, new_cache | None).
+    the whole cache (decode). Returns (out, new_cache | None); ``donate``:
+    the new cache is ``cache``'s tensors, written in place.
     ``kv_groups``: (first, count) of the cache's KV groups the queries
     attend to (default all of them).
 
@@ -285,7 +302,7 @@ def gqa_apply(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
                                    positions=positions, cache=cache,
                                    kv_input=None if kv_input is None
                                    else tp.whole(kv_input),
-                                   kv_groups=kv_groups)
+                                   kv_groups=kv_groups, donate=donate)
         return tp.leave(out), new_cache
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
@@ -302,10 +319,10 @@ def gqa_apply(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
 
     new_cache = None
     if cache is not None:
-        k_all = _cache_update(cache.k, k, cache.pos)
-        v_all = _cache_update(cache.v, v, cache.pos)
-        new_cache = KVCache(k_all, v_all, cache.pos + s)
+        k_all = _cache_update(cache.k, k, cache.pos, donate)
+        v_all = _cache_update(cache.v, v, cache.pos, donate)
         kv_valid = _cache_valid(cache.pos, s, k_all.shape[1])
+        new_cache = KVCache(k_all, v_all, _advance(cache.pos, s, donate))
         if kv_groups is not None:
             g0, gn = kv_groups
             k_all, v_all = k_all[:, :, g0:g0 + gn], v_all[:, :, g0:g0 + gn]
@@ -358,9 +375,10 @@ def mla_rank_params(p: Dict[str, torch.Tensor], cfg: ModelConfig, rank: int,
 
 def mla_apply(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
               *, positions: Optional[torch.Tensor] = None,
-              cache: Optional[KVCache] = None, tp=None
+              cache: Optional[KVCache] = None, tp=None, donate: bool = False
               ) -> Tuple[torch.Tensor, Optional[KVCache]]:
-    """Multi-head latent attention; the cache holds (c_kv, k_rope).
+    """Multi-head latent attention; the cache holds (c_kv, k_rope)
+    (``donate``: written in place, as :func:`gqa_apply`'s).
 
     ``tp``: ``wq``, ``w_ukv`` and ``wo`` are this rank's heads (as
     ``tp.blocks`` names them), ``w_dkv`` and ``w_kr`` whole; ``x`` enters
@@ -371,7 +389,7 @@ def mla_apply(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
         pr = mla_rank_params(tp.leaves(p), cfg, tp.rank, tp.size,
                              tp.blocks)
         out, new_cache = mla_apply(pr, tp.enter(x), cfg, positions=positions,
-                                   cache=cache)
+                                   cache=cache, donate=donate)
         return tp.leave(out), new_cache
     m: MLAConfig = cfg.mla
     b, s, _ = x.shape
@@ -390,10 +408,10 @@ def mla_apply(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
     kv_valid = None
     new_cache = None
     if cache is not None:
-        c_all = _cache_update(cache.k, c_kv, cache.pos)
-        r_all = _cache_update(cache.v, k_rope, cache.pos)
-        new_cache = KVCache(c_all, r_all, cache.pos + s)
+        c_all = _cache_update(cache.k, c_kv, cache.pos, donate)
+        r_all = _cache_update(cache.v, k_rope, cache.pos, donate)
         kv_valid = _cache_valid(cache.pos, s, c_all.shape[1])
+        new_cache = KVCache(c_all, r_all, _advance(cache.pos, s, donate))
         c_kv, k_rope = c_all, r_all
 
     kv = (c_kv @ p["w_ukv"]).reshape(b, c_kv.shape[1], h, m.d_nope + m.d_v)

@@ -131,9 +131,12 @@ def _causal_conv(seq: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def ssm_apply(p: Dict[str, torch.Tensor], u: torch.Tensor, cfg: ModelConfig,
-              *, cache: Optional[SSMCache] = None, tp=None
+              *, cache: Optional[SSMCache] = None, tp=None,
+              donate: bool = False
               ) -> Tuple[torch.Tensor, Optional[SSMCache]]:
     """u (B, L, D). With cache: L must be 1 (single-token decode).
+    ``donate``: the new conv window and state are written into ``cache``'s
+    tensors once both are computed, and ``cache`` is returned.
 
     ``tp``: ``out_proj`` is this rank's rows (``tp.blocks``), the other
     leaves whole (see the module docstring); ``u`` enters through
@@ -145,7 +148,8 @@ def ssm_apply(p: Dict[str, torch.Tensor], u: torch.Tensor, cfg: ModelConfig,
     if tp is None:
         y, new_cache = ssm_gated(p, u, cfg, cache=cache)
         sumsq = torch.sum(y * y, dim=-1, keepdim=True)
-        return ssm_project(p, y, sumsq, cfg, u.dtype), new_cache
+        return ssm_project(p, y, sumsq, cfg, u.dtype), _written(
+            cache, new_cache, donate)
     leaves = tp.leaves(p)
     pr = ssm_rank_params(leaves, cfg, tp.rank, tp.size, tp.blocks)
     u = tp.enter(u)
@@ -164,7 +168,18 @@ def ssm_apply(p: Dict[str, torch.Tensor], u: torch.Tensor, cfg: ModelConfig,
     # every rank normalises its own channels by the sum: the gradient of
     # the sum is summed over the ranks too
     sumsq = tp.whole(tp.total(torch.sum(y * y, dim=-1, keepdim=True)))
-    return tp.leave(ssm_project(pr, y, sumsq, cfg, u.dtype)), new_cache
+    return tp.leave(ssm_project(pr, y, sumsq, cfg, u.dtype)), _written(
+        cache, new_cache, donate)
+
+
+def _written(cache: Optional[SSMCache], new: Optional[SSMCache],
+             donate: bool) -> Optional[SSMCache]:
+    """``new``, or under ``donate`` ``cache`` with ``new`` copied in."""
+    if not donate or cache is None:
+        return new
+    for old, t in zip(cache, new):
+        old.copy_(t)
+    return cache
 
 
 def ssm_project(p: Dict[str, torch.Tensor], y: torch.Tensor,

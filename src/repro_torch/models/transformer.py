@@ -49,7 +49,9 @@ of tokens at a time (:func:`hidden`).
 
 ``decode_step(..., mesh=)`` and ``init_serve_state(..., mesh=)`` decode
 on such a mesh with the serve state as each rank's blocks under the
-reference's serve rules (:func:`decode_plan`).
+reference's serve rules (:func:`decode_plan`). ``decode_step(...,
+donate=True)`` writes the new caches into the serve state it was given,
+as the reference's ``donate_argnums`` lets XLA do.
 """
 
 from __future__ import annotations
@@ -432,7 +434,8 @@ def _blocks(tp: L.TP | None, plan) -> Callable[[str], frozenset]:
 def _block_apply(p, x: torch.Tensor, cfg: ModelConfig,
                  cache: A.KVCache | None = None,
                  enc_out: torch.Tensor | None = None, mesh=None,
-                 batch_axes=None, tp: L.TP | None = None, plan=None
+                 batch_axes=None, tp: L.TP | None = None, plan=None,
+                 donate: bool = False
                  ) -> Tuple[torch.Tensor, torch.Tensor, A.KVCache | None]:
     """Returns (x, aux_loss, new_cache). With ``enc_out`` (the audio
     decoder), a cross-attention over it follows the self-attention; its
@@ -440,17 +443,18 @@ def _block_apply(p, x: torch.Tensor, cfg: ModelConfig,
     does (no cross cache). ``mesh``, ``batch_axes``: see
     :func:`forward`; ``tp``, ``plan``: its tensor-parallel context and
     this block's part of :func:`tp_plan` (with ``cache``: the decode on a
-    mesh)."""
+    mesh); ``donate``: the new cache written into ``cache``'s tensors."""
     split = _blocks(tp, plan)
     attn = A.mla_apply if cfg.mla is not None else A.gqa_apply
     h = L.rmsnorm(_scale(p["norm1"], tp), x, cfg.norm_eps)
     if tp is None:
-        a, new_cache = attn(p["attn"], h, cfg, cache=cache)
+        a, new_cache = attn(p["attn"], h, cfg, cache=cache, donate=donate)
     else:
         caches = []
 
         def mix(y, t):
-            out, c = attn(p["attn"], y, cfg, cache=cache, tp=t)
+            out, c = attn(p["attn"], y, cfg, cache=cache, tp=t,
+                          donate=donate)
             caches.append(c)
             return out
         a = _mixer(mix, h, tp, split("attn"))
@@ -737,7 +741,8 @@ def _mesh_serve_state(params, cfg: ModelConfig, batch: int, max_len: int,
     rows = SH.cache_pspec("enc_out", enc, mesh)[0]
     tp = _tp_of(_serve_cfg(cfg), mesh, SH.live_axes(mesh, rows))
     mine = torch.as_tensor(frames)[SH.block_slice(mesh, batch, rows)]
-    enc_out = _encode(_fetch(params, cfg, mesh), _serve_cfg(cfg), mine, tp,
+    enc_out = _encode(_fetch(params, _fetch_specs(cfg, mesh), mesh),
+                      _serve_cfg(cfg), mine, tp,
                       decode_plan(cfg, mesh))
     return state._replace(enc_out=enc_out)
 
@@ -813,7 +818,8 @@ def _put(stack, i: int, cache) -> None:
 
 
 def decode_step(params, cfg: ModelConfig, state: ServeState,
-                tokens, *, mesh=None) -> Tuple[torch.Tensor, ServeState]:
+                tokens, *, mesh=None, donate: bool = False
+                ) -> Tuple[torch.Tensor, ServeState]:
     """One decode step. tokens (B, 1) -> logits (B, V), new state. ssm and
     hybrid: each layer runs the exact one-token recurrence (no kernel
     launch), and hybrid applies the shared block with its site's cache
@@ -830,15 +836,25 @@ def decode_step(params, cfg: ModelConfig, state: ServeState,
     positions), ``tokens`` whole. The rank runs its rows (over the DP
     axes that divide the batch) and, over ``model``, its heads, as
     :func:`decode_plan` lays them out; it gathers the leaves the plan
-    leaves whole. Every rank returns the whole logits and its blocks of
-    the new state. ``batch_over_model`` and ``act_sp`` do not apply: the
-    reference's decode cell splits the tokens over the DP axes alone."""
+    leaves whole, a layer's when the layer runs. Every rank returns the
+    whole logits and its blocks of the new state. ``batch_over_model``
+    and ``act_sp`` do not apply: the reference's decode cell splits the
+    tokens over the DP axes alone.
+
+    ``donate``: the reference's ``donate_argnums`` on the serve state. The
+    step writes each layer's new K/V or MLA latent at its positions, its
+    conv window and SSD state (once both are computed) and the positions
+    into ``state``'s tensors, and returns them: bit for bit the functional
+    step's values, the caches held once. On a mesh a leaf the step
+    gathers gets the rank's block of its new value. The caller must not
+    read the old state after such a step."""
     _check_family(cfg)
     dev = params["embed"].device
     tokens = _tokens(tokens, dev)
     b = tokens.shape[0]
-    rows = live = tp = plan = lplan = table = None
+    rows = live = tp = plan = lplan = table = lfetch = None
     mine = slice(None)
+    given = state
     if mesh is not None:
         if state.pos.dim() != 0:
             raise ValueError("a decode step on a mesh serves a static batch "
@@ -848,7 +864,10 @@ def decode_step(params, cfg: ModelConfig, state: ServeState,
         live = SH.live_axes(mesh, rows)
         plan = decode_plan(cfg, mesh)
         lplan = _layer_plan(plan["layers"])
-        params = _fetch(params, cfg, mesh)
+        fetch = _fetch_specs(cfg, mesh)
+        lfetch = _layer_plan(fetch["layers"])
+        params = {k: v if k in _DECODE_SKIP else _fetch(v, fetch[k], mesh)
+                  for k, v in params.items()}
         table = _state_specs(cfg, state, b, mesh)
         state = _map_with_path(state, lambda key, leaf: SH.gather(
             leaf, SH.spec_minus(*table[key]), mesh))
@@ -859,13 +878,18 @@ def decode_step(params, cfg: ModelConfig, state: ServeState,
                        else None)
     split = _blocks(tp, lplan)
     caches, shared = state.layer_caches, state.shared_cache
-    new_caches, new_shared = _new_stack(caches), _new_stack(shared)
+    new_caches, new_shared = (caches, shared) if donate else (
+        _new_stack(caches), _new_stack(shared))
+    layers = _unstack(params["layers"])[:cfg.n_layers]
     if cfg.family in ("ssm", "hybrid"):
-        for i, lp in enumerate(_unstack(params["layers"])[:cfg.n_layers]):
+        for i, lp in enumerate(layers):
+            lp = _fetch(lp, lfetch, mesh)
+
             def ssm(y, t, lp=lp, i=i):
                 out, c = S.ssm_apply(lp["ssm"], y, cfg, cache=S.SSMCache(
-                    caches.conv[i], caches.state[i]), tp=t)
-                _put(new_caches, i, c)
+                    caches.conv[i], caches.state[i]), tp=t, donate=donate)
+                if not donate:
+                    _put(new_caches, i, c)
                 return out
             hn = L.rmsnorm(lp["norm1"], x, cfg.norm_eps)
             x = x + _mixer(ssm, hn, tp, split("ssm"))
@@ -874,20 +898,25 @@ def decode_step(params, cfg: ModelConfig, state: ServeState,
                 continue
             if mesh is None:
                 x, _, new_site = _block_apply(params["shared"], x, cfg,
-                                              cache=_kv(shared, site))
-                _put(new_shared, site, new_site)
+                                              cache=_kv(shared, site),
+                                              donate=donate)
+                if not donate:
+                    _put(new_shared, site, new_site)
             else:
                 x = _site_step(params["shared"], x, cfg, shared, new_shared,
                                site, mine, rows,
-                               table[".shared_cache/.k"][0][0], mesh)
+                               table[".shared_cache/.k"][0][0], mesh, donate)
     else:
-        for i, lp in enumerate(_unstack(params["layers"])[:cfg.n_layers]):
+        for i, lp in enumerate(layers):
+            lp = _fetch(lp, lfetch, mesh)
             x, _, new = _block_apply(lp, x, cfg, cache=_kv(caches, i),
                                      enc_out=state.enc_out, mesh=mesh,
-                                     batch_axes=live, tp=tp, plan=lplan)
-            _put(new_caches, i, new)
+                                     batch_axes=live, tp=tp, plan=lplan,
+                                     donate=donate)
+            if not donate:
+                _put(new_caches, i, new)
     new_state = ServeState(new_caches, new_shared, state.enc_out,
-                           state.pos + 1)
+                           state.pos.add_(1) if donate else state.pos + 1)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = x[:, 0] @ _head(params, cfg)
     if mesh is None:
@@ -895,20 +924,25 @@ def decode_step(params, cfg: ModelConfig, state: ServeState,
     if tp is not None and _keeps(plan["embed"] if cfg.tie_embeddings
                                  else plan["lm_head"]):
         logits = SH.gather(logits, (None, "model"), mesh)
+    logits = SH.gather(logits, (rows, None), mesh)
+    if donate:
+        new = {}
+        _map_with_path(new_state, lambda key, leaf: new.setdefault(key, leaf))
+        return logits, _map_with_path(given, lambda key, leaf: SH.put_block(
+            leaf, new[key], SH.spec_minus(*table[key]), mesh))
 
     def back(key, leaf):
         cut = SH.spec_minus(*table[key])
         if not any(SH.split(mesh, e) for e in cut):
             return leaf
         return SH.shard_of(leaf, cut, mesh)
-    return (SH.gather(logits, (rows, None), mesh),
-            _map_with_path(new_state, back))
+    return logits, _map_with_path(new_state, back)
 
 
 # ================================================== decoding on a mesh ====
 def _site_step(p, x: torch.Tensor, cfg: ModelConfig, shared: A.KVCache,
                new_shared: A.KVCache, site: int, mine: slice, rows: SH.Axis,
-               entry: SH.Axis, mesh) -> torch.Tensor:
+               entry: SH.Axis, mesh, donate: bool = False) -> torch.Tensor:
     """The shared block at ``site`` of a decode step on ``mesh``, on the
     rank's rows ``mine`` of the batch (``x``; over the entry ``rows``).
     ``shared``: the rank's blocks of the site caches at rest (every row;
@@ -919,7 +953,8 @@ def _site_step(p, x: torch.Tensor, cfg: ModelConfig, shared: A.KVCache,
     rank's rows of it. The new token's K/V of every row is gathered over
     ``rows`` and written, on the ranks that hold the site, into their
     block of the new stack ``new_shared``; every rank writes the site's
-    new position."""
+    new position. ``donate``: ``new_shared`` is ``shared``, and the block
+    writes its rows and the position in place."""
     n_loc = shared.k.shape[0]
     j, owner = site % n_loc, site // n_loc
     held = SH.block_slice(mesh, shared.pos.shape[0], SH.split(mesh, entry)
@@ -930,15 +965,17 @@ def _site_step(p, x: torch.Tensor, cfg: ModelConfig, shared: A.KVCache,
                           SH.all_reduce(torch.zeros_like(t), entry, mesh,
                                         copy=False)
                           for t in (k_site, v_site))
-    x, _, new = _block_apply(p, x, cfg, cache=A.KVCache(
-        k_site[mine], v_site[mine], shared.pos[site]))
-    new_shared.pos[site] = new.pos
     at = A.cache_index(shared.pos[site], 1, k_site.shape[1])
+    x, _, new = _block_apply(p, x, cfg, cache=A.KVCache(
+        k_site[mine], v_site[mine], shared.pos[site]), donate=donate)
+    if not donate:
+        new_shared.pos[site] = new.pos
     for buf, old, upd in ((new_shared.k, k_site, new.k),
                           (new_shared.v, v_site, new.v)):
         token = SH.gather(upd[:, at], (rows, None, None, None), mesh)
         if held:
-            buf[j] = old
+            if not donate:
+                buf[j] = old
             buf[j][:, at] = token
     return x
 
@@ -976,12 +1013,26 @@ def decode_plan(cfg: ModelConfig, mesh) -> Dict[str, Any]:
     return SH.memo(mesh, ("decode_plan", cfg), make)
 
 
-def _fetch(params, cfg: ModelConfig, mesh):
-    """``params`` (blocks under :func:`serve_pspecs`) with every leaf
-    gathered as far as :func:`decode_plan` leaves it whole."""
-    fetch = SH.memo(mesh, ("decode_fetch", cfg), lambda: tree_map(
+#: the parameters a decode step does not gather at its start: the stacked
+#: layers (each gathered when it runs) and those only the prefill reads
+#: (the encoder, the frontend projections)
+_DECODE_SKIP = ("layers", "encoder", "frame_proj", "patch_proj")
+
+
+def _fetch_specs(cfg: ModelConfig, mesh) -> Dict[str, Any]:
+    """Per parameter, the part of its :func:`serve_pspecs` spec that
+    :func:`decode_plan` leaves whole (what a rank gathers)."""
+    return SH.memo(mesh, ("decode_fetch", cfg), lambda: tree_map(
         SH.spec_minus, serve_pspecs(cfg, mesh), decode_plan(cfg, mesh)))
-    return tree_map(lambda x, f: SH.gather(x, f, mesh), params, fetch)
+
+
+def _fetch(tree, fetch, mesh):
+    """``tree`` (the rank's blocks of parameters) with each leaf gathered
+    as far as its entry of ``fetch`` (a part of :func:`_fetch_specs`)
+    says; ``tree`` itself without a mesh."""
+    if mesh is None:
+        return tree
+    return tree_map(lambda x, f: SH.gather(x, f, mesh), tree, fetch)
 
 
 def _state_specs(cfg: ModelConfig, state: ServeState, batch: int, mesh

@@ -53,10 +53,12 @@ def _topk_mask_chunked(x: torch.Tensor, rho: float) -> torch.Tensor:
     return mask.reshape(-1)[:n].reshape(x.shape)
 
 
-def compress_grads(grads, ef: EFState, cfg: CompressionConfig
+def compress_grads(grads, ef: EFState, cfg: CompressionConfig, *,
+                   donate: bool = False
                    ) -> Tuple[Any, EFState, Dict[str, torch.Tensor]]:
     """Returns (sparse grads in each gradient's dtype, new error state,
-    {"kept_fraction": the kept share of all entries})."""
+    {"kept_fraction": the kept share of all entries}). ``donate``: the new
+    error is written into ``ef``'s buffers, which the new state holds."""
     if not cfg.enabled:
         dev = tree_leaves(grads)[0].device
         return grads, ef, {"kept_fraction": torch.ones((), device=dev)}
@@ -65,7 +67,8 @@ def compress_grads(grads, ef: EFState, cfg: CompressionConfig
         acc = g.to(torch.float32) + e
         mask = _topk_mask_chunked(acc, cfg.rho)
         sparse = acc * mask
-        return sparse.to(g.dtype), acc - sparse, torch.mean(mask)
+        err = torch.sub(acc, sparse, out=e) if donate else acc - sparse
+        return sparse.to(g.dtype), err, torch.mean(mask)
 
     sparse, err, kept = tree_unzip(tree_map(one, grads, ef.error), 3)
     # element-weighted: tiny tensors (norm scales) ride along uncompressed

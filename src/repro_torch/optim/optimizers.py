@@ -103,18 +103,20 @@ def clip_by_global_norm(grads, max_norm: float) -> Tuple[Any, torch.Tensor]:
 
 
 def adamw_update(cfg: AdamWConfig, params, grads, state: AdamWState, *,
-                 grad_norm: torch.Tensor | None = None
+                 grad_norm: torch.Tensor | None = None, donate: bool = False
                  ) -> Tuple[Any, AdamWState, Dict[str, torch.Tensor]]:
     """One AdamW step: returns (new params, new state, {grad_norm, lr});
-    the inputs are left as they were. A leaf is updated a piece of
-    :data:`UPDATE_CHUNK` elements at a time (rows of its leading axis).
-    ``grad_norm``: the global norm to
-    clip by, where ``params``, ``grads`` and the moments are one rank's
-    blocks of whole trees (the norm of the whole gradients); default the
-    norm of ``grads``."""
+    the inputs are left as they were (but under ``donate``). A leaf is
+    updated a piece of :data:`UPDATE_CHUNK` elements at a time (rows of
+    its leading axis). ``grad_norm``: the global norm to clip by, where
+    ``params``, ``grads`` and the moments are one rank's blocks of whole
+    trees (the norm of the whole gradients); default the norm of
+    ``grads``. ``donate``: the new values are written into
+    ``params`` and ``state``'s tensors (each piece once all three of its
+    new values are computed), which are returned; the same values."""
     gnorm = global_norm(grads) if grad_norm is None else grad_norm
     scale = _clip_scale(gnorm, cfg.grad_clip)
-    step = state.step + 1
+    step = state.step.add_(1) if donate else state.step + 1
     lr = schedule(cfg, step)
     b1, b2 = cfg.beta1, cfg.beta2
     sf = step.to(torch.float32)
@@ -139,14 +141,18 @@ def adamw_update(cfg: AdamWConfig, params, grads, state: AdamWState, *,
         # elementwise: the same values a piece at a time
         n = p.numel() // max(p.shape[0], 1) if p.dim() else p.numel()
         rows = max(1, UPDATE_CHUNK // max(n, 1))
-        if p.dim() == 0 or rows >= p.shape[0]:
+        whole = p.dim() == 0 or rows >= p.shape[0]
+        if whole and not donate:
             return upd(p, g, m, v)
-        out = (torch.empty_like(p), torch.empty_like(m), torch.empty_like(v))
-        for lo in range(0, p.shape[0], rows):
-            part = slice(lo, lo + rows)
-            for buf, new in zip(out, upd(p[part], g[part], m[part],
-                                         v[part])):
-                buf[part] = new
+        out = (p, m, v) if donate else (
+            torch.empty_like(p), torch.empty_like(m), torch.empty_like(v))
+        parts = [...] if whole else [slice(lo, lo + rows)
+                                     for lo in range(0, p.shape[0], rows)]
+        with torch.no_grad():
+            for part in parts:
+                for buf, new in zip(out, upd(p[part], g[part], m[part],
+                                             v[part])):
+                    buf[part] = new
         return out
 
     new_params, new_m, new_v = tree_unzip(

@@ -69,6 +69,15 @@ def tensor_bytes(tree: Any) -> int:
     return sum(t.numel() * t.element_size() for t in _tensors(tree))
 
 
+def aliased_bytes(out: Any, args: Any) -> int:
+    """The bytes of the tensors of ``out`` whose storage is one of the
+    tensors of ``args``' (a step's outputs that are its donated
+    arguments)."""
+    held = {t.untyped_storage()._cdata for t in _tensors(args)}
+    return sum(t.numel() * t.element_size() for t in _tensors(out)
+               if t.untyped_storage()._cdata in held)
+
+
 class _Counts(TorchDispatchMode):
     """Bytes, collectives and live storages (see the module docstring)."""
 

@@ -669,6 +669,30 @@ def shard_tree(tree, spec_tree, mesh):
         leaf, specs_of[key], mesh))
 
 
+def put_block(dst: torch.Tensor, whole: torch.Tensor, spec: Spec, mesh
+              ) -> torch.Tensor:
+    """Write this rank's block of ``whole`` under the resolved ``spec``
+    into ``dst`` (that block's buffer) and return ``dst``; nothing is
+    written where ``whole`` is ``dst`` (a leaf :func:`gather` left as it
+    was)."""
+    if whole is not dst:
+        idx = tuple(block_slice(mesh, d, e) if mesh is not None
+                    else slice(None) for d, e in zip(whole.shape, spec))
+        dst.copy_(whole[idx])
+    return dst
+
+
+def put_blocks(tree, whole_tree, spec_tree, mesh):
+    """:func:`put_block` leaf by leaf: ``tree`` (this rank's blocks)
+    holding its blocks of ``whole_tree``, returned."""
+    from repro_torch.train.checkpoint import _map_with_path
+    specs_of = _spec_table(spec_tree)
+    wholes: Dict[str, torch.Tensor] = {}
+    _map_with_path(whole_tree, lambda key, leaf: wholes.setdefault(key, leaf))
+    return _map_with_path(tree, lambda key, leaf: put_block(
+        leaf, wholes[key], specs_of[key], mesh))
+
+
 def gather_tree(tree, spec_tree, mesh, to=None):
     """The whole tree from this rank's blocks under its spec tree, leaf by
     leaf (:func:`gather`, a collective on every rank); the inverse of

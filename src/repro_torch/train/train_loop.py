@@ -7,7 +7,11 @@ with plain PyTorch backwards), optional top-k gradient compression, then
 AdamW. Gradient accumulation runs the microbatches one after another and
 sums their gradients in the parameters' dtype before dividing by
 ``grad_accum``, as the reference's scan does. A step is functional: it
-returns a new state and leaves the one it was given as it was.
+returns a new state and leaves the one it was given as it was. With
+``donate=True`` (the reference's ``donate_argnums``, which the launcher
+and the dry run pass) it writes the new state into the tensors of the one
+it was given and returns them: the same values, the state held once. The
+caller must not read the old state after such a step.
 
 ``make_train_step(..., mesh=)`` is the step of one rank of a ``("data",
 "model")`` mesh (:func:`repro_torch.sharding.specs.lm_mesh`). Its state
@@ -155,7 +159,8 @@ def _micro(batch: Dict[str, Any], ga: int):
             for i in range(ga)], mb
 
 
-def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, *, mesh=None
+def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, *, mesh=None,
+                    donate: bool = False
                     ) -> Callable[[TrainState, Dict[str, Any]],
                                   Tuple[TrainState, Dict[str, torch.Tensor]]]:
     """The train step: ``step(state, batch) -> (new state, metrics)`` with
@@ -168,9 +173,13 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, *, mesh=None
     the module docstring); ``state`` holds this rank's blocks, ``batch``
     is whole, the metrics are the whole batch's on every rank. The mesh
     step's gradients end in the parameters' layout, which the reference's
-    ``grad_pspecs`` pins."""
+    ``grad_pspecs`` pins.
+
+    ``donate``: the step updates ``state`` in place (parameters, moments,
+    error feedback, both step counters) and returns it, bit for bit the
+    functional step's values (see the module docstring)."""
     if mesh is not None:
-        return _mesh_train_step(cfg, tcfg, mesh)
+        return _mesh_train_step(cfg, tcfg, mesh, donate)
     ga = tcfg.grad_accum
 
     def train_step(state: TrainState, batch: Dict[str, Any]):
@@ -196,12 +205,13 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, *, mesh=None
         ef = state.ef
         stats: Dict[str, torch.Tensor] = {}
         if tcfg.compressing:
-            grads, ef, stats = GC.compress_grads(grads, state.ef,
-                                                 tcfg.compression)
+            grads, ef, stats = GC.compress_grads(
+                grads, state.ef, tcfg.compression, donate=donate)
         new_params, new_opt, om = O.adamw_update(
-            tcfg.optimizer, state.params, grads, state.opt)
+            tcfg.optimizer, state.params, grads, state.opt, donate=donate)
         metrics = {"loss": loss, **parts, **om, **stats}
-        return TrainState(new_params, new_opt, ef, state.step + 1), metrics
+        return TrainState(new_params, new_opt, ef,
+                          _next_step(state.step, donate)), metrics
 
     return train_step
 
@@ -301,7 +311,12 @@ def _global_norm_blocks(grads, pspecs, mesh) -> torch.Tensor:
     return torch.sqrt(torch.sum(sq))
 
 
-def _mesh_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh):
+def _next_step(step: torch.Tensor, donate: bool) -> torch.Tensor:
+    return step.add_(1) if donate else step + 1
+
+
+def _mesh_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh,
+                     donate: bool = False):
     """:func:`make_train_step` under ``mesh``."""
     st_specs = state_pspecs(cfg, tcfg, mesh)
     pspecs = st_specs.params
@@ -316,9 +331,13 @@ def _mesh_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh):
             grads = tree_map(lambda g, f: SH.gather(g, f, mesh), grads,
                              fspecs)
             whole_ef = SH.gather_tree(state.ef, st_specs.ef, mesh)
-            grads, whole_ef, stats = GC.compress_grads(grads, whole_ef,
-                                                       tcfg.compression)
-            ef = SH.shard_tree(whole_ef, st_specs.ef, mesh)
+            grads, whole_ef, stats = GC.compress_grads(
+                grads, whole_ef, tcfg.compression, donate=donate)
+            if donate:
+                # the rank's blocks of the new error, into its buffers
+                ef = SH.put_blocks(state.ef, whole_ef, st_specs.ef, mesh)
+            else:
+                ef = SH.shard_tree(whole_ef, st_specs.ef, mesh)
             del whole_ef
             norm = O.global_norm(grads)
             grads = SH.shard_tree(grads, pspecs, mesh)
@@ -326,9 +345,11 @@ def _mesh_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh):
             grads = tree_map(lambda g, f: _cut(g, f, mesh), grads, fetch)
             norm = _global_norm_blocks(grads, pspecs, mesh)
         new_params, new_opt, om = O.adamw_update(
-            tcfg.optimizer, state.params, grads, state.opt, grad_norm=norm)
+            tcfg.optimizer, state.params, grads, state.opt, grad_norm=norm,
+            donate=donate)
         metrics = {"loss": loss, **parts, **om, **stats}
-        return TrainState(new_params, new_opt, ef, state.step + 1), metrics
+        return TrainState(new_params, new_opt, ef,
+                          _next_step(state.step, donate)), metrics
 
     return train_step
 

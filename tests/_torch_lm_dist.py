@@ -678,3 +678,145 @@ def dryrun_suite(mesh, cases) -> Dict[str, Any]:
     except ValueError as e:
         out["refused"] = str(e)
     return out
+
+
+# ---------------------------------------------------------------- donation
+
+def _leaves(tree) -> Dict[str, Any]:
+    """A tree's tensors by checkpoint key."""
+    import torch
+    from repro_torch.train.checkpoint import _map_with_path
+    out: Dict[str, Any] = {}
+    _map_with_path(tree, lambda key, leaf: out.__setitem__(key, leaf)
+                   if isinstance(leaf, torch.Tensor) else None)
+    return out
+
+
+def _copy(tree):
+    import torch
+    from repro_torch.train.checkpoint import _map_with_path
+    return _map_with_path(tree, lambda key, leaf: leaf.clone()
+                          if isinstance(leaf, torch.Tensor) else leaf)
+
+
+def _bits(t):
+    """A tensor's bytes, so -0.0 and 0.0 (and NaNs) compare as stored."""
+    import torch
+    return t.detach().reshape(-1).contiguous().view(torch.uint8)
+
+
+def _same_bits(a, b) -> bool:
+    import torch
+    return a.dtype == b.dtype and a.shape == b.shape \
+        and torch.equal(_bits(a), _bits(b))
+
+
+def _donation(run, state, n: int) -> Dict[str, Any]:
+    """``run(state, t, donate) -> (outputs, new state)`` ``n`` times from
+    two copies of ``state``, functional and donated: the step and leaf
+    keys whose outputs or final values are not bit for bit the same, and
+    the leaves whose storage the donated steps did not keep."""
+    a, b = _copy(state), _copy(state)
+    ptrs = {k: v.data_ptr() for k, v in _leaves(b).items()}
+    differ = []
+    for t in range(n):
+        oa, a = run(a, t, False)
+        ob, b = run(b, t, True)
+        differ += [f"step {t}: {k}" for k in oa
+                   if not _same_bits(oa[k], ob[k])]
+    la, lb = _leaves(a), _leaves(b)
+    differ += [k for k in la if k not in lb or not _same_bits(la[k], lb[k])]
+    return dict(differ=differ, moved=sorted(
+        k for k in ptrs if k not in lb or lb[k].data_ptr() != ptrs[k]),
+        leaves=len(lb))
+
+
+def donated_train(cfg, tcfg, state, batches, mesh=None) -> Dict[str, Any]:
+    """:func:`_donation` of ``make_train_step(cfg, tcfg, mesh=)`` over
+    ``batches`` (its metrics compared too)."""
+    from repro_torch.train import train_loop as TL
+    steps = {d: TL.make_train_step(cfg, tcfg, mesh=mesh, donate=d)
+             for d in (False, True)}
+    def run(st, t, donate):
+        st, metrics = steps[donate](st, batches[t])
+        return metrics, st
+    return _donation(run, state, len(batches))
+
+
+def donated_decode(params, cfg, state, tokens, mesh=None) -> Dict[str, Any]:
+    """:func:`_donation` of ``decode_step(..., mesh=)`` on ``tokens`` (n,
+    B, 1) (its logits compared too)."""
+    import torch
+    from repro_torch.models import transformer as T
+
+    def run(st, t, donate):
+        with torch.no_grad():
+            logits, st = T.decode_step(params, cfg, st, tokens[t],
+                                       mesh=mesh, donate=donate)
+        return {"logits": logits}, st
+    return _donation(run, state, len(tokens))
+
+
+def random_serve_state(params, cfg, batch: int, max_len: int, pos: int,
+                       seed: int, frames=None):
+    """A whole serve state of ``cfg`` with caches of normal draws from
+    ``seed`` (the audio encoder output too) and every position at
+    ``pos``."""
+    import torch
+    from repro_torch.models import transformer as T
+    from repro_torch.train.checkpoint import _map_with_path
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        whole = T.init_serve_state(params, cfg, batch, max_len,
+                                   frames=frames)
+
+    def fill(key, leaf):
+        if leaf.dtype.is_floating_point:
+            return torch.randn(leaf.shape, generator=gen).to(leaf.dtype)
+        return torch.full_like(leaf, pos)
+    return _map_with_path(whole, fill)
+
+
+def donate_suite(mesh, cases) -> Dict[str, Any]:
+    """Each case a train case (:func:`_configs`' keys, and ``seq``, the
+    batch's ``rows`` and ``steps``) or a decode case (``decode``: True,
+    :func:`_decode_cfg`'s keys, and ``batch``, ``max_len``, ``pos``,
+    ``steps``). A train case: the state made as blocks
+    (``init_train_state(mesh=)``, seed 0) and batches drawn from a numpy
+    seed, through :func:`donated_train`; a decode case: the rank's blocks
+    of whole parameters (seed 0, ``serve_pspecs``) and of a whole
+    :func:`random_serve_state` (``serve_shardings``), through
+    :func:`donated_decode`. Returns each case's result."""
+    import torch
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding import specs
+    from repro_torch.train import train_loop as TL
+    from repro_torch.train.checkpoint import _map_with_path
+    out: Dict[str, Any] = {}
+    for name, c in cases.items():
+        rng = np.random.default_rng(7)
+        if not c.get("decode"):
+            cfg, tcfg = _configs(c)
+            state = TL.init_train_state(torch.Generator().manual_seed(0),
+                                        cfg, tcfg, device="cpu", mesh=mesh)
+            batches = [{k: rng.integers(0, cfg.vocab_size,
+                                        (c["rows"], c["seq"]))
+                        for k in ("tokens", "labels")}
+                       for _ in range(c["steps"])]
+            out[name] = donated_train(cfg, tcfg, state, batches, mesh)
+            continue
+        cfg = _decode_cfg(c)
+        params = T.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+        blocks = specs.shard_tree(params, T.serve_pspecs(cfg, mesh), mesh)
+        b = c["batch"]
+        frames = None if cfg.family != "audio" else torch.from_numpy(
+            rng.standard_normal((b, cfg.encdec.encoder_seq,
+                                 cfg.frontend.d_embed)).astype(np.float32))
+        whole = random_serve_state(params, cfg, b, c["max_len"], c["pos"],
+                                   1, frames)
+        state = _map_with_path(whole, lambda key, leaf: specs.shard_of(
+            leaf, specs.cache_pspec(key, leaf, mesh), mesh))
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                               (c["steps"], b, 1)))
+        out[name] = donated_decode(blocks, cfg, state, tokens, mesh)
+    return out
