@@ -220,13 +220,13 @@ def _run(args: argparse.Namespace, dev: torch.device,
     monitor = FT.HeartbeatMonitor(n_hosts=world)
 
     losses, step_s = [], []
-    t0 = time.time()
+    t0 = time.perf_counter()
     try:
         for i in range(start, args.steps):
-            ts = time.time()
+            ts = time.perf_counter()
             state, metrics = step_fn(state, data.batch(i))
             losses.append(float(metrics["loss"]))
-            step_s.append(time.time() - ts)
+            step_s.append(time.perf_counter() - ts)
             monitor.beat(rank, step_s[-1])
             if mesh is None:
                 mgr.maybe_save(i + 1, state)
@@ -244,7 +244,7 @@ def _run(args: argparse.Namespace, dev: torch.device,
                       f"lr {float(metrics['lr']):.2e}{extra}", flush=True)
     finally:
         mgr.wait()
-    dt = time.time() - t0
+    dt = time.perf_counter() - t0
     if losses and origin:
         print(f"[train] {len(losses)} steps in {dt:.1f}s; "
               f"loss {np.mean(losses[:5]):.3f} -> "

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 import torch.utils.checkpoint
 
+from repro_torch import tracing
 from repro_torch.configs.base import MLAConfig, ModelConfig
 from repro_torch.models import layers as L
 
@@ -184,13 +185,15 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     blocks of queries (:func:`_by_query_blocks`)."""
     b, sq, h, dh = q.shape
     sk = k.shape[1]
-    rows = torch.arange(sq, device=q.device)[None]
-    # (B, G, D, Sk) and (B, G, Sk, D): the keys and values every block reads
-    kt = L._f32(k).permute(0, 2, 3, 1).contiguous()
-    vf = L._f32(v).permute(0, 2, 1, 3).contiguous()
-    return _by_query_blocks(
-        lambda qb, ib: _sdpa_block(qb, ib[0], kt, vf, causal, kv_valid),
-        (q, rows), 4 * b * h * sk, (kt, vf))
+    with tracing.span("attention.scores"):
+        rows = torch.arange(sq, device=q.device)[None]
+        # (B, G, D, Sk) and (B, G, Sk, D): the keys and values every block
+        # reads
+        kt = L._f32(k).permute(0, 2, 3, 1).contiguous()
+        vf = L._f32(v).permute(0, 2, 1, 3).contiguous()
+        return _by_query_blocks(
+            lambda qb, ib: _sdpa_block(qb, ib[0], kt, vf, causal, kv_valid),
+            (q, rows), 4 * b * h * sk, (kt, vf))
 
 
 def _sdpa_block(q: torch.Tensor, rows: torch.Tensor, kt: torch.Tensor,

@@ -62,6 +62,7 @@ from typing import Any, Callable, Dict, List, NamedTuple, Tuple, Union
 import torch
 import torch.utils.checkpoint
 
+from repro_torch import tracing
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.common import resolve_device
 from repro_torch.models import attention as A
@@ -578,14 +579,15 @@ def forward(params, cfg: ModelConfig, tokens, *, patches=None, frames=None,
     if logits_mode not in ("all", "last"):
         raise ValueError(f"logits_mode must be 'all' or 'last', got "
                          f"{logits_mode!r}")
-    x, aux, n_prefix = _trunk(params, cfg, tokens, patches, frames, mesh,
-                              batch_axes)
-    if logits_mode == "all":
-        return x[:, n_prefix:] @ _head(params, cfg), aux
-    logits = x[:, -1:] @ _head(params, cfg)
-    if vocab_parallel(cfg, mesh):
-        logits = SH.gather_along(logits, 2, "model", mesh, summed=False)
-    return logits, aux
+    with tracing.span("model.forward"):
+        x, aux, n_prefix = _trunk(params, cfg, tokens, patches, frames, mesh,
+                                  batch_axes)
+        if logits_mode == "all":
+            return x[:, n_prefix:] @ _head(params, cfg), aux
+        logits = x[:, -1:] @ _head(params, cfg)
+        if vocab_parallel(cfg, mesh):
+            logits = SH.gather_along(logits, 2, "model", mesh, summed=False)
+        return logits, aux
 
 
 def hidden(params, cfg: ModelConfig, tokens, *, patches=None, frames=None,
@@ -597,8 +599,9 @@ def hidden(params, cfg: ModelConfig, tokens, *, patches=None, frames=None,
     (:func:`repro_torch.models.layers.head_cross_entropy`). Arguments as
     :func:`forward`'s; under :func:`vocab_parallel` the head is the rank's
     block of the vocabulary."""
-    x, aux, n_prefix = _trunk(params, cfg, tokens, patches, frames, mesh,
-                              batch_axes)
+    with tracing.span("model.forward"):
+        x, aux, n_prefix = _trunk(params, cfg, tokens, patches, frames, mesh,
+                                  batch_axes)
     return x[:, n_prefix:], aux
 
 

@@ -24,6 +24,7 @@ from typing import Any, Dict, NamedTuple, Tuple, Union
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.optim.tree import tree_leaves, tree_map, tree_unzip
 
 #: the elements of a leaf :func:`adamw_update` updates at once (rows of
@@ -114,6 +115,13 @@ def adamw_update(cfg: AdamWConfig, params, grads, state: AdamWState, *,
     ``grads``. ``donate``: the new values are written into
     ``params`` and ``state``'s tensors (each piece once all three of its
     new values are computed), which are returned; the same values."""
+    with tracing.span("train_step.optimizer"):
+        return _adamw_update(cfg, params, grads, state, grad_norm, donate)
+
+
+def _adamw_update(cfg: AdamWConfig, params, grads, state: AdamWState,
+                  grad_norm: torch.Tensor | None, donate: bool
+                  ) -> Tuple[Any, AdamWState, Dict[str, torch.Tensor]]:
     gnorm = global_norm(grads) if grad_norm is None else grad_norm
     scale = _clip_scale(gnorm, cfg.grad_clip)
     step = state.step.add_(1) if donate else state.step + 1

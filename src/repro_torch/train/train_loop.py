@@ -43,6 +43,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
@@ -139,9 +140,11 @@ def grads_of(params, cfg: ModelConfig, batch: Dict[str, Any], *, mesh=None,
     terms."""
     leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
     with torch.enable_grad():
-        loss, parts = loss_fn(tree_unflatten(params, leaves), cfg, batch,
-                              mesh=mesh, batch_axes=batch_axes)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        with tracing.span("train_step.forward"):
+            loss, parts = loss_fn(tree_unflatten(params, leaves), cfg,
+                                  batch, mesh=mesh, batch_axes=batch_axes)
+        with tracing.span("train_step.backward"):
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(leaves, grads)]
     return (loss.detach(), {k: v.detach() for k, v in parts.items()},
@@ -183,21 +186,28 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, *, mesh=None,
     ga = tcfg.grad_accum
 
     def train_step(state: TrainState, batch: Dict[str, Any]):
+        with tracing.span("train_step", counters=True):
+            return _step(state, batch)
+
+    def _step(state: TrainState, batch: Dict[str, Any]):
         if ga > 1:
             micros, _ = _micro(batch, ga)
-            grads = tree_map(torch.zeros_like, state.params)
-            loss = torch.zeros((), dtype=torch.float32,
-                               device=state.step.device)
+            with tracing.span("train_step.accumulators"):
+                grads = tree_map(torch.zeros_like, state.params)
+                loss = torch.zeros((), dtype=torch.float32,
+                                   device=state.step.device)
             for micro in micros:
                 mloss, _, mgrads = grads_of(state.params, cfg, micro)
-                tree_map(lambda acc, g: acc.add_(g), grads, mgrads)
-                del mgrads
-                loss = loss + mloss
-            # a true division (a Python divisor would go through its
-            # reciprocal on the card)
-            n = torch.tensor(float(ga), device=loss.device)
-            grads = tree_map(lambda g: g / n, grads)
-            loss = loss / n
+                with tracing.span("train_step.accumulate"):
+                    tree_map(lambda acc, g: acc.add_(g), grads, mgrads)
+                    del mgrads
+                    loss = loss + mloss
+            with tracing.span("train_step.accumulate"):
+                # a true division (a Python divisor would go through its
+                # reciprocal on the card)
+                n = torch.tensor(float(ga), device=loss.device)
+                grads = tree_map(lambda g: g / n, grads)
+                loss = loss / n
             parts = {"ce": loss, "aux": torch.zeros_like(loss)}
         else:
             loss, parts, grads = grads_of(state.params, cfg, batch)
@@ -260,19 +270,22 @@ def _mesh_grads(cfg: ModelConfig, tcfg: TrainConfig, mesh):
                 loss, grads = mloss, mgrads
                 break
             if grads is None:
-                grads = tree_map(torch.zeros_like, params)
-                loss = torch.zeros((), dtype=torch.float32,
-                                   device=mloss.device)
-            tree_map(lambda acc, g: acc.add_(g), grads, mgrads)
-            del mgrads
-            loss = loss + mloss
+                with tracing.span("train_step.accumulators"):
+                    grads = tree_map(torch.zeros_like, params)
+                    loss = torch.zeros((), dtype=torch.float32,
+                                       device=mloss.device)
+            with tracing.span("train_step.accumulate"):
+                tree_map(lambda acc, g: acc.add_(g), grads, mgrads)
+                del mgrads
+                loss = loss + mloss
         del params
         grads = tree_map(lambda g, axes: SH.all_reduce(g, axes, mesh),
                          grads, sums)
         if ga > 1:
-            n = torch.tensor(float(ga), device=loss.device)
-            grads = tree_map(lambda g: g / n, grads)
-            loss = loss / n
+            with tracing.span("train_step.accumulate"):
+                n = torch.tensor(float(ga), device=loss.device)
+                grads = tree_map(lambda g: g / n, grads)
+                loss = loss / n
             parts = {"ce": loss, "aux": torch.zeros_like(loss)}
         return loss, parts, grads
 
@@ -323,6 +336,10 @@ def _mesh_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh,
     grads_fn, fspecs, fetch = _mesh_grads(cfg, tcfg, mesh)
 
     def train_step(state: TrainState, batch: Dict[str, Any]):
+        with tracing.span("train_step", counters=True):
+            return _step(state, batch)
+
+    def _step(state: TrainState, batch: Dict[str, Any]):
         loss, parts, grads = grads_fn(state.params, batch)
         ef = state.ef
         stats: Dict[str, torch.Tensor] = {}
