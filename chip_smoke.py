@@ -169,6 +169,7 @@ from repro_torch.configs import registry as lm_registry  # noqa: E402
 from repro_torch.data import pipeline as DP  # noqa: E402
 from repro_torch.data import tokenizer  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import gqa_attention as ga  # noqa: E402
 from repro_torch.kernels import moe_gate as mg  # noqa: E402
 from repro_torch.kernels import rnl_neuron as rn  # noqa: E402
 from repro_torch.kernels import rnl_shard as rs  # noqa: E402
@@ -449,13 +450,17 @@ RNL_WRAPPERS = ("rnl_fire_times_layer", "rnl_fire_times",
 SOURCES = {"rnl_neuron": "src/repro_torch/kernels/csrc/rnl_neuron.cu",
            "unary_topk": "src/repro_torch/kernels/csrc/unary_topk.cu",
            "ssd_scan": "src/repro_torch/kernels/csrc/ssd_scan.cu",
-           "moe_gate": "src/repro_torch/kernels/csrc/moe_gate.cu"}
+           "moe_gate": "src/repro_torch/kernels/csrc/moe_gate.cu",
+           "gqa_attention": "src/repro_torch/kernels/csrc/gqa_attention.cu"}
 #: the source each wrapper launches
 SOURCE_OF = {**{name: "rnl_neuron" for name in RNL_WRAPPERS},
              "unary_topk_count": "unary_topk",
              "unary_topk_relocate": "unary_topk",
              "gate_level_trace": "unary_topk", "ssd_scan": "ssd_scan",
-             "moe_gate_topk": "moe_gate"}
+             "moe_gate_topk": "moe_gate", "gqa_attention": "gqa_attention"}
+#: the kernel that replaces no TPU kernel (the reference's attention is
+#: plain ``jnp``): a path's launches of it are its ``attention`` count
+ATTENTION_KERNEL = "gqa_attention"
 
 
 def reset_launches() -> None:
@@ -463,10 +468,36 @@ def reset_launches() -> None:
     ut.reset_launches()
     ss.reset_launches()
     mg.reset_launches()
+    ga.reset_launches()
 
 
 def launch_counts() -> Dict[str, int]:
-    return {**rn.LAUNCHES, **ut.LAUNCHES, **ss.LAUNCHES, **mg.LAUNCHES}
+    return {**rn.LAUNCHES, **ut.LAUNCHES, **ss.LAUNCHES, **mg.LAUNCHES,
+            **ga.LAUNCHES}
+
+
+def gqa_calls(cfg) -> int:
+    """The fused attention kernel's launches in one forward of ``cfg``
+    without a cache: one for each GQA attention whose operands it takes
+    (bf16, a head dim it is built for) — every layer of a dense or vision
+    model, each shared-block site of a hybrid, the audio model's encoder
+    layers and its decoder's self- and cross-attention; none in MLA or SSD
+    layers."""
+    if cfg.mla is not None or cfg.family == "ssm" \
+            or cfg.dtype != "bfloat16" \
+            or cfg.resolved_head_dim not in ga.HEAD_DIMS:
+        return 0
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.hybrid.period
+    if cfg.family == "audio":
+        return cfg.encdec.n_encoder_layers + 2 * cfg.n_layers
+    return cfg.n_layers
+
+
+def gqa_train_calls(cfg, microbatches: int) -> int:
+    """The kernel's launches in ``microbatches`` forward-backward passes:
+    each forward's, and again in the block remat's recompute."""
+    return (2 if cfg.remat == "block" else 1) * gqa_calls(cfg) * microbatches
 
 
 def engine_steps(st) -> Dict[str, int]:
@@ -482,13 +513,16 @@ class Path:
     ``check(outputs, stats)`` raises unless they are right and returns the
     fields to print; ``kernel`` is the wrapper the path must launch (None:
     it must launch none), ``launches`` how often, where that is fixed (an
-    int, or a function of the run's stats)."""
+    int, or a function of the run's stats); ``attention`` how often it
+    launches the fused attention kernel (:data:`ATTENTION_KERNEL`), beside
+    its own (an int, or a function of the run's stats)."""
 
     name: str
     kernel: Optional[str]
     run: Callable[[], Tuple[Any, Any]]
     check: Callable[[Any, Any], Dict[str, Any]]
     launches: Any = None
+    attention: Any = 0
 
 
 def main_paths(dev, streams, ff, p_ff, served) -> List[Path]:
@@ -1350,7 +1384,8 @@ def vlm_paths(dev, cfg, params, tokens, patches, prompts) -> List[Path]:
     ``Engine.serve`` of ``prompts`` through VLM_SLOTS slots, continuous:
     each request's tokens must equal its own ``serve([p],
     n_slots=VLM_SLOTS)`` (the same batch shape, so the card's products
-    round alike). No kernel: the family is GQA attention."""
+    round alike). The prefill launches the fused attention kernel once a
+    layer; the serve, whose prompts go through the cached decode, never."""
     def prefill_run():
         return lm.forward(params, cfg, tokens, patches=patches,
                           logits_mode="last"), None
@@ -1393,7 +1428,8 @@ def vlm_paths(dev, cfg, params, tokens, patches, prompts) -> List[Path]:
                                     VLM_NEW_TOKENS, outs, st),
                     slots=VLM_SLOTS, equal_to_own_serve=len(prompts))
 
-    return [Path("vlm_prefill", None, prefill_run, prefill_check),
+    return [Path("vlm_prefill", None, prefill_run, prefill_check,
+                 attention=gqa_calls(cfg)),
             Path("vlm_serve", None, serve_run, serve_check)]
 
 
@@ -1403,8 +1439,11 @@ def audio_paths(dev, cfg, params, tokens, frames, prompts) -> List[Path]:
     cross-attending to its output; ``logits_mode="last"``), and
     ``Engine.generate(prompts, frames=)`` on the static path (the encoder
     once, in ``init_serve_state``; each decode step recomputes the cross
-    K/V of the 1,024 frames in every layer, as the reference does). No
-    kernel."""
+    K/V of the 1,024 frames in every layer, as the reference does). The
+    fused attention kernel: the prefill's every encoder layer and its
+    decoder's self- and cross-attention; the generation's encoder layers
+    once and each decode step's cross-attention (its self-attention reads
+    the cache)."""
     def prefill_run():
         return lm.forward(params, cfg, tokens, frames=frames,
                           logits_mode="last"), None
@@ -1423,14 +1462,19 @@ def audio_paths(dev, cfg, params, tokens, frames, prompts) -> List[Path]:
         return _generate_check("audio_generate", cfg, prompts,
                                AUDIO_NEW_TOKENS, outs, st)
 
-    return [Path("audio_prefill", None, prefill_run, prefill_check),
-            Path("audio_generate", None, generate_run, generate_check)]
+    enc, cross = (cfg.encdec.n_encoder_layers, cfg.n_layers) \
+        if gqa_calls(cfg) else (0, 0)
+    return [Path("audio_prefill", None, prefill_run, prefill_check,
+                 attention=gqa_calls(cfg)),
+            Path("audio_generate", None, generate_run, generate_check,
+                 attention=lambda st: enc + cross * st["steps"])]
 
 
 def hybrid_paths(dev, cfg, params, tokens, prompts) -> List[Path]:
     """zamba2-1.2b at full width and depth: the prefill forward on
     ``tokens`` (``logits_mode="last"``; one SSD launch in each of the 38
-    layers, the shared attention block after every 6th), and the static
+    layers, the shared attention block after every 6th: one fused
+    attention launch a site), and the static
     ``Engine.generate`` on ``prompts``, whose decode is the one-token
     recurrence and the shared block over each site's cache: no launch."""
     def prefill_run():
@@ -1450,7 +1494,7 @@ def hybrid_paths(dev, cfg, params, tokens, prompts) -> List[Path]:
                                HYBRID_NEW_TOKENS, outs, st)
 
     return [Path("hybrid_prefill", "ssd_scan", prefill_run, prefill_check,
-                 launches=cfg.n_layers),
+                 launches=cfg.n_layers, attention=gqa_calls(cfg)),
             Path("hybrid_generate", None, generate_run, generate_check)]
 
 
@@ -2175,9 +2219,17 @@ def phase_kernels(dev, captured, floor_ms) -> Dict[str, Dict[str, Any]]:
 
 
 def check_launches(path, counts, cases, st) -> None:
-    """Raise unless ``path``'s run launched its kernel (as often as
-    ``path.launches`` says, where it says), launched no other, and made
-    exactly the calls the capture ``cases`` saw."""
+    """Raise unless ``path``'s run launched the fused attention kernel as
+    often as ``path.attention`` says, its kernel (as often as
+    ``path.launches`` says, where it says), no other, and made exactly the
+    calls the capture ``cases`` saw."""
+    attention = path.attention(st) if callable(path.attention) \
+        else path.attention
+    if counts[ATTENTION_KERNEL] != attention:
+        raise AssertionError(f"{path.name}: {counts[ATTENTION_KERNEL]} "
+                             f"launches of {ATTENTION_KERNEL}, expected "
+                             f"{attention}")
+    counts = {k: v for k, v in counts.items() if k != ATTENTION_KERNEL}
     seen = {name: 0 for name in REPLACES}
     for case in cases:
         seen[case["wrapper"]] += case["calls"]
@@ -4209,12 +4261,180 @@ def phase_family(dev, arch, root) -> Tuple[Dict[str, Dict[str, int]],
     return launches, kernels
 
 
+# ================================================= fused GQA attention
+
+#: the fused kernel's calls on the benchmark's paths (internlm2-1.8b: 16
+#: heads in 8 KV groups of 128, causal): (name, B, S)
+GQA_CALLS = (("prefill", 1, 32768), ("train", 2, 4096))
+GQA_HEADS, GQA_GROUPS, GQA_DIM = 16, 8, 128
+
+
+#: the last queries whose float32 outputs are held against float64
+GQA_CHECK_ROWS = 256
+
+
+def _tail_f64(q, k, v, scale, n):
+    """Float64 attention of the last ``n`` causal queries over every key
+    (they see all of them): (B, n, H, D)."""
+    b, s, h, d = q.shape
+    g = k.shape[2]
+    qf = q[:, s - n:].double().reshape(b, n, g, h // g, d)
+    sc = torch.einsum("bigrd,bjgd->bgrij", qf, k.double()) * scale
+    allowed = (torch.arange(s - n, s, device=q.device)[:, None]
+               >= torch.arange(s, device=q.device)[None, :])
+    sc = torch.where(allowed, sc, float("-inf"))
+    z = torch.exp(sc - sc.amax(-1, keepdim=True))
+    out = torch.einsum("bgrij,bjgd->bigrd", z / z.sum(-1, keepdim=True),
+                       v.double())
+    return out.reshape(b, n, h, d)
+
+
+def _f32_plain(A, q, k, v):
+    """The plain path's float32 output (its f32 result before the cast)."""
+    with torch.no_grad():
+        return A._sdpa_plain(q.float(), k.float(), v.float(), True, None)
+
+
+def gqa_bound_ms(b: int, s: int) -> float:
+    """The causal call's model FLOPs (Q K^T and P V at or below the
+    diagonal) at the card's bf16 dense rate."""
+    return 4 * b * GQA_HEADS * GQA_DIM * s * s / 2 / roofline.PEAK_FLOPS * 1e3
+
+
+def gqa_main_path_launches(dev) -> Dict[str, int]:
+    """The fused kernel's launches on the main path at the benchmark's
+    calls (:data:`GQA_CALLS`), each counted from 0 just before its run:
+    internlm2-1.8b's prefill forward on 1 x 32,768 tokens
+    (``logits_mode="last"``: one a layer) and one training microbatch of
+    2 x 4,096 (``train_loop.grads_of``: one a layer in the forward and one
+    in the block remat's recompute). Raises on any other count or any
+    other kernel."""
+    cfg = lm_registry.get_config(DENSE_ARCH)
+    params = lm.init_params(torch.Generator(device=dev).manual_seed(0), cfg,
+                            device=dev)
+    rng = np.random.default_rng(32)
+    (_, pb, ps), (_, tb, ts) = GQA_CALLS
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (pb, ps))
+                              ).to(dev)
+    ids = rng.integers(0, cfg.vocab_size, (tb, ts + 1))
+    batch = {"tokens": ids[:, :-1], "labels": ids[:, 1:]}
+    runs = {"prefill": (lambda: lm.forward(params, cfg, tokens,
+                                            logits_mode="last"),
+                        gqa_calls(cfg)),
+            "train": (lambda: TL.grads_of(params, cfg, batch),
+                      gqa_train_calls(cfg, 1))}
+    out = {}
+    for name, (run, want) in runs.items():
+        torch.cuda.synchronize()
+        reset_launches()
+        if name == "prefill":
+            with torch.no_grad():
+                run()
+        else:
+            run()
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in launch_counts().items() if v}
+        if counts != {ATTENTION_KERNEL: want}:
+            raise AssertionError(f"gqa_attention: the {name} run launched "
+                                 f"{counts}, expected {want} of "
+                                 f"{ATTENTION_KERNEL}")
+        out[name] = want
+    del params, tokens
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_gqa_attention(dev, smi) -> None:
+    """The fused GQA attention kernel (``kernels/gqa_attention.py``) at the
+    benchmark's two calls: its device time (profiler) beside the bound,
+    the plain path's time (``attention._sdpa_plain``, no gradient), the
+    library's (``torch.nn.functional.scaled_dot_product_attention``, a
+    yardstick the port never calls), one kernel a call, the memory a call
+    adds, and its output against the plain path's (at most one bf16 step
+    apart, a step of at least 2^-8 of the row's largest value, or
+    raise). ``launches``: the kernel's launches on the main path at that
+    call (:func:`gqa_main_path_launches`)."""
+    from repro_torch.models import attention as A
+    lib = build.build("gqa_attention")
+    main = gqa_main_path_launches(dev)
+    gen = torch.Generator(device=dev).manual_seed(31)
+    for name, b, s in GQA_CALLS:
+        q, k, v = (torch.randn((b, s, h, GQA_DIM), generator=gen,
+                               device=dev).bfloat16()
+                   for h in (GQA_HEADS, GQA_GROUPS, GQA_GROUPS))
+        scale = A._inv_sqrt(GQA_DIM)
+
+        def kernel():
+            return ga.gqa_attention(q, k, v, True, scale)
+
+        def plain():
+            with torch.no_grad():
+                return A._sdpa_plain(q, k, v, True, None)
+
+        def library():
+            return torch.nn.functional.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                is_causal=True, scale=scale, enable_gqa=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        got = kernel()
+        torch.cuda.synchronize()
+        added = torch.cuda.max_memory_allocated() - base
+        ms, per_call = kernel_ms(kernel, reps=20, key="gqa_attention")
+        want = plain()
+        # bf16 steps of the larger magnitude, taken at least 2^-8 of the
+        # row's largest (below it the two f32 sums' own rounding, ~1e-5
+        # of the row's scale, exceeds a bf16 step)
+        a, w = got.double().abs(), want.double().abs()
+        big = torch.maximum(a, w)
+        big = torch.maximum(big, big.amax(-1, keepdim=True) * 2.0 ** -8)
+        steps = float(((got.double() - want.double()).abs() / torch.exp2(
+            torch.floor(torch.log2(big.clamp_min(2.0 ** -126))) - 7)).max())
+        del want, a, w, big, got
+        # float32 outputs of the last GQA_CHECK_ROWS queries (every key)
+        # against float64: each row's error norm over its norm
+        tail = slice(s - GQA_CHECK_ROWS, s)
+        f64 = _tail_f64(q, k, v, scale, GQA_CHECK_ROWS)
+        errs = {}
+        for label, out in (
+                ("kernel", ga.gqa_attention(q, k, v, True, scale,
+                                            torch.float32)[:, tail]),
+                ("plain", _f32_plain(A, q, k, v)[:, tail])):
+            errs[label] = float(((out.double() - f64).norm(dim=-1)
+                                 / f64.norm(dim=-1)).max())
+        del f64, out
+        plain_ms = time_ms(plain, reps=3, warmup=1)
+        library_ms = time_ms(library, reps=20, warmup=2)
+        bound = gqa_bound_ms(b, s)
+        emit("gqa_attention", call=name, shape=[b, s, GQA_HEADS, GQA_DIM],
+             groups=GQA_GROUPS, causal=True, device_ms=ms,
+             kernels_per_call=per_call, bound_ms=bound,
+             share_of_peak=None if ms is None else bound / ms,
+             plain_ms=plain_ms, library_ms=library_ms,
+             launches=main[name], max_bf16_steps=steps,
+             f32_row_err_vs_f64=errs["kernel"],
+             plain_f32_row_err_vs_f64=errs["plain"],
+             added_bytes=added, build=str(lib.parent.name),
+             ptxas=ptxas_report("gqa_attention"), nvidia_smi=smi)
+        if steps > 1.0 or per_call != 1 or errs["kernel"] > 2e-5:
+            raise AssertionError(f"gqa_attention at the {name} call: "
+                                 f"{steps} bf16 steps from the plain path, "
+                                 f"f32 row error {errs['kernel']}, "
+                                 f"{per_call} kernels a call")
+        del q, k, v
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 # ====================================================== blocked attention
 
 #: llama3.2-3b at full width, bf16, random weights: 24 heads, which do
 #: not split over a model axis of 16, so one (16, 16) rank of
 #: ``prefill_32k`` scores every head of its 2 rows of 32,768 tokens; depth
-#: cut to ATTN_LAYERS of 28 (each layer's f32 score passes take ~1 s)
+#: cut to ATTN_LAYERS of 28 (the plain path's f32 score passes take ~1 s
+#: a layer)
 ATTN_ARCH = "llama3.2-3b"
 ATTN_B, ATTN_S, ATTN_LAYERS = 2, 32768, 8
 #: the card's peak against the dry run's count of the same step
@@ -4227,18 +4447,22 @@ ATTN_CHECK_S, ATTN_CHECK_BLOCK, ATTN_CHECK_TOL = 4096, 512, 1e-4
 
 
 def phase_attention(dev, smi) -> None:
-    """Attention scored in blocks of queries on the card
-    (``attention._by_query_blocks``). (1) llama3.2-3b's forward
-    (:data:`ATTN_LAYERS` layers, ``logits_mode="last"``, no gradient) on
-    :data:`ATTN_B` x
-    :data:`ATTN_S` tokens, one device: whole scores would need ~200 GB a
-    layer; the card's ``max_memory_allocated`` against the dry run's count
-    of the same step on fake CPU tensors (:func:`repro_torch.launch.dryrun.
-    measure`), within :data:`ATTN_PEAK_TOL` (TF32 on for this run alone:
-    the f32 score products' precision moves no byte). (2) Its float32
-    forward on 2 x :data:`ATTN_CHECK_S` tokens with blocks of
-    :data:`ATTN_CHECK_BLOCK` queries against one block of every query:
-    every logit within :data:`ATTN_CHECK_TOL` of their scale."""
+    """Attention at a length whose whole scores would need ~200 GB a layer:
+    llama3.2-3b's forward (:data:`ATTN_LAYERS` layers,
+    ``logits_mode="last"``, no gradient) on :data:`ATTN_B` x
+    :data:`ATTN_S` tokens, one device. (1) Through the fused kernel, the
+    path the port takes: one launch a layer, and the card's
+    ``max_memory_allocated`` against the dry run's count of the same step
+    on fake CPU tensors (:func:`repro_torch.launch.dryrun.measure`, which
+    models the kernel: its output alone), within :data:`ATTN_PEAK_TOL`.
+    (2) The plain path scored in blocks of queries
+    (``attention._by_query_blocks``; ``attention._sdpa`` set to
+    ``_sdpa_plain`` for this run alone, TF32 on: the f32 score products'
+    precision moves no byte): it must launch no kernel and peak above the
+    kernel's path. (3) The plain path's float32 forward on 2 x
+    :data:`ATTN_CHECK_S` tokens with blocks of :data:`ATTN_CHECK_BLOCK`
+    queries against one block of every query: every logit within
+    :data:`ATTN_CHECK_TOL` of their scale."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     from repro_torch.models import attention as A
     cfg = dataclasses.replace(lm_registry.get_config(ATTN_ARCH),
@@ -4257,37 +4481,63 @@ def phase_attention(dev, smi) -> None:
     params = lm.init_params(torch.Generator(device=dev).manual_seed(0), cfg,
                             device=dev)
     tokens = host.to(dev)
-    gc.collect()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    base = torch.cuda.memory_allocated()
-    tf32 = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = True
-    try:
-        t0 = time.perf_counter()
-        logits = step(params, tokens)
+
+    def measured(run):
+        gc.collect()
         torch.cuda.synchronize()
-        ms = 1e3 * (time.perf_counter() - t0)
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = tf32
-    peak = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        return (out, 1e3 * (time.perf_counter() - t0),
+                torch.cuda.max_memory_allocated(), launch_counts())
+    base = torch.cuda.memory_allocated()
+    logits, ms, peak, counts = measured(lambda: step(params, tokens))
     finite = bool(torch.isfinite(logits).all())
     rel = peak / pred["peak_bytes"] - 1
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    sdpa = A._sdpa
+    torch.backends.cuda.matmul.allow_tf32 = True
+    A._sdpa = lambda q, k, v, *, causal, kv_valid=None: A._sdpa_plain(
+        q, k, v, causal, kv_valid)
+    try:
+        plain, plain_ms, plain_peak, plain_counts = measured(
+            lambda: step(params, tokens))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        A._sdpa = sdpa
+    plain_err = float((plain.float() - logits.float()).abs().max()
+                      / plain.float().abs().max())
+    del plain
     emit("attention", run="llama_prefill_rank", arch=cfg.name,
          batch=ATTN_B, seq=ATTN_S, heads=cfg.n_heads, dtype=cfg.dtype,
-         score_block_bytes=A.SCORE_BLOCK_BYTES,
-         queries_per_block=A.SCORE_BLOCK_BYTES // (
-             4 * ATTN_B * cfg.n_heads * ATTN_S),
          whole_scores_bytes_per_layer=4 * ATTN_B * cfg.n_heads * ATTN_S ** 2,
          predicted_peak_bytes=pred["peak_bytes"],
          max_memory_allocated=peak, memory_allocated_before=base,
          peak_over_predicted=peak / pred["peak_bytes"], tol=ATTN_PEAK_TOL,
-         forward_ms=ms, tf32=True, finite=finite,
-         trace_s=pred["trace_s"], nvidia_smi=smi)
+         forward_ms=ms, launches={k: v for k, v in counts.items() if v},
+         finite=finite, trace_s=pred["trace_s"], nvidia_smi=smi)
+    emit("attention", run="llama_prefill_plain", arch=cfg.name,
+         batch=ATTN_B, seq=ATTN_S, score_block_bytes=A.SCORE_BLOCK_BYTES,
+         queries_per_block=A.SCORE_BLOCK_BYTES // (
+             4 * ATTN_B * cfg.n_heads * ATTN_S),
+         max_memory_allocated=plain_peak, forward_ms=plain_ms, tf32=True,
+         launches={k: v for k, v in plain_counts.items() if v},
+         logits_err_over_scale_vs_kernel=plain_err, nvidia_smi=smi)
+    want = {**{k: 0 for k in counts}, ATTENTION_KERNEL: gqa_calls(cfg)}
+    if counts != want or any(plain_counts.values()):
+        raise AssertionError(f"attention: launches {counts} through the "
+                             f"kernel (expected {want}), {plain_counts} on "
+                             f"the plain path")
     if not finite or abs(rel) > ATTN_PEAK_TOL:
         raise AssertionError(f"attention: llama {ATTN_B} x {ATTN_S}: peak "
                              f"{peak} against the dry run's "
                              f"{pred['peak_bytes']}, finite {finite}")
+    if peak >= plain_peak:
+        raise AssertionError(f"attention: the kernel's forward peaks at "
+                             f"{peak}, not below the plain path's "
+                             f"{plain_peak}")
     del logits
     f32 = tree_unflatten(params, [t.float() for t in tree_leaves(params)])
     del params
@@ -4370,7 +4620,9 @@ def launcher_step_fn(argv: List[str]):
 
 def train_paths(root, smi) -> List[Tuple[Path, List[str]]]:
     """The training paths, each one launcher run (``launch.train.main``):
-    internlm2-1.8b (no kernel), mamba2-780m with compression (the SSD scan
+    internlm2-1.8b (the fused attention kernel in each layer's forward and
+    again in its recompute: 2 x 24 launches a microbatch), mamba2-780m
+    with compression (the SSD scan
     in each layer's forward and again in its recompute: 2 x 48 launches a
     microbatch) and deepseek-v2-lite-16b at the smoke size (the MoE gate,
     2 x 2 launches a microbatch). Each run returns its losses, step times
@@ -4419,7 +4671,9 @@ def train_paths(root, smi) -> List[Tuple[Path, List[str]]]:
         per_layer = 2 if cfg.remat == "block" else 1
         launches = None if kernel is None \
             else per_layer * cfg.n_layers * accum * TRAIN_STEPS
-        return Path(name, kernel, run, check, launches=launches), argv
+        return Path(name, kernel, run, check, launches=launches,
+                    attention=gqa_train_calls(cfg, accum * TRAIN_STEPS)), \
+            argv
 
     return [
         path("train_internlm2", TRAIN_DENSE, None, seq=TRAIN_SEQ,
@@ -4565,7 +4819,8 @@ def lm_mesh_train_full(path, argv, ref, root) -> Dict[str, int]:
                              f"single-device run (losses {losses} vs "
                              f"{ref['losses']}; leaves {differ[:5]})")
     for kernel, n in counts.items():
-        expect = path.launches if kernel == path.kernel else 0
+        expect = path.attention if kernel == ATTENTION_KERNEL \
+            else path.launches if kernel == path.kernel else 0
         if n != expect:
             raise AssertionError(f"{name}: {n} launches of {kernel}, "
                                  f"expected {expect}")
@@ -4943,9 +5198,12 @@ def phase_dryrun(dev, smi, root) -> None:
     difference named op by op, then raised), ``torch.cuda.
     max_memory_allocated`` of that step within :data:`COUNTER_PEAK_TOL` of
     the predicted peak, and the predicted compute and memory terms beside
-    the measured time of a second step. The two donated steps must equal
-    two functional ones from the same initial state: losses and each
-    leaf's checksum (:func:`leaf_checksums`)."""
+    the measured time of a second step. The step takes the fused
+    attention kernel, as the launcher does (its operator counted at its
+    model FLOPs on both sides; one launch a layer in each microbatch's
+    forward and recompute). The two donated steps must equal two
+    functional ones from the same initial state: losses and each leaf's
+    checksum (:func:`leaf_checksums`)."""
     import os
     env = dict(os.environ)
     env["PYTHONPATH"] = str(ROOT / "src")
@@ -5011,6 +5269,13 @@ def phase_dryrun(dev, smi, root) -> None:
         raise AssertionError(f"dryrun: argument bytes "
                              f"{counter['argument_bytes']} against the "
                              f"card's state {counter['real_state_bytes']}")
+    if counter["attention_launches"] \
+            != counter["attention_launches_expected"]:
+        raise AssertionError(f"dryrun: the step launched the fused "
+                             f"attention kernel "
+                             f"{counter['attention_launches']} times, "
+                             f"expected "
+                             f"{counter['attention_launches_expected']}")
     if counter["flops"] != counter["real_flops"]:
         raise AssertionError(f"dryrun: FLOPs {counter['flops']} against "
                              f"the card's {counter['real_flops']}: "
@@ -5057,9 +5322,13 @@ def _dryrun_counter(dev, smi, root) -> Dict[str, Any]:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
+    # the fused attention kernel is the operator repro::gqa_attention,
+    # counted at its model FLOPs here as on the fake tensors
+    reset_launches()
     with FlopCounterMode(display=False) as counter:
         state, m0 = step(state, batch)
     torch.cuda.synchronize()
+    attention = ga.LAUNCHES[ATTENTION_KERNEL]
     peak = torch.cuda.max_memory_allocated()
     real_by_op = {str(k): int(v) for k, v in
                   counter.get_flop_counts().get("Global", {}).items()}
@@ -5103,6 +5372,9 @@ def _dryrun_counter(dev, smi, root) -> Dict[str, Any]:
                 predicted_memory=pred["memory"],
                 max_memory_allocated=peak, memory_allocated_before=base,
                 peak_ratio=peak / pred["peak_bytes"], donate=True,
+                attention_launches=attention,
+                attention_launches_expected=gqa_train_calls(
+                    cfg, tcfg.grad_accum),
                 losses=losses, functional_losses=f_losses,
                 functional_max_memory_allocated=f_peak,
                 leaves_checked=len(sums),
@@ -5227,6 +5499,7 @@ def smoke(root: str) -> int:
         kernel_of.update(family_kernels)
         gc.collect()
         torch.cuda.empty_cache()
+    phase_gqa_attention(dev, smi)
     phase_attention(dev, smi)
     phase_train_checks(dev, root)
     phase_train_autograd(dev, smi)

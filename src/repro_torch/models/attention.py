@@ -30,9 +30,11 @@ from typing import Callable, Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 import torch.utils.checkpoint
+from torch._subclasses.fake_tensor import is_fake
 
 from repro_torch import tracing
 from repro_torch.configs.base import MLAConfig, ModelConfig
+from repro_torch.kernels import gqa_attention as K
 from repro_torch.models import layers as L
 
 NEG_INF = -1e30
@@ -155,6 +157,12 @@ def gqa_init(generator: torch.Generator, cfg: ModelConfig,
     }
 
 
+def _block_queries(row_bytes: int) -> int:
+    """The queries a block of scores holds: as many as fit
+    :data:`SCORE_BLOCK_BYTES` at ``row_bytes`` a query, at least one."""
+    return max(1, SCORE_BLOCK_BYTES // max(1, row_bytes))
+
+
 def _by_query_blocks(fn: Callable[..., torch.Tensor],
                      queries: Tuple[torch.Tensor, ...], row_bytes: int,
                      keys: Tuple[torch.Tensor, ...]) -> torch.Tensor:
@@ -168,7 +176,7 @@ def _by_query_blocks(fn: Callable[..., torch.Tensor],
     sq = queries[0].shape[1]
     remat = torch.is_grad_enabled() and any(
         t.requires_grad for t in queries + keys)
-    n = max(1, SCORE_BLOCK_BYTES // max(1, row_bytes))
+    n = _block_queries(row_bytes)
     outs = []
     for lo in range(0, sq, n):
         part = tuple(t[:, lo:lo + n] for t in queries)
@@ -181,19 +189,93 @@ def _by_query_blocks(fn: Callable[..., torch.Tensor],
 def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
           causal: bool,
           kv_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """q (B,Sq,H,D); k/v (B,Sk,G,D) with H = G*rep. f32 softmax, over
-    blocks of queries (:func:`_by_query_blocks`)."""
+    """q (B,Sq,H,D); k/v (B,Sk,G,D) with H = G*rep. f32 softmax. Without a
+    validity mask, bf16 operands the kernel takes
+    (:func:`repro_torch.kernels.gqa_attention.supported`) go through
+    :class:`_GQAAttention` (the fused kernel on CUDA); the rest, decode
+    with a cache among them, through :func:`_sdpa_plain`."""
+    with tracing.span("attention.scores"):
+        if kv_valid is None and K.supported(q, k, v):
+            return _GQAAttention.apply(q, k, v, causal)
+        return _sdpa_plain(q, k, v, causal, kv_valid)
+
+
+def _sdpa_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                causal: bool, kv_valid: Optional[torch.Tensor]
+                ) -> torch.Tensor:
+    """The plain path of :func:`_sdpa`: f32 copies of K and V, every key
+    scored over blocks of queries (:func:`_by_query_blocks`)."""
     b, sq, h, dh = q.shape
     sk = k.shape[1]
-    with tracing.span("attention.scores"):
+    rows = torch.arange(sq, device=q.device)[None]
+    # (B, G, D, Sk) and (B, G, Sk, D): the keys and values every block reads
+    kt = L._f32(k).permute(0, 2, 3, 1).contiguous()
+    vf = L._f32(v).permute(0, 2, 1, 3).contiguous()
+    return _by_query_blocks(
+        lambda qb, ib: _sdpa_block(qb, ib[0], kt, vf, causal, kv_valid),
+        (q, rows), 4 * b * h * sk, (kt, vf))
+
+
+class _GQAAttention(torch.autograd.Function):
+    """:func:`_sdpa` without a validity mask, on operands the kernel takes.
+    Forward: on CUDA the fused kernel
+    (:func:`repro_torch.kernels.gqa_attention.gqa_attention`, under the span
+    ``attention.kernel``), and on fake tensors (the dry run) the kernel's
+    operator, which allocates only its output; on the CPU the plain
+    blocked path (no gradient is recorded inside a function's forward);
+    q, k and v are saved.
+    Backward: the plain path recomputed one block of queries at a time
+    (the blocks of :func:`_by_query_blocks`), each once, with a gradient,
+    on detached leaves (the block's queries, the f32 keys and values), and
+    the gradients of those leaves taken (``torch.autograd.grad``): the work
+    the plain path's checkpointed blocks do in their backward. The keys'
+    and values' gradients are summed in f32 over the blocks, last block
+    first as autograd sums them, and cast once."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v)
+        if q.device.type == "cuda" or is_fake(q):
+            with tracing.span("attention.kernel"):
+                return K.gqa_attention(q, k, v, causal, _inv_sqrt(q.shape[3]),
+                                       q.dtype)
+        return _sdpa_plain(q, k, v, causal, None)
+
+    @staticmethod
+    def backward(ctx, grad):
+        q, k, v = ctx.saved_tensors
+        need_q, need_k, need_v = ctx.needs_input_grad[:3]
+        b, sq, h, _ = q.shape
+        sk = k.shape[1]
         rows = torch.arange(sq, device=q.device)[None]
-        # (B, G, D, Sk) and (B, G, Sk, D): the keys and values every block
-        # reads
-        kt = L._f32(k).permute(0, 2, 3, 1).contiguous()
-        vf = L._f32(v).permute(0, 2, 1, 3).contiguous()
-        return _by_query_blocks(
-            lambda qb, ib: _sdpa_block(qb, ib[0], kt, vf, causal, kv_valid),
-            (q, rows), 4 * b * h * sk, (kt, vf))
+        kt = L._f32(k).permute(0, 2, 3, 1).contiguous().requires_grad_(need_k)
+        vf = L._f32(v).permute(0, 2, 1, 3).contiguous().requires_grad_(need_v)
+        dqs, dkt, dvf = [], None, None
+        n = _block_queries(4 * b * h * sk)
+        for lo in reversed(range(0, sq, n)):
+            qb = q[:, lo:lo + n].detach().requires_grad_(need_q)
+            leaves = [t for t in (qb, kt, vf) if t.requires_grad]
+            with torch.enable_grad():
+                out = _sdpa_block(qb, rows[0, lo:lo + n], kt, vf, ctx.causal,
+                                  None)
+            grads = dict(zip(map(id, leaves), torch.autograd.grad(
+                out, leaves, grad[:, lo:lo + n])))
+            if need_q:
+                dqs.append(grads[id(qb)])
+            if need_k:
+                g = grads[id(kt)]
+                dkt = g if dkt is None else dkt + g
+            if need_v:
+                g = grads[id(vf)]
+                dvf = g if dvf is None else dvf + g
+        # the blocks' query gradients joined once the blocks are done (a
+        # buffer filled block by block would be held at their peak)
+        dq = (dqs[0] if len(dqs) == 1 else torch.cat(dqs[::-1], dim=1)) \
+            if need_q else None
+        dk = None if dkt is None else dkt.permute(0, 3, 1, 2).to(k.dtype)
+        dv = None if dvf is None else dvf.permute(0, 2, 1, 3).to(v.dtype)
+        return dq, dk, dv, None
 
 
 def _sdpa_block(q: torch.Tensor, rows: torch.Tensor, kt: torch.Tensor,

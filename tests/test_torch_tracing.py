@@ -37,6 +37,9 @@ STEP_PARENTS = {
     # backward (on the CPU the engine runs on the calling thread)
     "attention.scores": {"model.forward", "train_step.backward"},
 }
+#: on the card, also the fused attention kernel's launch, inside
+#: ``attention.scores``
+CARD_STEP_PARENTS = {**STEP_PARENTS, "attention.kernel": {"attention.scores"}}
 
 
 @pytest.fixture(autouse=True)
@@ -209,8 +212,10 @@ def test_cuda_device_times_lie_inside_the_host_intervals():
         torch.cuda.synchronize()
         t_sync = time.perf_counter()
     recs = tracing.records()
-    assert {r["name"] for r in recs} == set(STEP_PARENTS)
+    assert {r["name"] for r in recs} == set(CARD_STEP_PARENTS)
     for r in recs:
         assert 0 < r["device_s"] <= t_sync - r["t0"], r
+        if r["name"] == "attention.kernel":
+            assert recs[r["parent"]]["name"] == "attention.scores", r
     counted = [r["counters"] for r in recs if r["name"] == "train_step"]
     assert set(tracing.ALLOC_KEYS) <= set(counted[0])
